@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`openwhisk_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line:
+  1. card     the card's name and power limit (nvidia-smi)
+  2. build    both placement kernels built with nvcc for sm_90a from
+              openwhisk_tpu_torch/csrc (one nvcc per source, in parallel)
+  3. kernels  each kernel against its plain PyTorch version on the card at
+              the full geometry (10,000 invokers padded to N = 16,384,
+              A = 4,096 concurrency slots): the scan at B in {8, 16}, the
+              repair at B in {32, 256, 1024}, with and without a penalty,
+              over six traffic families. Bit-exact: chosen, forced, rounds,
+              free and conc. Times from CUDA events at B = 16 / 256.
+  4. main     `BalancerCore(device="cuda")` over 10,000 invokers of
+              8,192 MB (managed 0.9 / blackbox 0.1, max_batch 256,
+              action_slots 4096): warm-up, full 256-row batches of a
+              Zipf(1.1) mix over 2,000 actions with completions 1-8 steps
+              later and 1% of the invokers flapping every 20 steps, a
+              trickle of 1-16-row steps (the scan kernel) and an overload
+              burst under a blackbox outage (forced placements). The first
+              110 steps are replayed through `BalancerCore(device="cpu")`
+              and must agree in decisions, rounds and books.
+  5. a `{"kernels": [...]}` JSON line, then the card line, then the last
+     line `{"ok": true, "device": {...}}`.
+
+Any failure raises, so the script exits non-zero and prints no last line;
+without a CUDA card, or outside the repository, it fails at once.
+
+bound_ms is the least time the card could take for the kernel's work: the
+larger of (bytes it must move) / 3.35 TB/s and (key evaluations, one per
+request and invoker) / 33.5 T int32 ops/s (half the 67 TFLOP/s float32
+rate: Hopper issues 64 int32 against 128 float32 operations per SM and
+clock). The bytes are the request matrix, free and health read once, each
+distinct conc row the batch reads once, and the outputs: chosen, forced,
+rounds and the book cells that changed.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_INV, N_PAD, A = 10_000, 16_384, 4_096
+MANAGED, BLACKBOX = int(0.9 * N_INV), int(0.1 * N_INV)
+MEM_MB = 8_192
+MAX_BATCH = 256
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 33.5e12
+FAMILIES = ("memory", "burst", "container", "overload", "unhealthy", "oob")
+CPU_STEPS = 110
+DEVICE = "cuda"
+
+
+def say(tag, **kw):
+    print(json.dumps({"phase": tag, **kw}), flush=True)
+
+
+def require(cond, what):
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+# ---------------------------------------------------------------- phase 3
+def _inv(rng, size):
+    st = rng.randint(1, size + 1)
+    while math.gcd(int(st), int(size)) != 1:
+        st = rng.randint(1, size + 1)
+    return pow(int(st), -1, int(size)) if size > 1 else 0
+
+
+def make_case(family, b, seed, torch, P):
+    """Books and a request batch on the card for one traffic family."""
+    rng = np.random.RandomState(seed)
+    bb = rng.rand(b) < 0.1
+    off = np.where(bb, MANAGED, 0)
+    size = np.where(bb, BLACKBOX, MANAGED)
+    home = rng.randint(0, 1 << 30, b) % size
+    step_inv = np.array([_inv(rng, s) for s in size])
+    need = rng.choice([128, 256, 512, 1024, 2048], b)
+    slot = rng.randint(0, A, b)
+    maxc = np.ones(b, int)
+    rand = rng.randint(0, 1 << 30, b) % size
+    valid = rng.rand(b) < 0.95
+    free = np.zeros(N_PAD, np.int32)
+    free[:N_INV] = MEM_MB
+    health = np.zeros(N_PAD, bool)
+    health[:N_INV] = True
+    conc_p = 0.02
+    if family == "burst":  # same-action runs onto nearly full invokers
+        act = rng.randint(0, 4, b)
+        off, size = np.zeros(b, int), np.full(b, MANAGED)
+        home = rng.randint(0, MANAGED, 4)[act]
+        step_inv = np.array([_inv(rng, MANAGED) for _ in range(4)])[act]
+        slot, need = rng.randint(0, A, 4)[act], np.full(b, 256)
+        free[:N_INV] = rng.randint(0, 1024, N_INV)
+    elif family == "container":  # container-open rows on shared slots
+        maxc = np.where(rng.rand(b) < 0.7, rng.randint(2, 17, b), 1)
+        slot = rng.randint(0, 8, b)
+        conc_p = 0.3
+    elif family == "overload":  # demand far above capacity
+        free[:N_INV] = np.where(rng.rand(N_INV) < 0.01, 2048, 0)
+        need = rng.choice([1024, 2048], b)
+    elif family == "unhealthy":  # half the fleet down, random windows
+        health[:N_INV] = rng.rand(N_INV) < 0.5
+        off = rng.randint(0, N_INV // 2, b)
+        size = rng.randint(1, N_INV + 1, b) % (N_INV - off) + 1
+        home = rng.randint(0, 1 << 30, b) % size
+        step_inv = np.array([_inv(rng, s) for s in size])
+        rand = rng.randint(0, 1 << 30, b) % size
+    elif family == "oob":  # slots past the slot axis: read clamped, write dropped
+        slot = np.where(rng.rand(b) < 0.25, A + rng.randint(0, 64, b), slot)
+        maxc = np.where(rng.rand(b) < 0.4, rng.randint(2, 9, b), 1)
+        conc_p = 0.2
+    conc = torch.zeros((A, N_PAD), dtype=torch.int32, device=DEVICE)
+    rows = np.unique(np.clip(slot, 0, A - 1))
+    vals = np.where(rng.rand(len(rows), N_PAD) < conc_p,
+                    rng.randint(1, 4, (len(rows), N_PAD)), 0)
+    vals[:, N_INV:] = 0
+    conc[torch.from_numpy(rows).to(DEVICE)] = torch.from_numpy(
+        vals.astype(np.int32)).to(DEVICE)
+    state = P.PlacementState(torch.from_numpy(free).to(DEVICE), conc.T,
+                             torch.from_numpy(health).to(DEVICE))
+    batch = P.request_batch_from_numpy(off, size, home, step_inv, need, slot,
+                                       maxc, rand, valid, device=DEVICE)
+    pen = torch.from_numpy(rng.randint(0, 4, N_PAD).astype(np.int32)).to(
+        DEVICE)
+    return state, batch, pen
+
+
+def clone_state(P, s):
+    return P.PlacementState(s.free_mb.clone(), s.conc_free.T.clone().T,
+                            s.health.clone())
+
+
+def run_pair(kind, state, batch, pen, P, K):
+    """(kernel outputs, plain outputs), each on its own copy of the books."""
+    ks, ps = clone_state(P, state), clone_state(P, state)
+    if kind == "scan":
+        kout = K.schedule_batch_cuda(K.to_transposed(ks), batch, pen)
+        pout = P.schedule_batch(ps, batch, pen)
+    else:
+        kout = K.schedule_batch_repair_cuda(K.to_transposed(ks), batch, pen)
+        pout = P.schedule_batch_repair(ps, batch, pen)
+    return (ks, kout), (ps, pout)
+
+
+def compare(kind, state, batch, pen, P, K, torch):
+    (ks, kout), (ps, pout) = run_pair(kind, state, batch, pen, P, K)
+    torch.cuda.synchronize()
+    err = 0
+    pairs = [(kout[1], pout[1]), (kout[2].int(), pout[2].int()),
+             (ks.free_mb, ps.free_mb), (ks.conc_free, ps.conc_free)]
+    if kind == "repair":
+        pairs.append((kout[3].reshape(1), pout[3].reshape(1)))
+    for x, y in pairs:
+        err = max(err, int((x.long() - y.long()).abs().max()))
+    rounds = int(kout[3]) if kind == "repair" else 0
+    return err, rounds, int(kout[2].sum())
+
+
+def work_bytes_ops(kind, state, batch, P, K):
+    """Bytes the call must move and key evaluations it needs (see the
+    module docstring), from this run's inputs."""
+    (ks, kout), _ = run_pair(kind, state, batch, None, P, K)
+    b = batch.valid.shape[0]
+    slots = batch.conc_slot.clamp(0, A - 1)[batch.valid].unique().numel()
+    changed = (int((ks.free_mb != state.free_mb).sum())
+               + int((ks.conc_free != state.conc_free).sum()))
+    nbytes = 9 * 4 * b + 5 * N_PAD + 4 * N_PAD * slots + 8 * b + 4 \
+        + 4 * changed
+    return nbytes, b * N_PAD
+
+
+def time_ms(fn, restore, torch, reps=15):
+    """Median CUDA-event time of fn(), the books restored before each
+    call (outside the timed window)."""
+    evs = []
+    fn()  # warm
+    for _ in range(reps):
+        restore()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def kernel_phase(torch, P, K):
+    results = {"scan": {"err": 0, "cases": 0},
+               "repair": {"err": 0, "cases": 0, "rounds_max": 0}}
+    seed = 0
+    for family in FAMILIES:
+        for kind, bs in (("scan", (8, 16)), ("repair", (32, 256, 1024))):
+            for b in bs:
+                for use_pen in (False, True):
+                    seed += 1
+                    state, batch, pen = make_case(family, b, seed, torch, P)
+                    err, rounds, n_forced = compare(
+                        kind, state, batch, pen if use_pen else None, P, K,
+                        torch)
+                    r = results[kind]
+                    r["err"] = max(r["err"], err)
+                    r["cases"] += 1
+                    if kind == "repair":
+                        r["rounds_max"] = max(r["rounds_max"], rounds)
+                    say("kernel_case", kernel=kind, family=family, B=b,
+                        penalty=use_pen, max_abs_err=err, rounds=rounds,
+                        forced=n_forced)
+                    require(err == 0, f"{kind} {family} B={b} pen={use_pen}"
+                                      f" differs from plain by {err}")
+                    del state, batch, pen
+    # times at B = 16 and 256, memory-dominant traffic; the kernels line
+    # keeps each kernel's main-path width (scan 16, repair 256)
+    for kind, b in (("scan", 256), ("repair", 16), ("scan", 16),
+                    ("repair", 256)):
+        state, batch, _ = make_case("memory", b, 1000 + b, torch, P)
+        work = clone_state(P, state)
+        kview = K.to_transposed(work)
+
+        def restore():
+            work.free_mb.copy_(state.free_mb)
+            work.conc_free.copy_(state.conc_free)
+
+        kfn = (K.schedule_batch_cuda if kind == "scan"
+               else K.schedule_batch_repair_cuda)
+        pfn = P.schedule_batch if kind == "scan" else P.schedule_batch_repair
+        plain0 = time_ms(lambda: pfn(work, batch), restore, torch)
+        ms = time_ms(lambda: kfn(kview, batch), restore, torch)
+        plain1 = time_ms(lambda: pfn(work, batch), restore, torch)
+        nbytes, ops = work_bytes_ops(kind, state, batch, P, K)
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
+        results[kind].update(
+            B=b, ms=ms, plain_ms=min(plain0, plain1), bytes=nbytes, ops=ops,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        say("kernel_time", kernel=kind, B=b, ms=ms,
+            plain_ms=[plain0, plain1], bytes=nbytes, key_evals=ops,
+            bound_ms=results[kind]["bound_ms"],
+            bound_by=results[kind]["bound_by"])
+        del state, batch, work, kview
+    return results
+
+
+# ---------------------------------------------------------------- phase 4
+class Traffic:
+    """A seeded activation stream against one BalancerCore: a Zipf(1.1)
+    mix over 2,000 actions (memory 128-2048 MB, max_conc 2-16 for a fifth,
+    blackbox for 5%), completions 1-8 steps after placement, 1% of the
+    invokers flapping health every 20 steps."""
+
+    def __init__(self, seed, n_actions=2000):
+        self.rng = rng = np.random.RandomState(seed)
+        p = np.arange(1, n_actions + 1, dtype=float) ** -1.1
+        self.p = p / p.sum()
+        self.mem = rng.choice([128, 256, 512, 1024, 2048], n_actions)
+        self.maxc = np.where(rng.rand(n_actions) < 0.2,
+                             rng.randint(2, 17, n_actions), 1)
+        self.blackbox = rng.rand(n_actions) < 0.05
+        pb = np.where(self.blackbox, self.p, 0.0)
+        self.p_blackbox = pb / pb.sum()
+        self.ns = [f"ns{k % 200}" for k in range(n_actions)]
+        self.fqn = [f"ns{k % 200}/pkg/action{k}" for k in range(n_actions)]
+        self.healthy = np.ones(N_INV, bool)
+        self.due = {}
+        self.step_no = 0
+
+    def flip(self, core, idxs, usable=None):
+        for i in idxs:
+            v = (not self.healthy[i]) if usable is None else usable
+            self.healthy[i] = v
+            core.set_health(int(i), bool(v))
+
+    def advance(self, core, n_rows, blackbox_only=False):
+        rng = self.rng
+        for c in self.due.pop(self.step_no, []):
+            core.complete(*c)
+        if self.step_no and self.step_no % 20 == 0:
+            self.flip(core, rng.choice(N_INV, N_INV // 100, replace=False))
+        acts = rng.choice(len(self.p), n_rows,
+                          p=self.p_blackbox if blackbox_only else self.p)
+        core.submit([core.build_row(self.ns[a], self.fqn[a],
+                                    int(self.mem[a]), int(self.maxc[a]),
+                                    bool(self.blackbox[a])) for a in acts])
+        t0 = time.perf_counter()
+        res = core.step()
+        dt = time.perf_counter() - t0
+        delays = rng.randint(1, 9, len(res.chosen))
+        for k, inv in enumerate(res.chosen):
+            if inv >= 0:
+                self.due.setdefault(self.step_no + int(delays[k]), []).append(
+                    (int(inv), int(res.rows[5, k]), int(res.rows[4, k]),
+                     int(res.rows[6, k]), res.slot_keys[k]))
+        self.step_no += 1
+        return res, dt
+
+
+def schedule():
+    """(name, rows, blackbox_only, outage) per step; the first CPU_STEPS
+    cover warm-up, full batches, trickle and the overload burst."""
+    plan = [("warmup", MAX_BATCH, False, None)] * 4
+    plan += [("full", MAX_BATCH, False, None)] * 56
+    plan += [("trickle", None, False, None)] * 20
+    plan += [("overload", MAX_BATCH, True, "down")]
+    plan += [("overload", MAX_BATCH, True, None)] * 17
+    plan += [("overload", MAX_BATCH, True, "up")]
+    plan += [("overload", MAX_BATCH, True, None)] * 11
+    plan += [("full", MAX_BATCH, False, None)] * 250
+    plan += [("trickle", None, False, None)] * 20
+    return plan
+
+
+def drive(core, traffic, plan):
+    """Run `plan` on core; yields (name, StepResult, seconds) per step."""
+    outage = np.arange(N_INV - BLACKBOX + 10, N_INV)  # 990 blackbox invokers
+    for name, rows, bb_only, out in plan:
+        if out == "down":
+            traffic.flip(core, outage, usable=False)
+        elif out == "up":
+            traffic.flip(core, outage, usable=True)
+        n = rows if rows is not None else int(traffic.rng.randint(1, 17))
+        res, dt = traffic.advance(core, n, blackbox_only=bb_only)
+        yield name, res, dt
+
+
+def main_path_phase(torch, K, BalancerCore):
+    mem = [MEM_MB] * N_INV
+    kw = dict(managed_fraction=0.9, blackbox_fraction=0.1,
+              max_batch=MAX_BATCH, action_slots=A)
+    plan = schedule()
+    gpu = BalancerCore(mem, device=DEVICE, **kw)
+    require(gpu.n_pad == N_PAD, f"n_pad {gpu.n_pad}")
+    traffic = Traffic(seed=7)
+    K.reset_launch_counts()
+    gpu_log, times, rounds = [], {}, []
+    books_at = None
+    forced = placed = 0
+    t_all = time.perf_counter()
+    for k, (name, res, dt) in enumerate(drive(gpu, traffic, plan)):
+        gpu_log.append((res.chosen, res.forced, res.rounds))
+        times.setdefault(name, []).append(dt)
+        if res.bucket >= 32:
+            rounds.append(res.rounds)
+        forced += int(res.forced.sum())
+        placed += int((res.chosen >= 0).sum())
+        require(((res.chosen >= -1) & (res.chosen < N_INV)).all(),
+                "decisions in range")
+        if k + 1 == CPU_STEPS:
+            torch.cuda.synchronize()
+            books_at = gpu.books()
+    wall = time.perf_counter() - t_all
+    launches = {"scan": K.schedule_batch_cuda.launches,
+                "repair": K.schedule_batch_repair_cuda.launches}
+    full = np.array(times["full"]) * 1e3
+    full_placed = sum(int((r[0] >= 0).sum()) for (nm, *_), r in
+                      zip(plan, gpu_log) if nm == "full")
+    free, _, _ = gpu.books()
+    require(np.isfinite(free).all() and free.shape == (N_PAD,), "books")
+    summary = dict(
+        steps=len(plan), wall_s=wall, placed=placed, forced=forced,
+        placements_per_s=full_placed / (full.sum() / 1e3),
+        step_p50_ms=float(np.percentile(full, 50)),
+        step_p99_ms=float(np.percentile(full, 99)),
+        trickle_p50_ms=float(np.percentile(np.array(times["trickle"]) * 1e3,
+                                           50)),
+        mean_repair_rounds=float(np.mean(rounds)), launches=launches,
+        counters=gpu.counters)
+    say("main_path", **summary)
+    require(launches["scan"] > 0 and launches["repair"] > 0,
+            f"both kernels launched on the main path: {launches}")
+    require(forced > 0, "the overload burst forced placements")
+
+    # the same seed and sequence through the plain path on the CPU
+    cpu = BalancerCore(mem, device="cpu", **kw)
+    t0 = time.perf_counter()
+    mismatches = 0
+    for k, (name, res, _) in enumerate(drive(cpu, Traffic(seed=7),
+                                             plan[:CPU_STEPS])):
+        g = gpu_log[k]
+        if not (np.array_equal(res.chosen, g[0])
+                and np.array_equal(res.forced, g[1])
+                and res.rounds == g[2]):
+            mismatches += 1
+    cpu_books = cpu.books()
+    books_equal = all(np.array_equal(x, y)
+                      for x, y in zip(cpu_books, books_at))
+    say("cpu_replay", steps=CPU_STEPS, mismatched_steps=mismatches,
+        books_equal=books_equal, cpu_s=time.perf_counter() - t0)
+    require(mismatches == 0 and books_equal,
+            "card and CPU runs agree in decisions, rounds and books")
+    return summary, launches
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from openwhisk_tpu_torch.controller.loadbalancer.tpu_balancer import \
+        BalancerCore
+    from openwhisk_tpu_torch.ops import _build
+    from openwhisk_tpu_torch.ops import placement as P
+    from openwhisk_tpu_torch.ops import placement_cuda as K
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    say("card", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    _build.build(K.SOURCES)
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in _build.build_logs.items()}
+    say("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+
+    t0 = time.perf_counter()
+    kres = kernel_phase(torch, P, K)
+    say("kernel_phase", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    _summary, launches = main_path_phase(torch, K, BalancerCore)
+    say("main_phase", seconds=time.perf_counter() - t0)
+
+    kernels = []
+    for kind, src, line in (
+            ("scan", "placement_scan.cu", 244),
+            ("repair", "placement_repair.cu", 464)):
+        r = kres[kind]
+        kernels.append({
+            "name": f"placement_{kind}", "route": "cuda",
+            "source": f"openwhisk_tpu_torch/csrc/{src}",
+            "replaces": f"openwhisk_tpu/ops/placement_pallas.py:{line}",
+            "launches": launches[kind], "max_abs_err": r["err"],
+            "match": r["err"] == 0, "B": r["B"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,178 @@
+"""Hand-written Hopper kernels for the placement schedule.
+
+The counterpart of `openwhisk_tpu/ops/placement_pallas.py`:
+
+  `schedule_batch_cuda`        — csrc/placement_scan.cu, the sequential scan
+                                 (replaces `schedule_batch_pallas`)
+  `schedule_batch_repair_cuda` — csrc/placement_repair.cu, speculate-and-
+                                 repair in one persistent block (replaces
+                                 `schedule_batch_repair_pallas`)
+
+Both take the state in the kernel layout (`to_transposed`: conc as [A, N],
+read through its strides, so one slot's row is contiguous) and keep the
+Pallas functions' contracts: (state, chosen, forced) for the scan and
+(state, chosen, forced, rounds) for the repair, bit-exact with the plain
+`schedule_batch` / `schedule_batch_repair` in ops/placement.py. The books
+are updated IN PLACE (the Pallas kernels aliased them); `penalty` is an
+optional int32[N] passed to the kernel as a nullable pointer.
+
+For a CUDA tensor a wrapper launches its kernel or raises; it takes the
+plain version only for tensors on the CPU. Each wrapper counts its
+launches in `.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from . import _build
+from .placement import (I32, PlacementState, RequestBatch, schedule_batch,
+                        schedule_batch_repair)
+
+#: per-row shared memory of the repair kernel (REPAIR_ROW_INTS int32s in
+#: csrc/placement_repair.cu) and the rows a 1,024-thread block can hold
+REPAIR_ROW_BYTES = 26 * 4
+REPAIR_MAX_BATCH = 1024
+#: shared memory one block may opt into on sm_90 (227 KB), less the
+#: kernel's static shared memory
+SMEM_BLOCK_BYTES = 232448 - 16
+
+_VOIDP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "scan": ("placement_scan", "placement_scan_launch",
+             [_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT, _INT,
+              _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+    "repair": ("placement_repair", "placement_repair_launch",
+               [_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT, _INT,
+                _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+}
+_launchers: Dict[str, ctypes._CFuncPtr] = {}
+
+#: the csrc sources of the kernels, for a caller that builds them up front
+SOURCES = tuple(sig[0] for sig in _SIGNATURES.values())
+
+
+def fits_smem_repair(batch: int) -> bool:
+    """Can the repair kernel take a batch of `batch` rows? It keeps
+    REPAIR_ROW_BYTES of shared memory per row and one thread per row."""
+    return (0 < batch <= REPAIR_MAX_BATCH
+            and batch * REPAIR_ROW_BYTES <= SMEM_BLOCK_BYTES)
+
+
+def to_transposed(state: PlacementState) -> PlacementState:
+    """Standard [N, A] state <-> kernel layout ([A, N] conc), as views.
+    Involution."""
+    return PlacementState(state.free_mb, state.conc_free.T, state.health)
+
+
+def _launcher(kind: str):
+    fn = _launchers.get(kind)
+    if fn is None:
+        lib_name, symbol, argtypes = _SIGNATURES[kind]
+        fn = getattr(_build.load(lib_name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _launchers[kind] = fn
+    return fn
+
+
+def _check(state: PlacementState, batch: RequestBatch, penalty):
+    """Validate what the kernels take; returns (n, a, b, reqs int32[9,B])."""
+    free, conc, health = state
+    dev = free.device
+    n = free.shape[0]
+    if conc.dim() != 2 or conc.shape[1] != n:
+        raise ValueError(f"conc must be [A, N={n}] (kernel layout), got "
+                         f"{tuple(conc.shape)}")
+    for name, t, dtype in (("free_mb", free, I32), ("conc", conc, I32),
+                           ("health", health, torch.bool)):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if not (free.is_contiguous() and health.is_contiguous()
+            and health.shape == (n,)):
+        raise ValueError("free_mb and health must be contiguous [N]")
+    if penalty is not None and (penalty.device != dev or penalty.dtype != I32
+                                or penalty.shape != (n,)
+                                or not penalty.is_contiguous()):
+        raise ValueError(f"penalty must be contiguous int32[{n}] on {dev}")
+    cols = list(batch[:8]) + [batch.valid.to(I32)]
+    b = batch.valid.shape[0]
+    for c in cols:
+        if c.device != dev or c.shape != (b,) or c.dtype != I32:
+            raise ValueError(f"request columns must be int32[{b}] on {dev}")
+    return n, conc.shape[0], b, torch.stack(cols).contiguous()
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
+                        penalty=None):
+    """The scan schedule on the card (one launch of placement_scan.cu);
+    state in the kernel layout, books updated in place. Returns (state,
+    chosen int32[B], forced bool[B])."""
+    if not state.free_mb.is_cuda:
+        ts, chosen, forced = schedule_batch(to_transposed(state), batch,
+                                            penalty)
+        return to_transposed(ts), chosen, forced
+    n, a, b, reqs = _check(state, batch, penalty)
+    chosen = torch.empty((b,), dtype=I32, device=reqs.device)
+    forced = torch.empty((b,), dtype=I32, device=reqs.device)
+    if b:
+        rc = _launcher("scan")(
+            reqs.data_ptr(), b, state.health.data_ptr(),
+            state.free_mb.data_ptr(), state.conc_free.data_ptr(),
+            state.conc_free.stride(0), state.conc_free.stride(1), n, a,
+            _ptr(penalty), chosen.data_ptr(), forced.data_ptr(),
+            torch.cuda.current_stream(reqs.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"placement_scan launch failed: CUDA error "
+                               f"{rc}")
+        schedule_batch_cuda.launches += 1
+    return state, chosen, forced.bool()
+
+
+schedule_batch_cuda.launches = 0
+
+
+def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
+                               penalty=None):
+    """The speculate-and-repair schedule on the card (one launch of
+    placement_repair.cu, the whole round loop on the device); state in the
+    kernel layout, books updated in place. Returns (state, chosen
+    int32[B], forced bool[B], rounds int32 scalar). Raises for a batch the
+    kernel cannot hold (`fits_smem_repair`)."""
+    if not state.free_mb.is_cuda:
+        ts, chosen, forced, rounds = schedule_batch_repair(
+            to_transposed(state), batch, penalty)
+        return to_transposed(ts), chosen, forced, rounds
+    n, a, b, reqs = _check(state, batch, penalty)
+    if not fits_smem_repair(b):
+        raise ValueError(f"repair kernel takes 1..{REPAIR_MAX_BATCH} rows "
+                         f"({REPAIR_ROW_BYTES} B of shared memory each), "
+                         f"got B={b}")
+    chosen = torch.empty((b,), dtype=I32, device=reqs.device)
+    forced = torch.empty((b,), dtype=I32, device=reqs.device)
+    rounds = torch.empty((1,), dtype=I32, device=reqs.device)
+    rc = _launcher("repair")(
+        reqs.data_ptr(), b, state.health.data_ptr(),
+        state.free_mb.data_ptr(), state.conc_free.data_ptr(),
+        state.conc_free.stride(0), state.conc_free.stride(1), n, a,
+        _ptr(penalty), chosen.data_ptr(), forced.data_ptr(),
+        rounds.data_ptr(), torch.cuda.current_stream(reqs.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"placement_repair launch failed: CUDA error {rc}")
+    schedule_batch_repair_cuda.launches += 1
+    return state, chosen, forced.bool(), rounds.reshape(())
+
+
+schedule_batch_repair_cuda.launches = 0
+
+
+def reset_launch_counts() -> None:
+    schedule_batch_cuda.launches = 0
+    schedule_batch_repair_cuda.launches = 0
