@@ -5,37 +5,55 @@
 
 Phases, each reported on its own line:
   1. card     the card's name and power limit (nvidia-smi)
-  2. build    both placement kernels built with nvcc for sm_90a from
-              openwhisk_tpu_torch/csrc (one nvcc per source, in parallel)
+  2. build    the placement kernels (and the grid-barrier probe) built with
+              nvcc for sm_90a from openwhisk_tpu_torch/csrc, one nvcc per
+              source, in parallel
   3. kernels  each kernel against its plain PyTorch version on the card at
               the full geometry (10,000 invokers padded to N = 16,384,
               A = 4,096 concurrency slots): the scan at B in {8, 16}, the
               repair at B in {32, 256, 1024}, with and without a penalty,
               over six traffic families. Bit-exact: chosen, forced, rounds,
-              free and conc. Times from CUDA events at B = 16 / 256.
+              free and conc. Times from CUDA events at B = 16 / 256 on
+              memory-dominant traffic, with and without the penalty.
   4. main     `BalancerCore(device="cuda")` over 10,000 invokers of
               8,192 MB (managed 0.9 / blackbox 0.1, max_batch 256,
               action_slots 4096): warm-up, full 256-row batches of a
               Zipf(1.1) mix over 2,000 actions with completions 1-8 steps
               later and 1% of the invokers flapping every 20 steps, a
               trickle of 1-16-row steps (the scan kernel) and an overload
-              burst under a blackbox outage (forced placements). The first
-              110 steps are replayed through `BalancerCore(device="cpu")`
-              and must agree in decisions, rounds and books.
-  5. a `{"kernels": [...]}` JSON line, then the card line, then the last
+              burst under a blackbox outage (forced placements). Steps
+              150-179 run under `torch.profiler` (the "profile" line:
+              device time by kernel kind, the device's idle share and
+              longest idle gaps, host time and device span of each phase of
+              the fused step, the repair kernel's ms per launch and per
+              round); the inputs of step 200's repair launch are kept. The
+              first 110 steps are replayed through
+              `BalancerCore(device="cpu")` and must agree in decisions,
+              rounds and books.
+  5. the repair kernel on the kept main-path batch: held against the plain
+     version, timed with and without a penalty, with its bound from the
+     same inputs; its cost per round on serial batches (one commit a
+     round); one grid barrier at its launch shape.
+  6. a `{"kernels": [...]}` JSON line, then the card line, then the last
      line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
 without a CUDA card, or outside the repository, it fails at once.
 
 bound_ms is the least time the card could take for the kernel's work: the
-larger of (bytes it must move) / 3.35 TB/s and (key evaluations, one per
-request and invoker) / 33.5 T int32 ops/s (half the 67 TFLOP/s float32
-rate: Hopper issues 64 int32 against 128 float32 operations per SM and
-clock). The bytes are the request matrix, free and health read once, each
-distinct conc row the batch reads once, and the outputs: chosen, forced,
-rounds and the book cells that changed.
+larger of (bytes it must move) / 3.35 TB/s and (key evaluations) /
+33.5 T int32 ops/s (half the 67 TFLOP/s float32 rate: Hopper issues 64
+int32 against 128 float32 operations per SM and clock), counting one
+operation a key. The key evaluations are what the exact algorithm needs on
+these inputs: one forced-rotation key per valid row and column of its
+partition window, plus one probe key per column of the window for every
+probe (the scan probes each row once, the repair each pending row in
+every round). The bytes are the request matrix, free and health over the
+windows' union, each distinct conc row over the union of its rows'
+windows, read once, and the outputs: chosen, forced, rounds and the book
+cells that changed.
 """
+import ctypes
 import json
 import math
 import subprocess
@@ -43,6 +61,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 N_INV, N_PAD, A = 10_000, 16_384, 4_096
 MANAGED, BLACKBOX = int(0.9 * N_INV), int(0.1 * N_INV)
@@ -162,17 +181,50 @@ def compare(kind, state, batch, pen, P, K, torch):
     return err, rounds, int(kout[2].sum())
 
 
-def work_bytes_ops(kind, state, batch, P, K):
-    """Bytes the call must move and key evaluations it needs (see the
-    module docstring), from this run's inputs."""
-    (ks, kout), _ = run_pair(kind, state, batch, None, P, K)
+def work_bytes_ops(kind, state, batch, pen, P):
+    """Bytes the call must move and key evaluations the exact algorithm
+    needs (see the module docstring), from this run's inputs: the plain
+    version runs once on a copy of the books and reports the pending rows
+    of every repair round."""
+    ps = clone_state(P, state)
+    pending = []
+    if kind == "scan":
+        P.schedule_batch(ps, batch, pen)
+    else:
+        P.schedule_batch_repair(ps, batch, pen,
+                                on_round=lambda p: pending.append(
+                                    p.cpu().numpy()))
+    n = state.free_mb.shape[0]
+    a = state.conc_free.shape[1]
     b = batch.valid.shape[0]
-    slots = batch.conc_slot.clamp(0, A - 1)[batch.valid].unique().numel()
-    changed = (int((ks.free_mb != state.free_mb).sum())
-               + int((ks.conc_free != state.conc_free).sum()))
-    nbytes = 9 * 4 * b + 5 * N_PAD + 4 * N_PAD * slots + 8 * b + 4 \
-        + 4 * changed
-    return nbytes, b * N_PAD
+    off = batch.offset.cpu().numpy().astype(np.int64)
+    lo = np.clip(off, 0, n)
+    hi = np.clip(off + batch.size.cpu().numpy(), lo, n)
+    valid = batch.valid.cpu().numpy()
+    width = np.where(valid, hi - lo, 0)
+    # one forced-rotation key per valid row and window column, plus one
+    # probe key per window column for every probe (the scan probes each
+    # row once, the repair each pending row in every round)
+    keys = int(width.sum()) + (int(width.sum()) if kind == "scan" else
+                               sum(int(width[p].sum()) for p in pending))
+    cols = np.zeros(n, bool)
+    slot = np.clip(batch.conc_slot.cpu().numpy(), 0, a - 1)
+    slot_cols = {}
+    for i in np.nonzero(valid)[0]:
+        cols[lo[i]:hi[i]] = True
+        slot_cols.setdefault(slot[i], np.zeros(n, bool))[lo[i]:hi[i]] = True
+    conc_cells = sum(int(m.sum()) for m in slot_cols.values())
+    changed = (int((ps.free_mb != state.free_mb).sum())
+               + int((ps.conc_free != state.conc_free).sum()))
+    nbytes = (9 * 4 * b + 5 * int(cols.sum()) + 4 * conc_cells + 8 * b
+              + (4 if kind == "repair" else 0) + 4 * changed)
+    return nbytes, keys, len(pending)
+
+
+def bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def time_ms(fn, restore, torch, reps=15):
@@ -216,11 +268,13 @@ def kernel_phase(torch, P, K):
                     require(err == 0, f"{kind} {family} B={b} pen={use_pen}"
                                       f" differs from plain by {err}")
                     del state, batch, pen
-    # times at B = 16 and 256, memory-dominant traffic; the kernels line
-    # keeps each kernel's main-path width (scan 16, repair 256)
+    # times at B = 16 and 256 on memory-dominant traffic (one or two
+    # repair rounds); the kernels line keeps the scan's main-path width
+    # (16) from here and the repair's from the main path's own batch
+    # (main_path_kernel)
     for kind, b in (("scan", 256), ("repair", 16), ("scan", 16),
                     ("repair", 256)):
-        state, batch, _ = make_case("memory", b, 1000 + b, torch, P)
+        state, batch, pen = make_case("memory", b, 1000 + b, torch, P)
         work = clone_state(P, state)
         kview = K.to_transposed(work)
 
@@ -234,18 +288,122 @@ def kernel_phase(torch, P, K):
         plain0 = time_ms(lambda: pfn(work, batch), restore, torch)
         ms = time_ms(lambda: kfn(kview, batch), restore, torch)
         plain1 = time_ms(lambda: pfn(work, batch), restore, torch)
-        nbytes, ops = work_bytes_ops(kind, state, batch, P, K)
-        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
-        results[kind].update(
-            B=b, ms=ms, plain_ms=min(plain0, plain1), bytes=nbytes, ops=ops,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        say("kernel_time", kernel=kind, B=b, ms=ms,
-            plain_ms=[plain0, plain1], bytes=nbytes, key_evals=ops,
-            bound_ms=results[kind]["bound_ms"],
-            bound_by=results[kind]["bound_by"])
+        pen_ms = time_ms(lambda: kfn(kview, batch, pen), restore, torch)
+        pen_plain_ms = time_ms(lambda: pfn(work, batch, pen), restore, torch,
+                               reps=3)
+        nbytes, ops, rounds = work_bytes_ops(kind, state, batch, None, P)
+        pbytes, pops, prounds = work_bytes_ops(kind, state, batch, pen, P)
+        bound_ms, bound_by = bound(nbytes, ops)
+        pen_bound_ms, pen_bound_by = bound(pbytes, pops)
+        row = dict(B=b, ms=ms, plain_ms=min(plain0, plain1), bytes=nbytes,
+                   key_evals=ops, rounds=rounds, bound_ms=bound_ms,
+                   bound_by=bound_by, penalized=dict(
+                       ms=pen_ms, plain_ms=pen_plain_ms, bytes=pbytes,
+                       key_evals=pops,
+                       rounds=prounds, bound_ms=pen_bound_ms,
+                       bound_by=pen_bound_by))
+        if kind == "scan":
+            results[kind].update(row)
+        say("kernel_time", kernel=kind, family="memory", **row,
+            plain_ms_both=[plain0, plain1])
         del state, batch, work, kview
     return results
+
+
+def main_path_kernel(box, torch, P, K):
+    """The repair kernel on one batch of the main path, as the balancer
+    handed it over (books after the step's release and health folds):
+    held against the plain version, timed with and without a penalty,
+    and its bound from the same inputs."""
+    free0, conc0, health = box["state"]
+    batch = box["batch"]
+    work = P.PlacementState(free0.clone(), conc0.clone(), health)
+    std = K.to_transposed(P.PlacementState(free0, conc0, health))
+
+    def restore():
+        work.free_mb.copy_(free0)
+        work.conc_free.copy_(conc0)
+
+    pen = torch.from_numpy(np.random.RandomState(11).randint(
+        0, 4, free0.shape[0]).astype(np.int32)).to(free0.device)
+    out = {}
+    for label, p in (("plain", None), ("penalized", pen)):
+        err, rounds, _ = compare("repair", std, batch, p, P, K, torch)
+        require(err == 0, f"main-path repair ({label}) differs from plain "
+                          f"by {err}")
+        ms = time_ms(lambda: K.schedule_batch_repair_cuda(work, batch, p),
+                     restore, torch, reps=10)
+        nbytes, ops, prounds = work_bytes_ops("repair", std, batch, p, P)
+        require(prounds == rounds, "plain and kernel rounds agree")
+        bound_ms, bound_by = bound(nbytes, ops)
+        out[label] = dict(ms=ms, rounds=rounds, ms_per_round=ms / rounds,
+                          bytes=nbytes, key_evals=ops, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=err)
+        out[label]["plain_ms"] = time_ms(
+            lambda: P.schedule_batch_repair(K.to_transposed(work), batch, p),
+            restore, torch, reps=3)
+    out["B"] = int(batch.valid.shape[0])
+    out["grid"] = K.schedule_batch_repair_cuda.grid
+    say("main_path_kernel", kernel="repair", **out)
+    return out
+
+
+def round_cost(torch, P, K):
+    """The repair kernel's cost per round apart from its probe: B
+    container-opening rows on the same one-invoker window and slot commit
+    one row a round (each later row conflicts with the row before), so
+    rounds = B and every probe reads one invoker a row. Held against the
+    plain version too."""
+    out = {}
+    for b in (32, 256):
+        ones = np.ones(b, int)
+        batch = P.request_batch_from_numpy(
+            0 * ones, ones, 0 * ones, 0 * ones, 128 * ones, 0 * ones,
+            4 * ones, 0 * ones, ones.astype(bool), device=DEVICE)
+        free = np.zeros(N_PAD, np.int32)
+        free[:N_INV] = MEM_MB
+        free[0] = 1 << 30
+        health = np.zeros(N_PAD, bool)
+        health[:N_INV] = True
+        state = P.PlacementState(
+            torch.from_numpy(free).to(DEVICE),
+            torch.zeros((A, N_PAD), dtype=torch.int32, device=DEVICE).T,
+            torch.from_numpy(health).to(DEVICE))
+        err, rounds, _ = compare("repair", state, batch, None, P, K, torch)
+        require(err == 0 and rounds == b, f"serial case B={b}: err {err}, "
+                                          f"rounds {rounds}")
+        work = clone_state(P, state)
+
+        def restore():
+            work.free_mb.copy_(state.free_mb)
+            work.conc_free.copy_(state.conc_free)
+
+        ms = time_ms(lambda: K.schedule_batch_repair_cuda(
+            K.to_transposed(work), batch), restore, torch, reps=10)
+        out[b] = dict(ms=ms, rounds=rounds, us_per_round=ms * 1e3 / rounds)
+    say("round_cost", **{f"B{b}": v for b, v in out.items()})
+    return out
+
+
+def barrier_cost(torch, K, _build):
+    """One cooperative grid barrier at the repair kernel's launch shape:
+    csrc/grid_barrier.cu runs only barriers, timed at two counts."""
+    fn = _build.load("grid_barrier").grid_barrier_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = K.schedule_batch_repair_cuda.grid["blocks"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(syncs):
+        rc = fn(syncs, blocks, stream)
+        require(rc == 0, f"grid_barrier launch: CUDA error {rc}")
+
+    ms = {syncs: time_ms(lambda: run(syncs), lambda: None, torch, reps=10)
+          for syncs in (0, 2000)}
+    us = (ms[2000] - ms[0]) * 1e3 / 2000
+    say("grid_barrier", blocks=blocks, threads=1024, ms=ms,
+        us_per_barrier=us)
+    return us
 
 
 # ---------------------------------------------------------------- phase 4
@@ -289,7 +447,8 @@ class Traffic:
                                     int(self.mem[a]), int(self.maxc[a]),
                                     bool(self.blackbox[a])) for a in acts])
         t0 = time.perf_counter()
-        res = core.step()
+        with torch.profiler.record_function("balancer_step"):
+            res = core.step()
         dt = time.perf_counter() - t0
         delays = rng.randint(1, 9, len(res.chosen))
         for k, inv in enumerate(res.chosen):
@@ -329,22 +488,143 @@ def drive(core, traffic, plan):
         yield name, res, dt
 
 
-def main_path_phase(torch, K, BalancerCore):
+def capture_next_repair(TB):
+    """Route the balancer's repair launches through a wrapper that keeps a
+    copy of the first one's inputs (kernel layout). Returns (box, undo)."""
+    real = TB.schedule_batch_repair_cuda
+    box = {}
+
+    def keep(state, batch, penalty=None):
+        if not box:
+            box["state"] = tuple(t.clone() for t in state)
+            box["batch"] = type(batch)(*(c.clone() for c in batch))
+        return real(state, batch, penalty)
+
+    TB.schedule_batch_repair_cuda = keep
+    return box, lambda: setattr(TB, "schedule_batch_repair_cuda", real)
+
+
+def _kind(name):
+    if "placement_repair" in name:
+        return "repair_kernel"
+    if "placement_scan" in name:
+        return "scan_kernel"
+    if name.startswith("Memcpy") or name.startswith("Memset"):
+        return name.split(" (")[0]
+    return "torch_ops"
+
+
+def _union_ms(intervals, lo, hi):
+    """Length of the union of (start, end) intervals clipped to [lo, hi)."""
+    busy, end = 0.0, lo
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+            end = e
+    return busy
+
+
+def device_profile(prof, torch, rounds):
+    """Device time by kernel kind, the device's idle share over the
+    profiled window and inside the steps (host range "balancer_step"), its
+    longest idle gaps, the host time and device span of each named phase
+    of the fused step, and the repair kernel's time per launch and per
+    round."""
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, \
+        torch.autograd.DeviceType.CUDA
+    spans = ("balancer_step", "release_fold", "health_fold", "schedule")
+    evs = prof.events()
+    host = {k: [] for k in spans}
+    gpu_span = {k: [] for k in spans}
+    for e in evs:
+        if e.name in spans:
+            (host if e.device_type == cpu_t else gpu_span)[e.name].append(
+                (e.time_range.start, e.time_range.end))
+    steps = host["balancer_step"]
+    t0, t1 = min(s for s, _ in steps), max(e for _, e in steps)
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in evs
+                 if e.device_type == cuda_t and e.name not in spans
+                 and t0 <= e.time_range.start < t1)
+    by_kind, by_name, repair_us = {}, {}, []
+    for s, e, name in dev:
+        k = _kind(name)
+        by_kind[k] = by_kind.get(k, 0.0) + (e - s)
+        if k == "torch_ops":
+            by_name[name] = by_name.get(name, 0.0) + (e - s)
+        if k == "repair_kernel":
+            repair_us.append(e - s)
+    gaps, end, prev = [], t0, "window start"
+    for s, e, name in dev:
+        if s > end:
+            gaps.append((s - end, prev, name))
+        if e > end:
+            end, prev = e, name
+    if t1 > end:
+        gaps.append((t1 - end, prev, "window end"))
+    gaps.sort(key=lambda g: -g[0])
+    iv = [(s, e) for s, e, _ in dev]
+    busy = _union_ms(iv, t0, t1)
+    step_us = sum(e - s for s, e in steps)
+    busy_in_steps = sum(_union_ms(iv, s, e) for s, e in steps)
+    phases = {k: dict(
+        calls=len(host[k]),
+        host_ms=sum(e - s for s, e in host[k]) / len(host[k]) / 1e3,
+        device_span_ms=(sum(e - s for s, e in gpu_span[k]) / len(gpu_span[k])
+                        / 1e3 if gpu_span[k] else None))
+        for k in spans if host[k]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ops = sorted(((e.key, e.self_device_time_total) for e in
+                  prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])[:8]
+    n_rounds = sum(rounds)
+    return dict(
+        steps=len(steps), window_ms=(t1 - t0) / 1e3,
+        device_busy_ms=busy / 1e3,
+        device_idle_share=1.0 - busy / (t1 - t0),
+        step_ms=step_us / len(steps) / 1e3,
+        device_idle_share_in_steps=1.0 - busy_in_steps / step_us,
+        device_ms_by_kind={k: v / 1e3 for k, v in by_kind.items()},
+        top_torch_kernels_ms=[(n[:80], v / 1e3) for n, v in top],
+        top_ops_self_device_ms=[(n[:60], v / 1e3) for n, v in ops],
+        longest_idle_gaps=[dict(ms=g / 1e3, after=a[:60], before=b[:60])
+                           for g, a, b in gaps[:5]],
+        phases=phases, repair_launches=len(repair_us),
+        repair_ms_per_launch=(float(np.mean(repair_us)) / 1e3
+                              if repair_us else None),
+        repair_rounds=n_rounds,
+        repair_ms_per_round=(sum(repair_us) / 1e3 / n_rounds
+                             if n_rounds else None))
+
+
+#: steps of the main path's second full segment that are profiled, and the
+#: step whose repair inputs are kept for main_path_kernel; both are left
+#: out of the step-latency statistics
+PROFILE_FROM, PROFILE_STEPS = 150, 30
+CAPTURE_STEP = 200
+
+
+def main_path_phase(torch, K, TB):
     mem = [MEM_MB] * N_INV
     kw = dict(managed_fraction=0.9, blackbox_fraction=0.1,
               max_batch=MAX_BATCH, action_slots=A)
     plan = schedule()
-    gpu = BalancerCore(mem, device=DEVICE, **kw)
+    gpu = TB.BalancerCore(mem, device=DEVICE, **kw)
     require(gpu.n_pad == N_PAD, f"n_pad {gpu.n_pad}")
     traffic = Traffic(seed=7)
     K.reset_launch_counts()
-    gpu_log, times, rounds = [], {}, []
-    books_at = None
+    gpu_log, times, rounds, prof_rounds = [], {}, [], []
+    books_at = prof = box = undo = None
+    profiled = range(PROFILE_FROM, PROFILE_FROM + PROFILE_STEPS)
     forced = placed = 0
     t_all = time.perf_counter()
     for k, (name, res, dt) in enumerate(drive(gpu, traffic, plan)):
         gpu_log.append((res.chosen, res.forced, res.rounds))
-        times.setdefault(name, []).append(dt)
+        if k in profiled:
+            if res.bucket >= 32:
+                prof_rounds.append(res.rounds)
+        elif k != CAPTURE_STEP:
+            times.setdefault(name, []).append(dt)
         if res.bucket >= 32:
             rounds.append(res.rounds)
         forced += int(res.forced.sum())
@@ -354,16 +634,33 @@ def main_path_phase(torch, K, BalancerCore):
         if k + 1 == CPU_STEPS:
             torch.cuda.synchronize()
             books_at = gpu.books()
+        # the loop body runs between steps k and k + 1
+        if k + 1 == PROFILE_FROM:
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        elif k + 1 == profiled.stop:
+            torch.cuda.synchronize()
+            prof.stop()
+        elif k + 1 == CAPTURE_STEP:
+            box, undo = capture_next_repair(TB)
+        elif k == CAPTURE_STEP:
+            undo()
     wall = time.perf_counter() - t_all
     launches = {"scan": K.schedule_batch_cuda.launches,
                 "repair": K.schedule_batch_repair_cuda.launches}
     full = np.array(times["full"]) * 1e3
-    full_placed = sum(int((r[0] >= 0).sum()) for (nm, *_), r in
-                      zip(plan, gpu_log) if nm == "full")
+    full_placed = sum(int((r[0] >= 0).sum()) for k, ((nm, *_), r) in
+                      enumerate(zip(plan, gpu_log))
+                      if nm == "full" and k not in profiled
+                      and k != CAPTURE_STEP)
     free, _, _ = gpu.books()
     require(np.isfinite(free).all() and free.shape == (N_PAD,), "books")
     summary = dict(
         steps=len(plan), wall_s=wall, placed=placed, forced=forced,
+        full_steps_timed=len(full),
         placements_per_s=full_placed / (full.sum() / 1e3),
         step_p50_ms=float(np.percentile(full, 50)),
         step_p99_ms=float(np.percentile(full, 99)),
@@ -375,9 +672,14 @@ def main_path_phase(torch, K, BalancerCore):
     require(launches["scan"] > 0 and launches["repair"] > 0,
             f"both kernels launched on the main path: {launches}")
     require(forced > 0, "the overload burst forced placements")
+    profile = device_profile(prof, torch, prof_rounds)
+    say("profile", **profile)
+    require(profile["repair_launches"] == len(prof_rounds),
+            "the profile saw every repair launch of its steps")
+    require(box, "a repair launch of the main path was kept")
 
     # the same seed and sequence through the plain path on the CPU
-    cpu = BalancerCore(mem, device="cpu", **kw)
+    cpu = TB.BalancerCore(mem, device="cpu", **kw)
     t0 = time.perf_counter()
     mismatches = 0
     for k, (name, res, _) in enumerate(drive(cpu, Traffic(seed=7),
@@ -394,16 +696,14 @@ def main_path_phase(torch, K, BalancerCore):
         books_equal=books_equal, cpu_s=time.perf_counter() - t0)
     require(mismatches == 0 and books_equal,
             "card and CPU runs agree in decisions, rounds and books")
-    return summary, launches
+    return summary, launches, profile, box
 
 
 def main():
-    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    from openwhisk_tpu_torch.controller.loadbalancer.tpu_balancer import \
-        BalancerCore
+    from openwhisk_tpu_torch.controller.loadbalancer import tpu_balancer as TB
     from openwhisk_tpu_torch.ops import _build
     from openwhisk_tpu_torch.ops import placement as P
     from openwhisk_tpu_torch.ops import placement_cuda as K
@@ -416,7 +716,7 @@ def main():
         cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.build(K.SOURCES)
+    _build.build(K.SOURCES + ("grid_barrier",))
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in _build.build_logs.items()}
@@ -427,23 +727,40 @@ def main():
     say("kernel_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    _summary, launches = main_path_phase(torch, K, BalancerCore)
+    _summary, launches, profile, box = main_path_phase(torch, K, TB)
     say("main_phase", seconds=time.perf_counter() - t0)
 
-    kernels = []
-    for kind, src, line in (
-            ("scan", "placement_scan.cu", 244),
-            ("repair", "placement_repair.cu", 464)):
-        r = kres[kind]
-        kernels.append({
-            "name": f"placement_{kind}", "route": "cuda",
-            "source": f"openwhisk_tpu_torch/csrc/{src}",
-            "replaces": f"openwhisk_tpu/ops/placement_pallas.py:{line}",
-            "launches": launches[kind], "max_abs_err": r["err"],
-            "match": r["err"] == 0, "B": r["B"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
-            "library_ms": None})
+    t0 = time.perf_counter()
+    mk = main_path_kernel(box, torch, P, K)
+    del box
+    round_cost(torch, P, K)
+    barrier_cost(torch, K, _build)
+    say("main_kernel_phase", seconds=time.perf_counter() - t0)
+
+    scan = kres["scan"]
+    rep = mk["plain"]
+    kernels = [
+        {"name": "placement_scan", "route": "cuda",
+         "source": "openwhisk_tpu_torch/csrc/placement_scan.cu",
+         "replaces": "openwhisk_tpu/ops/placement_pallas.py:244",
+         "launches": launches["scan"], "max_abs_err": scan["err"],
+         "B": scan["B"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
+         "library_ms": None, "penalized": scan["penalized"]},
+        {"name": "placement_repair", "route": "cuda",
+         "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
+         "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
+         "launches": launches["repair"],
+         "max_abs_err": max(kres["repair"]["err"], rep["max_abs_err"]),
+         "B": mk["B"], "grid": mk["grid"], "ms": rep["ms"],
+         "rounds": rep["rounds"], "ms_per_round": rep["ms_per_round"],
+         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+         "bound_by": rep["bound_by"], "key_evals": rep["key_evals"],
+         "library_ms": None,
+         "main_path_ms_per_launch": profile["repair_ms_per_launch"],
+         "main_path_ms_per_round": profile["repair_ms_per_round"],
+         "penalized": mk["penalized"]},
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -436,13 +436,60 @@ def _probe_geometry(n: int, batch: RequestBatch, penalty=None):
     return big, in_part, rank, fkey_rot
 
 
+class Speculation(NamedTuple):
+    """One repair round's probe of every row against the current books:
+    what `repair_commit_masks` judges, plus `found` (an eligible invoker
+    exists; where none does, `sel` is the forced choice)."""
+    found: torch.Tensor        # bool[B]
+    sel: torch.Tensor          # int32[B]
+    placed: torch.Tensor       # bool[B]
+    forced: torch.Tensor       # bool[B]
+    use_conc: torch.Tensor     # bool[B]
+    take_mem: torch.Tensor     # bool[B]
+    col_conc: torch.Tensor     # bool[B]
+    free_at_sel: torch.Tensor  # int32[B]
+
+
+def forced_choice(usable, fkey_rot, big):
+    """The loop-invariant forced choice: the lowest rotation key over the
+    usable invokers, lowest index on ties -> (fchoice int64[B], have_usable
+    bool[B]). A row with nothing usable gets index 0 (argmin of a row of
+    sentinels)."""
+    fkey = torch.where(usable, fkey_rot, big)
+    fchoice = torch.argmin(fkey, 1)
+    return fchoice, fkey.gather(1, fchoice[:, None])[:, 0] < big
+
+
+def repair_speculate(state: PlacementState, batch: RequestBatch, usable,
+                     rank, big, fchoice, have_usable, slot_rl) -> Speculation:
+    """Probe every row of the batch against the current books (one round
+    of `schedule_batch_repair`); `slot_rl` is the clamped slot as int64."""
+    free = state.free_mb
+    conc_bn = state.conc_free.T.index_select(0, slot_rl)   # [B, N]
+    has_conc = conc_bn > 0
+    eligible = usable & (has_conc | (free[None, :] >= batch.need_mb[:, None]))
+    key = torch.where(eligible, rank, big)
+    choice = torch.argmin(key, 1)
+    found = key.gather(1, choice[:, None])[:, 0] < big
+    sel = torch.where(found, choice, fchoice)
+    placed = batch.valid & (found | have_usable)
+    use_conc = placed & (conc_bn.gather(1, sel[:, None])[:, 0] > 0)
+    return Speculation(
+        found=found, sel=sel.to(I32), placed=placed,
+        forced=batch.valid & ~found & have_usable, use_conc=use_conc,
+        take_mem=placed & ~use_conc, col_conc=(usable & has_conc).any(1),
+        free_at_sel=free[sel])
+
+
 def schedule_batch_repair(state: PlacementState, batch: RequestBatch,
-                          penalty=None):
+                          penalty=None, on_round=None):
     """Speculate-and-repair: bit-exact `schedule_batch` semantics with the
     B-length dependency chain collapsed to the conflict count. Each round
     probes every row against the current books, commits the set that
     `repair_commit_masks` proves order-independent, and re-runs the rest;
     the loop ends when nothing is pending or after B + 1 rounds.
+    `on_round`, if given, is called with the pending mask bool[B] at the
+    start of every round (the work a round needs is its pending rows).
 
     Updates the books in place. Returns (state, chosen int32[B], forced
     bool[B], rounds int32 scalar tensor)."""
@@ -456,9 +503,7 @@ def schedule_batch_repair(state: PlacementState, batch: RequestBatch,
     # loop-invariant geometry: ranks, partitions and the whole forced path
     big, in_part, rank, fkey_rot = _probe_geometry(n, batch, penalty)
     usable = in_part & state.health[None, :]
-    fkey = torch.where(usable, fkey_rot, big)
-    fchoice = torch.argmin(fkey, 1)
-    have_usable = fkey.gather(1, fchoice[:, None])[:, 0] < big
+    fchoice, have_usable = forced_choice(usable, fkey_rot, big)
     simple = batch.max_conc <= 1
     slot_r, slot_ok = _slot_read_write(batch.conc_slot, a_slots)
     slot_rl = slot_r.long()
@@ -468,38 +513,28 @@ def schedule_batch_repair(state: PlacementState, batch: RequestBatch,
     forced_acc = torch.zeros((b,), dtype=torch.bool, device=dev)
     rounds = 0
     while rounds <= b and bool(pending.any()):
-        conc_bn = conc.T.index_select(0, slot_rl)           # [B, N]
-        has_conc = conc_bn > 0
-        eligible = usable & (has_conc
-                             | (free[None, :] >= batch.need_mb[:, None]))
-        key = torch.where(eligible, rank, big)
-        choice = torch.argmin(key, 1)
-        found = key.gather(1, choice[:, None])[:, 0] < big
-        sel = torch.where(found, choice, fchoice)
-        placed = batch.valid & (found | have_usable)
-        forced = batch.valid & ~found & have_usable
-        conc_at_sel = conc_bn.gather(1, sel[:, None])[:, 0]
-        use_conc = placed & (conc_at_sel > 0)
-        take_mem = placed & ~use_conc
-        col_conc = (usable & has_conc).any(1)
-        free_at_sel = free[sel]
-        sel32 = sel.to(I32)
-
+        if on_round is not None:
+            on_round(pending)
+        sp = repair_speculate(state, batch, usable, rank, big, fchoice,
+                              have_usable, slot_rl)
         safe, commit = repair_commit_masks(
-            prims, pending=pending, placed=placed, forced=forced, sel=sel32,
-            take_mem=take_mem, use_conc=use_conc, simple=simple,
-            need_mb=batch.need_mb, conc_slot=batch.conc_slot,
-            free_at_sel=free_at_sel, col_conc=col_conc,
+            prims, pending=pending, placed=sp.placed, forced=sp.forced,
+            sel=sp.sel, take_mem=sp.take_mem, use_conc=sp.use_conc,
+            simple=simple, need_mb=batch.need_mb, conc_slot=batch.conc_slot,
+            free_at_sel=sp.free_at_sel, col_conc=sp.col_conc,
             n=n, a_slots=a_slots)
-        free.index_add_(0, sel, torch.where(commit & take_mem,
+        sel = sp.sel.long()
+        free.index_add_(0, sel, torch.where(commit & sp.take_mem,
                                             -batch.need_mb, 0))
         conc_delta = torch.where(
-            commit & use_conc, -1,
-            torch.where(commit & take_mem & ~simple, batch.max_conc - 1, 0))
+            commit & sp.use_conc, -1,
+            torch.where(commit & sp.take_mem & ~simple, batch.max_conc - 1,
+                        0))
         conc.index_put_((sel, slot_rl), torch.where(slot_ok, conc_delta, 0),
                         accumulate=True)
-        chosen = torch.where(safe, torch.where(placed, sel32, -1), chosen)
-        forced_acc = forced_acc | (safe & forced)
+        chosen = torch.where(safe, torch.where(sp.placed, sp.sel, -1),
+                             chosen)
+        forced_acc = forced_acc | (safe & sp.forced)
         pending = pending & ~safe
         rounds += 1
     return (state, chosen, forced_acc,
@@ -612,17 +647,22 @@ def make_fused_step(release_fn=None, schedule_fn=None):
     health flips -> schedule the micro-batch, all in place.
 
     Returns (state, chosen, forced, rounds): schedules without a repair
-    loop report rounds == 0."""
+    loop report rounds == 0. Each phase is a named `torch.profiler` range
+    (release_fold, health_fold, schedule), so a profile splits the step."""
     release_fn = release_fn or release_batch
     schedule_fn = schedule_fn or schedule_batch
+    span = torch.profiler.record_function
 
     def fused(state: PlacementState, rel_inv, rel_slot, rel_mem, rel_maxc,
               rel_valid, health_idx, health_val, health_valid,
               batch: RequestBatch):
-        state = release_fn(state, rel_inv, rel_slot, rel_mem, rel_maxc,
-                           rel_valid)
-        state = fold_health(state, health_idx, health_val, health_valid)
-        out = schedule_fn(state, batch)
+        with span("release_fold"):
+            state = release_fn(state, rel_inv, rel_slot, rel_mem, rel_maxc,
+                               rel_valid)
+        with span("health_fold"):
+            state = fold_health(state, health_idx, health_val, health_valid)
+        with span("schedule"):
+            out = schedule_fn(state, batch)
         rounds = (out[3] if len(out) > 3 else
                   torch.zeros((), dtype=I32, device=state.free_mb.device))
         return out[0], out[1], out[2], rounds

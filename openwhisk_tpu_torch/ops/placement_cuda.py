@@ -5,8 +5,8 @@ The counterpart of `openwhisk_tpu/ops/placement_pallas.py`:
   `schedule_batch_cuda`        — csrc/placement_scan.cu, the sequential scan
                                  (replaces `schedule_batch_pallas`)
   `schedule_batch_repair_cuda` — csrc/placement_repair.cu, speculate-and-
-                                 repair in one persistent block (replaces
-                                 `schedule_batch_repair_pallas`)
+                                 repair on a persistent cooperative grid
+                                 (replaces `schedule_batch_repair_pallas`)
 
 Both take the state in the kernel layout (`to_transposed`: conc as [A, N],
 read through its strides, so one slot's row is contiguous) and keep the
@@ -31,13 +31,16 @@ from . import _build
 from .placement import (I32, PlacementState, RequestBatch, schedule_batch,
                         schedule_batch_repair)
 
-#: per-row shared memory of the repair kernel (REPAIR_ROW_INTS int32s in
-#: csrc/placement_repair.cu) and the rows a 1,024-thread block can hold
-REPAIR_ROW_BYTES = 26 * 4
-REPAIR_MAX_BATCH = 1024
+#: per-row shared memory of the repair kernel (REPAIR_ROW_INTS +
+#: LIST_ROW_INTS int32s in csrc/placement_repair.cu), its per-row scratch in
+#: device memory (REPAIR_SCRATCH_ROW_BYTES there, plus a 12-byte header),
+#: and the rows its block 0 holds (one thread each)
+REPAIR_ROW_BYTES = (22 + 2) * 4
+REPAIR_SCRATCH_ROW_BYTES = 28
+REPAIR_MAX_BATCH = REPAIR_THREADS = 1024
 #: shared memory one block may opt into on sm_90 (227 KB), less the
-#: kernel's static shared memory
-SMEM_BLOCK_BYTES = 232448 - 16
+#: kernel's static shared memory and the list's one extra int
+SMEM_BLOCK_BYTES = 232448 - 256
 
 _VOIDP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -46,7 +49,8 @@ _SIGNATURES = {
               _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
     "repair": ("placement_repair", "placement_repair_launch",
                [_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT, _INT,
-                _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+                _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                ctypes.POINTER(_INT)]),
 }
 _launchers: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -55,8 +59,9 @@ SOURCES = tuple(sig[0] for sig in _SIGNATURES.values())
 
 
 def fits_smem_repair(batch: int) -> bool:
-    """Can the repair kernel take a batch of `batch` rows? It keeps
-    REPAIR_ROW_BYTES of shared memory per row and one thread per row."""
+    """Can the repair kernel take a batch of `batch` rows? Its block 0
+    keeps one thread and every block REPAIR_ROW_BYTES of shared memory per
+    row."""
     return (0 < batch <= REPAIR_MAX_BATCH
             and batch * REPAIR_ROW_BYTES <= SMEM_BLOCK_BYTES)
 
@@ -141,11 +146,12 @@ schedule_batch_cuda.launches = 0
 
 def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
                                penalty=None):
-    """The speculate-and-repair schedule on the card (one launch of
-    placement_repair.cu, the whole round loop on the device); state in the
-    kernel layout, books updated in place. Returns (state, chosen
-    int32[B], forced bool[B], rounds int32 scalar). Raises for a batch the
-    kernel cannot hold (`fits_smem_repair`)."""
+    """The speculate-and-repair schedule on the card (one cooperative
+    launch of placement_repair.cu, the whole round loop on the device);
+    state in the kernel layout, books updated in place. Returns (state,
+    chosen int32[B], forced bool[B], rounds int32 scalar). Raises for a
+    batch the kernel cannot hold (`fits_smem_repair`) and for a launch the
+    card refuses. `.grid` holds the last launch's blocks and threads."""
     if not state.free_mb.is_cuda:
         ts, chosen, forced, rounds = schedule_batch_repair(
             to_transposed(state), batch, penalty)
@@ -155,22 +161,30 @@ def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
         raise ValueError(f"repair kernel takes 1..{REPAIR_MAX_BATCH} rows "
                          f"({REPAIR_ROW_BYTES} B of shared memory each), "
                          f"got B={b}")
-    chosen = torch.empty((b,), dtype=I32, device=reqs.device)
-    forced = torch.empty((b,), dtype=I32, device=reqs.device)
-    rounds = torch.empty((1,), dtype=I32, device=reqs.device)
+    dev = reqs.device
+    chosen = torch.empty((b,), dtype=I32, device=dev)
+    forced = torch.empty((b,), dtype=I32, device=dev)
+    rounds = torch.empty((1,), dtype=I32, device=dev)
+    scratch = torch.empty(((REPAIR_SCRATCH_ROW_BYTES * b + 12 + 7) // 8,),
+                          dtype=torch.int64, device=dev)
+    blocks = ctypes.c_int(0)
     rc = _launcher("repair")(
         reqs.data_ptr(), b, state.health.data_ptr(),
         state.free_mb.data_ptr(), state.conc_free.data_ptr(),
         state.conc_free.stride(0), state.conc_free.stride(1), n, a,
         _ptr(penalty), chosen.data_ptr(), forced.data_ptr(),
-        rounds.data_ptr(), torch.cuda.current_stream(reqs.device).cuda_stream)
+        rounds.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"placement_repair launch failed: CUDA error {rc}")
     schedule_batch_repair_cuda.launches += 1
+    schedule_batch_repair_cuda.grid = {"blocks": blocks.value,
+                                       "threads": REPAIR_THREADS}
     return state, chosen, forced.bool(), rounds.reshape(())
 
 
 schedule_batch_repair_cuda.launches = 0
+schedule_batch_repair_cuda.grid = None
 
 
 def reset_launch_counts() -> None:

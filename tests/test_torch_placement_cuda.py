@@ -18,7 +18,7 @@ from openwhisk_tpu_torch.controller.loadbalancer import \
 from openwhisk_tpu_torch.ops import placement as T  # noqa: E402
 from openwhisk_tpu_torch.ops import placement_cuda as K  # noqa: E402
 from torch_placement_cases import (  # noqa: E402
-    FAMILIES, random_batch, random_books)
+    FAMILIES, container_case, random_batch, random_books)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +87,92 @@ def test_launch_counts_and_repair_batch_limit():
                                      device="cuda")
     with pytest.raises(ValueError):
         K.schedule_batch_repair_cuda(K.to_transposed(st), big)
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+@pytest.mark.parametrize("b", [32, 256, 1024])
+def test_repair_container_traffic_matches_plain(b, use_penalty):
+    """Container-opening rows on few slots: many rounds, each probing only
+    the rows still pending."""
+    rng = np.random.RandomState(b)
+    books, cols = container_case(4999, b, rng)
+    pen = rng.randint(0, 4, 4999).astype(np.int32) if use_penalty else None
+    kr, pr = _both("repair", books, cols, pen)
+    _assert_exact(kr, pr)
+    assert int(kr[1][3]) > 2
+
+
+def _set_window(cols, i, off, size, rng, maxc=None):
+    """Row i of the nine batch columns gets the window [off, off + size)."""
+    st = 1
+    for cand in rng.permutation(np.arange(1, size + 1)):
+        if np.gcd(int(cand), size) == 1:
+            st = int(cand)
+            break
+    cols[0][i], cols[1][i] = off, size
+    cols[2][i] = rng.randint(0, size)
+    cols[3][i] = pow(st, -1, size) if size > 1 else 0
+    cols[7][i] = rng.randint(0, size)
+    cols[8][i] = True
+    if maxc is not None:
+        cols[6][i] = maxc
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+@pytest.mark.parametrize("n", [1000, 4133])
+def test_repair_window_edges_match_plain(n, use_penalty):
+    """Fleets that are not a multiple of the kernel's 256-invoker work item,
+    windows of width 1, at the fleet's end, and one with no healthy invoker
+    whose forced choice (index 0) meets an earlier container-opener there."""
+    rng = np.random.RandomState(n)
+    books = random_books(n, rng, slots=16, unhealthy_p=0.1)
+    cols = random_batch(n, 64, rng, maxc_choices=(1, 1, 4))
+    _set_window(cols, 0, 0, 1, rng, maxc=4)     # opens a container on 0
+    _set_window(cols, 1, n - 300, 300, rng)     # ends with the fleet
+    _set_window(cols, 2, n - 1, 1, rng)         # the last invoker alone
+    _set_window(cols, 3, n // 3, 77, rng)       # nothing healthy in it
+    _set_window(cols, 4, rng.randint(1, n - 1), 1, rng)
+    cols[3][5] = cols[1][5] + 7                 # a step past the window
+    health = books[2].copy()
+    health[0] = True
+    health[n // 3:n // 3 + 77] = False
+    books = (books[0], books[1], health)
+    pen = rng.randint(0, 4, n).astype(np.int32) if use_penalty else None
+    kr, pr = _both("repair", books, cols, pen)
+    _assert_exact(kr, pr)
+    assert int(kr[1][1][3]) == -1
+
+
+def test_repair_partition_past_2_17_matches_plain():
+    """Windows wider than 2^17 invokers: the kernel computes every rank
+    with the split mulmod instead of stepping it."""
+    rng = np.random.RandomState(17)
+    n = (1 << 17) + 3000
+    books = random_books(n, rng, mem=2048, slots=4, unhealthy_p=0.05)
+    cols = random_batch(n, 8, rng, slots=4)
+    cols[0][:4], cols[1][:4] = 0, n
+    kr, pr = _both("repair", books, cols, None)
+    _assert_exact(kr, pr)
+
+
+def test_repair_launch_is_deterministic():
+    """The same inputs twice: the atomics' order leaves no trace."""
+    rng = np.random.RandomState(5)
+    books, cols = container_case(4999, 1024, rng)
+    (ks1, k1), _ = _both("repair", books, cols, None)
+    (ks2, k2), _ = _both("repair", books, cols, None)
+    assert torch.equal(ks1.free_mb, ks2.free_mb)
+    assert torch.equal(ks1.conc_free, ks2.conc_free)
+    for x, y in zip(k1[1:], k2[1:]):
+        assert torch.equal(x, y)
+
+
+def test_repair_runs_on_every_sm():
+    rng = np.random.RandomState(1)
+    books = random_books(512, rng)
+    _both("repair", books, random_batch(512, 32, rng), None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert K.schedule_batch_repair_cuda.grid["blocks"] >= sms
 
 
 def test_balancer_core_card_equals_cpu():

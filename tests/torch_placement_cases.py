@@ -53,29 +53,40 @@ def _burst_cols(n, b, need, slot, maxc, home=None):
 
 
 FAMILIES = {
+    # each family takes a seeded rng and, optionally, the batch width b
     # memory pressure forces random-rotation placement (over-commit)
-    "forced_overload": lambda rng: (
+    "forced_overload": lambda rng, b=64: (
         (np.full(4, 256, np.int32), np.zeros((4, 8), np.int32),
          np.ones(4, bool)),
-        random_batch(4, 64, rng, mem_choices=(256, 512), slots=8)),
+        random_batch(4, b, rng, mem_choices=(256, 512), slots=8)),
     # nothing usable: every row unplaced, books untouched
-    "no_usable": lambda rng: (
+    "no_usable": lambda rng, b=16: (
         (np.full(8, 1024, np.int32), np.zeros((8, 8), np.int32),
          np.zeros(8, bool)),
-        random_batch(8, 16, rng, slots=8)),
+        random_batch(8, b, rng, slots=8)),
     # one simple action bursting onto a tiny partition (memory cascade)
-    "cascade": lambda rng: (
+    "cascade": lambda rng, b=32: (
         (np.full(2, 1024, np.int32), np.zeros((2, 4), np.int32),
          np.ones(2, bool)),
-        _burst_cols(2, 32, 128, 1, 1, home=0)),
+        _burst_cols(2, b, 128, 1, 1, home=0)),
     # max_conc > 1 placements open permits that flip later choices
-    "container_open": lambda rng: (
+    "container_open": lambda rng, b=16: (
         (np.full(4, 256, np.int32), np.zeros((4, 4), np.int32),
          np.ones(4, bool)),
-        _burst_cols(4, 16, 256, 2, 4)),
+        _burst_cols(4, b, 256, 2, 4)),
     # slots past the slot axis: the read clamps, the write drops
-    "oob_slot": lambda rng: (
+    "oob_slot": lambda rng, b=32: (
         random_books(16, rng, slots=4, conc_p=0.5),
-        random_batch(16, 32, rng, slots=4, maxc_choices=(1, 4),
+        random_batch(16, b, rng, slots=4, maxc_choices=(1, 4),
                      oob_p=0.5)),
 }
+
+
+def container_case(n, b, rng, slots=8):
+    """Container actions (max_conc 2-16 for seven rows in ten) on a few
+    shared slots over a fleet of n: the conflict rules hold most rows
+    back, so the repair runs many rounds."""
+    books = random_books(n, rng, mem=2048, slots=slots, conc_p=0.3)
+    cols = random_batch(n, b, rng, slots=slots,
+                        maxc_choices=(1, 1, 1, 2, 4, 4, 8, 8, 16, 16))
+    return books, cols
