@@ -5,16 +5,17 @@
 
 Phases, each reported on its own line:
   1. card     the card's name and power limit (nvidia-smi)
-  2. build    the placement kernels (and the grid-barrier probe) built with
-              nvcc for sm_90a from openwhisk_tpu_torch/csrc, one nvcc per
-              source, in parallel
+  2. build    the placement kernels (and the grid- and cluster-barrier
+              probes) built with nvcc for sm_90a from
+              openwhisk_tpu_torch/csrc, one nvcc per source, in parallel
   3. kernels  each kernel against its plain PyTorch version on the card at
               the full geometry (10,000 invokers padded to N = 16,384,
-              A = 4,096 concurrency slots): the scan at B in {8, 16}, the
-              repair at B in {32, 256, 1024}, with and without a penalty,
-              over six traffic families. Bit-exact: chosen, forced, rounds,
-              free and conc. Times from CUDA events at B = 16 / 256 on
-              memory-dominant traffic, with and without the penalty.
+              A = 4,096 concurrency slots): the scan at B in {8, 16, 256},
+              the repair at B in {32, 256, 1024}, with and without a
+              penalty, over six traffic families. Bit-exact: chosen,
+              forced, rounds, free and conc. Times from CUDA events at
+              B = 16 / 256 on memory-dominant traffic, with and without the
+              penalty.
   4. main     `BalancerCore(device="cuda")` over 10,000 invokers of
               8,192 MB (managed 0.9 / blackbox 0.1, max_batch 256,
               action_slots 4096): warm-up, full 256-row batches of a
@@ -26,15 +27,24 @@ Phases, each reported on its own line:
               device time by kernel kind, the device's idle share and
               longest idle gaps, host time and device span of each phase of
               the fused step, the repair kernel's ms per launch and per
-              round); the inputs of step 200's repair launch are kept. The
-              first 110 steps are replayed through
-              `BalancerCore(device="cpu")` and must agree in decisions,
-              rounds and books.
-  5. the repair kernel on the kept main-path batch: held against the plain
+              round); the inputs of step 200's repair launch and of the
+              first scan launch from step 360 on (a trickle step) are
+              kept, and every scan launch of the run is timed with CUDA
+              events. The first 110
+              steps are replayed through `BalancerCore(device="cpu")` and
+              must agree in decisions, rounds and books.
+  5. each kernel on its kept main-path batch: held against the plain
      version, timed with and without a penalty, with its bound from the
-     same inputs; its cost per round on serial batches (one commit a
-     round); one grid barrier at its launch shape.
-  6. a `{"kernels": [...]}` JSON line, then the card line, then the last
+     same inputs; its cost per round (repair) or per request (scan) on
+     serial batches (one commit a round, every request on one invoker);
+     one grid barrier at the repair's launch shape, and at the scan's one
+     cluster barrier and one exchange of its minima (the kernel's and its
+     first design's).
+  6. scan-pinned main path: `BalancerCore(placement_kernel="scan")`, 40 full
+     256-row steps of the same traffic (step p50, scan launches, each
+     launch timed with CUDA events); its first 10 steps are replayed on
+     the CPU and must agree in decisions and books.
+  7. a `{"kernels": [...]}` JSON line, then the card line, then the last
      line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
@@ -245,11 +255,13 @@ def time_ms(fn, restore, torch, reps=15):
 
 
 def kernel_phase(torch, P, K):
-    results = {"scan": {"err": 0, "cases": 0},
-               "repair": {"err": 0, "cases": 0, "rounds_max": 0}}
+    results = {"scan": {"err": 0, "cases": 0, "times": {}},
+               "repair": {"err": 0, "cases": 0, "rounds_max": 0,
+                          "times": {}}}
     seed = 0
     for family in FAMILIES:
-        for kind, bs in (("scan", (8, 16)), ("repair", (32, 256, 1024))):
+        for kind, bs in (("scan", (8, 16, 256)),
+                         ("repair", (32, 256, 1024))):
             for b in bs:
                 for use_pen in (False, True):
                     seed += 1
@@ -269,9 +281,8 @@ def kernel_phase(torch, P, K):
                                       f" differs from plain by {err}")
                     del state, batch, pen
     # times at B = 16 and 256 on memory-dominant traffic (one or two
-    # repair rounds); the kernels line keeps the scan's main-path width
-    # (16) from here and the repair's from the main path's own batch
-    # (main_path_kernel)
+    # repair rounds); the kernels line takes its main numbers from each
+    # kernel's own main-path batch (main_path_kernel)
     for kind, b in (("scan", 256), ("repair", 16), ("scan", 16),
                     ("repair", 256)):
         state, batch, pen = make_case("memory", b, 1000 + b, torch, P)
@@ -302,19 +313,20 @@ def kernel_phase(torch, P, K):
                        key_evals=pops,
                        rounds=prounds, bound_ms=pen_bound_ms,
                        bound_by=pen_bound_by))
-        if kind == "scan":
-            results[kind].update(row)
+        results[kind]["times"][f"B{b}"] = row
         say("kernel_time", kernel=kind, family="memory", **row,
             plain_ms_both=[plain0, plain1])
         del state, batch, work, kview
     return results
 
 
-def main_path_kernel(box, torch, P, K):
-    """The repair kernel on one batch of the main path, as the balancer
-    handed it over (books after the step's release and health folds):
-    held against the plain version, timed with and without a penalty,
-    and its bound from the same inputs."""
+def main_path_kernel(kind, box, torch, P, K):
+    """A kernel on one batch of the main path, as the balancer handed it
+    over (books after the step's release and health folds): held against
+    the plain version, timed with and without a penalty, and its bound
+    from the same inputs."""
+    kfn, pfn = ((K.schedule_batch_cuda, P.schedule_batch) if kind == "scan"
+                else (K.schedule_batch_repair_cuda, P.schedule_batch_repair))
     free0, conc0, health = box["state"]
     batch = box["batch"]
     work = P.PlacementState(free0.clone(), conc0.clone(), health)
@@ -328,34 +340,40 @@ def main_path_kernel(box, torch, P, K):
         0, 4, free0.shape[0]).astype(np.int32)).to(free0.device)
     out = {}
     for label, p in (("plain", None), ("penalized", pen)):
-        err, rounds, _ = compare("repair", std, batch, p, P, K, torch)
-        require(err == 0, f"main-path repair ({label}) differs from plain "
+        err, rounds, _ = compare(kind, std, batch, p, P, K, torch)
+        require(err == 0, f"main-path {kind} ({label}) differs from plain "
                           f"by {err}")
-        ms = time_ms(lambda: K.schedule_batch_repair_cuda(work, batch, p),
-                     restore, torch, reps=10)
-        nbytes, ops, prounds = work_bytes_ops("repair", std, batch, p, P)
+        ms = time_ms(lambda: kfn(work, batch, p), restore, torch, reps=10)
+        nbytes, ops, prounds = work_bytes_ops(kind, std, batch, p, P)
         require(prounds == rounds, "plain and kernel rounds agree")
         bound_ms, bound_by = bound(nbytes, ops)
-        out[label] = dict(ms=ms, rounds=rounds, ms_per_round=ms / rounds,
-                          bytes=nbytes, key_evals=ops, bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=err)
+        out[label] = dict(ms=ms, bytes=nbytes, key_evals=ops,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=err)
+        if kind == "repair":
+            out[label].update(rounds=rounds, ms_per_round=ms / rounds)
         out[label]["plain_ms"] = time_ms(
-            lambda: P.schedule_batch_repair(K.to_transposed(work), batch, p),
-            restore, torch, reps=3)
+            lambda: pfn(K.to_transposed(work), batch, p), restore, torch,
+            reps=3)
     out["B"] = int(batch.valid.shape[0])
-    out["grid"] = K.schedule_batch_repair_cuda.grid
-    say("main_path_kernel", kernel="repair", **out)
+    out["valid_rows"] = int(batch.valid.sum())
+    if kind == "scan":
+        out["cluster"] = K.schedule_batch_cuda.cluster
+    else:
+        out["grid"] = K.schedule_batch_repair_cuda.grid
+    say("main_path_kernel", kernel=kind, **out)
     return out
 
 
-def round_cost(torch, P, K):
-    """The repair kernel's cost per round apart from its probe: B
-    container-opening rows on the same one-invoker window and slot commit
-    one row a round (each later row conflicts with the row before), so
-    rounds = B and every probe reads one invoker a row. Held against the
-    plain version too."""
+def serial_cost(kind, torch, P, K):
+    """A kernel's cost per serial step apart from its probe: B
+    container-opening rows on the same one-invoker window and slot. The
+    repair commits one row a round (each later row conflicts with the row
+    before), so rounds = B; the scan's every request commits at the same
+    cell that the requests after it have already prefetched, which pins
+    the owner's patch rule. Held against the plain version too."""
     out = {}
-    for b in (32, 256):
+    for b in ((16, 256) if kind == "scan" else (32, 256)):
         ones = np.ones(b, int)
         batch = P.request_batch_from_numpy(
             0 * ones, ones, 0 * ones, 0 * ones, 128 * ones, 0 * ones,
@@ -369,25 +387,40 @@ def round_cost(torch, P, K):
             torch.from_numpy(free).to(DEVICE),
             torch.zeros((A, N_PAD), dtype=torch.int32, device=DEVICE).T,
             torch.from_numpy(health).to(DEVICE))
-        err, rounds, _ = compare("repair", state, batch, None, P, K, torch)
-        require(err == 0 and rounds == b, f"serial case B={b}: err {err}, "
-                                          f"rounds {rounds}")
+        err, rounds, _ = compare(kind, state, batch, None, P, K, torch)
+        require(err == 0 and (kind == "scan" or rounds == b),
+                f"serial {kind} case B={b}: err {err}, rounds {rounds}")
         work = clone_state(P, state)
 
         def restore():
             work.free_mb.copy_(state.free_mb)
             work.conc_free.copy_(state.conc_free)
 
-        ms = time_ms(lambda: K.schedule_batch_repair_cuda(
-            K.to_transposed(work), batch), restore, torch, reps=10)
-        out[b] = dict(ms=ms, rounds=rounds, us_per_round=ms * 1e3 / rounds)
-    say("round_cost", **{f"B{b}": v for b, v in out.items()})
+        kfn = (K.schedule_batch_cuda if kind == "scan"
+               else K.schedule_batch_repair_cuda)
+        ms = time_ms(lambda: kfn(K.to_transposed(work), batch), restore,
+                     torch, reps=10)
+        steps = b if kind == "scan" else rounds
+        out[f"B{b}"] = {"ms": ms, "max_abs_err": err,
+                        ("us_per_request" if kind == "scan"
+                         else "us_per_round"): ms * 1e3 / steps}
+        if kind == "repair":
+            out[f"B{b}"]["rounds"] = rounds
+    say("serial_cost", kernel=kind, **out)
     return out
+
+
+def per_op_us(run, torch):
+    """The cost of one of the operations a probe kernel repeats: run(count)
+    launches it, timed at 2,000 and at 0; (us per operation, ms by count)."""
+    ms = {c: time_ms(lambda: run(c), lambda: None, torch, reps=10)
+          for c in (0, 2000)}
+    return (ms[2000] - ms[0]) * 1e3 / 2000, ms
 
 
 def barrier_cost(torch, K, _build):
     """One cooperative grid barrier at the repair kernel's launch shape:
-    csrc/grid_barrier.cu runs only barriers, timed at two counts."""
+    csrc/grid_barrier.cu runs only barriers."""
     fn = _build.load("grid_barrier").grid_barrier_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -398,12 +431,37 @@ def barrier_cost(torch, K, _build):
         rc = fn(syncs, blocks, stream)
         require(rc == 0, f"grid_barrier launch: CUDA error {rc}")
 
-    ms = {syncs: time_ms(lambda: run(syncs), lambda: None, torch, reps=10)
-          for syncs in (0, 2000)}
-    us = (ms[2000] - ms[0]) * 1e3 / 2000
+    us, ms = per_op_us(run, torch)
     say("grid_barrier", blocks=blocks, threads=1024, ms=ms,
         us_per_barrier=us)
     return us
+
+
+#: csrc/cluster_barrier.cu's modes: what the scan pays once a request
+CLUSTER_MODES = ("cluster_barrier", "exchange", "first_design_exchange")
+
+
+def cluster_cost(torch, K, _build):
+    """At the scan's launch shape (one cluster), the cost of one cluster
+    barrier, of one exchange of the scan's two minima a thread, and of the
+    same exchange as the scan's first design made it: csrc/
+    cluster_barrier.cu runs only those."""
+    fn = _build.load("cluster_barrier").cluster_barrier_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = K.schedule_batch_cuda.cluster["blocks"]
+    stream = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    out = {}
+    for mode, name in enumerate(CLUSTER_MODES):
+        def run(count):
+            rc = fn(count, blocks, mode, sink.data_ptr(), stream)
+            require(rc == 0, f"cluster_barrier mode {mode}: CUDA error {rc}")
+
+        out[f"{name}_us"] = per_op_us(run, torch)[0]
+    say("cluster_cost", blocks=blocks, threads=1024, **out)
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -488,10 +546,11 @@ def drive(core, traffic, plan):
         yield name, res, dt
 
 
-def capture_next_repair(TB):
-    """Route the balancer's repair launches through a wrapper that keeps a
-    copy of the first one's inputs (kernel layout). Returns (box, undo)."""
-    real = TB.schedule_batch_repair_cuda
+def capture_next(TB, attr):
+    """Route the balancer's launches of kernel wrapper `attr` through a
+    wrapper that keeps a copy of the first one's inputs (kernel layout).
+    Returns (box, undo)."""
+    real = getattr(TB, attr)
     box = {}
 
     def keep(state, batch, penalty=None):
@@ -500,8 +559,34 @@ def capture_next_repair(TB):
             box["batch"] = type(batch)(*(c.clone() for c in batch))
         return real(state, batch, penalty)
 
-    TB.schedule_batch_repair_cuda = keep
-    return box, lambda: setattr(TB, "schedule_batch_repair_cuda", real)
+    setattr(TB, attr, keep)
+    return box, lambda: setattr(TB, attr, real)
+
+
+def time_launches(TB, attr):
+    """Route the balancer's launches of kernel wrapper `attr` through a
+    wrapper that brackets each with CUDA events (no synchronisation).
+    Returns (event pairs, undo)."""
+    real = getattr(TB, attr)
+    pairs = []
+
+    def timed(*args, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*args, **kw)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    setattr(TB, attr, timed)
+    return pairs, lambda: setattr(TB, attr, real)
+
+
+def launch_ms(pairs):
+    """(median, count) of the timed launches' ms; call after a sync."""
+    ms = [s.elapsed_time(e) for s, e in pairs]
+    return (float(np.median(ms)) if ms else None), len(ms)
 
 
 def _kind(name):
@@ -597,11 +682,17 @@ def device_profile(prof, torch, rounds):
                              if n_rounds else None))
 
 
-#: steps of the main path's second full segment that are profiled, and the
-#: step whose repair inputs are kept for main_path_kernel; both are left
-#: out of the step-latency statistics
+#: steps of the main path's second full segment that are profiled, the step
+#: whose repair inputs are kept for main_path_kernel, and the step from
+#: which the first scan launch's inputs are kept (the second trickle: a
+#: step's bucket covers its releases too, so the scan runs once the full
+#: steps' completions have drained); all are left out of the step-latency
+#: statistics
 PROFILE_FROM, PROFILE_STEPS = 150, 30
 CAPTURE_STEP = 200
+SCAN_CAPTURE_FROM = 360
+#: full steps of the scan-pinned main path, and how many the CPU replays
+PINNED_STEPS, PINNED_CPU_STEPS = 40, 10
 
 
 def main_path_phase(torch, K, TB):
@@ -612,18 +703,22 @@ def main_path_phase(torch, K, TB):
     gpu = TB.BalancerCore(mem, device=DEVICE, **kw)
     require(gpu.n_pad == N_PAD, f"n_pad {gpu.n_pad}")
     traffic = Traffic(seed=7)
+    scan_events, untime = time_launches(TB, "schedule_batch_cuda")
     K.reset_launch_counts()
     gpu_log, times, rounds, prof_rounds = [], {}, [], []
-    books_at = prof = box = undo = None
+    books_at = prof = box = undo = sbox = sundo = scan_kept_at = None
     profiled = range(PROFILE_FROM, PROFILE_FROM + PROFILE_STEPS)
     forced = placed = 0
     t_all = time.perf_counter()
     for k, (name, res, dt) in enumerate(drive(gpu, traffic, plan)):
         gpu_log.append((res.chosen, res.forced, res.rounds))
+        if sundo is not None and sbox:  # this step's scan launch was kept
+            sundo()
+            sundo, scan_kept_at = None, k
         if k in profiled:
             if res.bucket >= 32:
                 prof_rounds.append(res.rounds)
-        elif k != CAPTURE_STEP:
+        elif k not in (CAPTURE_STEP, scan_kept_at):
             times.setdefault(name, []).append(dt)
         if res.bucket >= 32:
             rounds.append(res.rounds)
@@ -645,12 +740,17 @@ def main_path_phase(torch, K, TB):
             torch.cuda.synchronize()
             prof.stop()
         elif k + 1 == CAPTURE_STEP:
-            box, undo = capture_next_repair(TB)
+            box, undo = capture_next(TB, "schedule_batch_repair_cuda")
         elif k == CAPTURE_STEP:
             undo()
+        elif k + 1 == SCAN_CAPTURE_FROM:
+            sbox, sundo = capture_next(TB, "schedule_batch_cuda")
     wall = time.perf_counter() - t_all
     launches = {"scan": K.schedule_batch_cuda.launches,
                 "repair": K.schedule_batch_repair_cuda.launches}
+    untime()
+    torch.cuda.synchronize()
+    scan_ms, scan_timed = launch_ms(scan_events)
     full = np.array(times["full"]) * 1e3
     full_placed = sum(int((r[0] >= 0).sum()) for k, ((nm, *_), r) in
                       enumerate(zip(plan, gpu_log))
@@ -667,16 +767,19 @@ def main_path_phase(torch, K, TB):
         trickle_p50_ms=float(np.percentile(np.array(times["trickle"]) * 1e3,
                                            50)),
         mean_repair_rounds=float(np.mean(rounds)), launches=launches,
+        scan_ms_per_launch=scan_ms, scan_kept_at_step=scan_kept_at,
         counters=gpu.counters)
     say("main_path", **summary)
     require(launches["scan"] > 0 and launches["repair"] > 0,
             f"both kernels launched on the main path: {launches}")
+    require(scan_timed == launches["scan"], "every scan launch was timed")
     require(forced > 0, "the overload burst forced placements")
     profile = device_profile(prof, torch, prof_rounds)
     say("profile", **profile)
     require(profile["repair_launches"] == len(prof_rounds),
             "the profile saw every repair launch of its steps")
-    require(box, "a repair launch of the main path was kept")
+    require(box and sbox, "a repair and a scan launch of the main path "
+                          "were kept")
 
     # the same seed and sequence through the plain path on the CPU
     cpu = TB.BalancerCore(mem, device="cpu", **kw)
@@ -696,7 +799,60 @@ def main_path_phase(torch, K, TB):
         books_equal=books_equal, cpu_s=time.perf_counter() - t0)
     require(mismatches == 0 and books_equal,
             "card and CPU runs agree in decisions, rounds and books")
-    return summary, launches, profile, box
+    return summary, launches, profile, box, sbox
+
+
+def scan_pinned_phase(torch, K, TB):
+    """The main path with the scan on every bucket: PINNED_STEPS full
+    256-row steps of the same traffic through
+    `BalancerCore(placement_kernel="scan")`, each scan launch timed with
+    CUDA events; the first PINNED_CPU_STEPS replayed on the CPU."""
+    mem = [MEM_MB] * N_INV
+    kw = dict(managed_fraction=0.9, blackbox_fraction=0.1,
+              max_batch=MAX_BATCH, action_slots=A, placement_kernel="scan")
+    plan = [("full", MAX_BATCH, False, None)] * PINNED_STEPS
+    gpu = TB.BalancerCore(mem, device=DEVICE, **kw)
+    events, untime = time_launches(TB, "schedule_batch_cuda")
+    K.reset_launch_counts()
+    log, step_ms, books_at = [], [], None
+    for k, (_, res, dt) in enumerate(drive(gpu, Traffic(seed=7), plan)):
+        log.append((res.chosen, res.forced))
+        step_ms.append(dt * 1e3)
+        require(res.bucket == MAX_BATCH and res.rounds == 0,
+                "full steps on the scan")
+        if k + 1 == PINNED_CPU_STEPS:
+            torch.cuda.synchronize()
+            books_at = gpu.books()
+    launches = {"scan": K.schedule_batch_cuda.launches,
+                "repair": K.schedule_batch_repair_cuda.launches}
+    untime()
+    torch.cuda.synchronize()
+    kernel_ms, timed = launch_ms(events)
+    require(launches["scan"] == PINNED_STEPS and launches["repair"] == 0
+            and timed == PINNED_STEPS,
+            f"the scan alone ran the pinned path: {launches}")
+    cpu = TB.BalancerCore(mem, device="cpu", **kw)
+    t0 = time.perf_counter()
+    mismatches = 0
+    for k, (_, res, _) in enumerate(drive(cpu, Traffic(seed=7),
+                                          plan[:PINNED_CPU_STEPS])):
+        if not (np.array_equal(res.chosen, log[k][0])
+                and np.array_equal(res.forced, log[k][1])):
+            mismatches += 1
+    books_equal = all(np.array_equal(x, y)
+                      for x, y in zip(cpu.books(), books_at))
+    out = dict(steps=PINNED_STEPS, step_p50_ms=float(np.median(step_ms)),
+               launches=launches, kernel_ms_per_launch=kernel_ms,
+               kernel_share_of_step=kernel_ms / float(np.median(step_ms)),
+               placed=int(sum((c >= 0).sum() for c, _ in log)),
+               cpu_replay=dict(steps=PINNED_CPU_STEPS,
+                               mismatched_steps=mismatches,
+                               books_equal=books_equal,
+                               cpu_s=time.perf_counter() - t0))
+    say("scan_pinned", **out)
+    require(mismatches == 0 and books_equal,
+            "scan-pinned card and CPU runs agree in decisions and books")
+    return out
 
 
 def main():
@@ -716,7 +872,7 @@ def main():
         cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.build(K.SOURCES + ("grid_barrier",))
+    _build.build(K.SOURCES + ("grid_barrier", "cluster_barrier"))
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in _build.build_logs.items()}
@@ -727,26 +883,44 @@ def main():
     say("kernel_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    _summary, launches, profile, box = main_path_phase(torch, K, TB)
+    summary, launches, profile, box, sbox = main_path_phase(torch, K, TB)
     say("main_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    mk = main_path_kernel(box, torch, P, K)
-    del box
-    round_cost(torch, P, K)
+    mk = main_path_kernel("repair", box, torch, P, K)
+    sk = main_path_kernel("scan", sbox, torch, P, K)
+    del box, sbox
+    serial_cost("repair", torch, P, K)
+    sserial = serial_cost("scan", torch, P, K)
     barrier_cost(torch, K, _build)
+    cluster = cluster_cost(torch, K, _build)
     say("main_kernel_phase", seconds=time.perf_counter() - t0)
 
-    scan = kres["scan"]
+    t0 = time.perf_counter()
+    pinned = scan_pinned_phase(torch, K, TB)
+    say("scan_pinned_phase", seconds=time.perf_counter() - t0)
+
+    scan = sk["plain"]
     rep = mk["plain"]
     kernels = [
         {"name": "placement_scan", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_scan.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:244",
-         "launches": launches["scan"], "max_abs_err": scan["err"],
-         "B": scan["B"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
-         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
-         "library_ms": None, "penalized": scan["penalized"]},
+         "launches": launches["scan"],
+         "max_abs_err": max(kres["scan"]["err"], scan["max_abs_err"],
+                            sk["penalized"]["max_abs_err"],
+                            *(v["max_abs_err"] for v in sserial.values())),
+         "B": sk["B"], "cluster": sk["cluster"], "ms": scan["ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+         "bound_by": scan["bound_by"], "key_evals": scan["key_evals"],
+         "library_ms": None,
+         "us_per_request": sserial["B256"]["us_per_request"],
+         "main_path_ms": summary["scan_ms_per_launch"],
+         **cluster,
+         "serial": sserial, "memory_traffic": kres["scan"]["times"],
+         "scan_pinned": {k: pinned[k] for k in
+                         ("step_p50_ms", "kernel_ms_per_launch", "launches")},
+         "penalized": sk["penalized"]},
         {"name": "placement_repair", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
@@ -759,6 +933,7 @@ def main():
          "library_ms": None,
          "main_path_ms_per_launch": profile["repair_ms_per_launch"],
          "main_path_ms_per_round": profile["repair_ms_per_round"],
+         "memory_traffic": kres["repair"]["times"],
          "penalized": mk["penalized"]},
     ]
     print(json.dumps({"kernels": kernels}))

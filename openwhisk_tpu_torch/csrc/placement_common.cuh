@@ -32,6 +32,9 @@ __device__ __forceinline__ int wmul(int a, int b) {
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
 
 // The books are read with ld.global.cg (cached in L2, not in the SM's L1):
 // they are written during the launch, by plain stores (scan) or by

@@ -3,7 +3,9 @@
 The counterpart of `openwhisk_tpu/ops/placement_pallas.py`:
 
   `schedule_batch_cuda`        — csrc/placement_scan.cu, the sequential scan
-                                 (replaces `schedule_batch_pallas`)
+                                 on one thread-block cluster, each invoker
+                                 column owned by one thread (replaces
+                                 `schedule_batch_pallas`)
   `schedule_batch_repair_cuda` — csrc/placement_repair.cu, speculate-and-
                                  repair on a persistent cooperative grid
                                  (replaces `schedule_batch_repair_pallas`)
@@ -38,6 +40,11 @@ from .placement import (I32, PlacementState, RequestBatch, schedule_batch,
 REPAIR_ROW_BYTES = (22 + 2) * 4
 REPAIR_SCRATCH_ROW_BYTES = 28
 REPAIR_MAX_BATCH = REPAIR_THREADS = 1024
+#: the scan's largest fleet (SCAN_MAX_N in csrc/placement_scan.cu): the
+#: `_mulmod` contract's 2^17 invokers, 8 columns a thread on a cluster of
+#: 16 blocks x 1,024 threads
+SCAN_MAX_N = 1 << 17
+SCAN_THREADS = 1024
 #: shared memory one block may opt into on sm_90 (227 KB), less the
 #: kernel's static shared memory and the list's one extra int
 SMEM_BLOCK_BYTES = 232448 - 256
@@ -46,7 +53,7 @@ _VOIDP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "scan": ("placement_scan", "placement_scan_launch",
              [_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT, _INT,
-              _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+              _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.POINTER(_INT)]),
     "repair": ("placement_repair", "placement_repair_launch",
                [_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT, _INT,
                 _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
@@ -56,6 +63,12 @@ _launchers: Dict[str, ctypes._CFuncPtr] = {}
 
 #: the csrc sources of the kernels, for a caller that builds them up front
 SOURCES = tuple(sig[0] for sig in _SIGNATURES.values())
+
+
+def fits_scan(n: int) -> bool:
+    """Can the scan kernel take a fleet of `n` invokers? Any batch width
+    B >= 1 fits: the kernel stages the request matrix in chunks."""
+    return 0 < n <= SCAN_MAX_N
 
 
 def fits_smem_repair(batch: int) -> bool:
@@ -117,31 +130,42 @@ def _ptr(t) -> int:
 
 def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
                         penalty=None):
-    """The scan schedule on the card (one launch of placement_scan.cu);
-    state in the kernel layout, books updated in place. Returns (state,
-    chosen int32[B], forced bool[B])."""
+    """The scan schedule on the card (one launch of placement_scan.cu, one
+    thread-block cluster); state in the kernel layout, books updated in
+    place. Returns (state, chosen int32[B], forced bool[B]). Raises for a
+    fleet the kernel cannot take (`fits_scan`) and for a launch the card
+    refuses. `.cluster` holds the last launch's shape: blocks, threads a
+    block, invoker columns a thread and prefetch depth."""
     if not state.free_mb.is_cuda:
         ts, chosen, forced = schedule_batch(to_transposed(state), batch,
                                             penalty)
         return to_transposed(ts), chosen, forced
     n, a, b, reqs = _check(state, batch, penalty)
+    if not fits_scan(n):
+        raise ValueError(f"scan kernel takes 1..{SCAN_MAX_N} invokers "
+                         f"(SCAN_MAX_N, the _mulmod contract), got N={n}")
     chosen = torch.empty((b,), dtype=I32, device=reqs.device)
     forced = torch.empty((b,), dtype=I32, device=reqs.device)
     if b:
+        shape = (_INT * 3)()
         rc = _launcher("scan")(
             reqs.data_ptr(), b, state.health.data_ptr(),
             state.free_mb.data_ptr(), state.conc_free.data_ptr(),
             state.conc_free.stride(0), state.conc_free.stride(1), n, a,
             _ptr(penalty), chosen.data_ptr(), forced.data_ptr(),
-            torch.cuda.current_stream(reqs.device).cuda_stream)
+            torch.cuda.current_stream(reqs.device).cuda_stream, shape)
         if rc != 0:
             raise RuntimeError(f"placement_scan launch failed: CUDA error "
                                f"{rc}")
         schedule_batch_cuda.launches += 1
+        schedule_batch_cuda.cluster = {
+            "blocks": shape[0], "threads": SCAN_THREADS,
+            "columns_per_thread": shape[1], "prefetch_depth": shape[2]}
     return state, chosen, forced.bool()
 
 
 schedule_batch_cuda.launches = 0
+schedule_batch_cuda.cluster = None
 
 
 def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,

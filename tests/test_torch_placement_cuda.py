@@ -175,6 +175,100 @@ def test_repair_runs_on_every_sm():
     assert K.schedule_batch_repair_cuda.grid["blocks"] >= sms
 
 
+@pytest.mark.parametrize("use_penalty", [False, True])
+@pytest.mark.parametrize("n", [64, 1000, 4133, 16384, 65536, 131072])
+@pytest.mark.parametrize("b", [1, 8, 16, 31, 256])
+def test_scan_fleets_match_plain(b, n, use_penalty):
+    """The cluster scan at every fleet width it takes (1 to 8 invoker
+    columns a thread) and batch widths across its prefetch ring."""
+    rng = np.random.RandomState(b * 7 + n)
+    books = random_books(n, rng, unhealthy_p=0.1)
+    cols = random_batch(n, b, rng, maxc_choices=(1, 1, 4), oob_p=0.15)
+    pen = rng.randint(0, 4, n).astype(np.int32) if use_penalty else None
+    _assert_exact(*_both("scan", books, cols, pen))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_scan_families_at_256_match_plain(family):
+    """Same-slot bursts, container openings and out-of-range slots over
+    256 rows: each commit patches the values later rows prefetched."""
+    books, cols = FAMILIES[family](np.random.RandomState(256), 256)
+    _assert_exact(*_both("scan", books, cols, None))
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+def test_scan_same_slot_runs_match_plain(use_penalty):
+    """Runs of 2-11 container-opening rows on one slot and a 1-3 invoker
+    window across a block edge, some slots past the slot axis."""
+    rng = np.random.RandomState(11)
+    n, a, b = 4096, 4, 256
+    books = (np.full(n, 1024, np.int32), np.zeros((n, a), np.int32),
+             np.ones(n, bool))
+    cols = random_batch(n, b, rng, slots=a, maxc_choices=(4,))
+    i = 0
+    while i < b:
+        run, width = int(rng.randint(2, 12)), int(rng.randint(1, 4))
+        slot = int(rng.choice([0, 1, a - 1, a + 2]))
+        for r in range(i, min(b, i + run)):
+            _set_window(cols, r, 1023 - int(rng.randint(0, width)), width,
+                        rng, maxc=4)
+            cols[5][r] = slot
+        i += run
+    pen = rng.randint(0, 4, n).astype(np.int32) if use_penalty else None
+    _assert_exact(*_both("scan", books, cols, pen))
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+def test_scan_rows_outside_the_mulmod_contract_match_plain(use_penalty):
+    """Rows whose home, rand or step_inv lie outside [0, size) take the
+    kernel's divided keys, the others its Barrett keys: both exact."""
+    rng = np.random.RandomState(21)
+    n, b = 5000, 64
+    books = random_books(n, rng, unhealthy_p=0.1)
+    cols = random_batch(n, b, rng, maxc_choices=(1, 4), oob_p=0.1)
+    size = cols[1]
+    cols[3][0::4] = size[0::4] + 7           # a step past the window
+    cols[2][1::4] = size[1::4] + 3           # home past the window
+    cols[2][2::4] = -1 - cols[2][2::4]       # negative home
+    cols[7][3::4] = -5                       # negative rand
+    cols[7][0::8] = size[0::8] * 2 + 1       # rand past the window
+    pen = rng.randint(0, 4, n).astype(np.int32) if use_penalty else None
+    _assert_exact(*_both("scan", books, cols, pen))
+
+
+def test_scan_launch_is_deterministic_and_reports_its_cluster():
+    rng = np.random.RandomState(3)
+    n = 65536
+    books = random_books(n, rng)
+    cols = random_batch(n, 256, rng, oob_p=0.1)
+    (ks1, k1), _ = _both("scan", books, cols, None)
+    (ks2, k2), _ = _both("scan", books, cols, None)
+    assert torch.equal(ks1.free_mb, ks2.free_mb)
+    assert torch.equal(ks1.conc_free, ks2.conc_free)
+    for x, y in zip(k1[1:], k2[1:]):
+        assert torch.equal(x, y)
+    shape = K.schedule_batch_cuda.cluster
+    blocks, per = shape["blocks"], shape["columns_per_thread"]
+    assert blocks in (8, 16) and shape["threads"] == 1024
+    # the fewest columns a thread (a power of two) that cover the fleet
+    assert blocks * 1024 * per >= n > blocks * 1024 * per // 2
+    assert shape["prefetch_depth"] >= 1
+
+
+def test_scan_fleet_limit_raises():
+    rng = np.random.RandomState(0)
+    n = K.SCAN_MAX_N + 1
+    assert K.fits_scan(K.SCAN_MAX_N) and not K.fits_scan(n)
+    st = T.placement_state_from_numpy(*random_books(n, rng, slots=2),
+                                      device="cuda")
+    batch = T.request_batch_from_numpy(*random_batch(n, 4, rng, slots=2),
+                                       device="cuda")
+    launches = K.schedule_batch_cuda.launches
+    with pytest.raises(ValueError, match="SCAN_MAX_N"):
+        K.schedule_batch_cuda(K.to_transposed(st), batch)
+    assert K.schedule_batch_cuda.launches == launches
+
+
 def test_balancer_core_card_equals_cpu():
     """30 steps of mixed widths: the card (CUDA kernels) and the CPU
     (plain ops) place identically and end with the same books."""
