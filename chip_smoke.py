@@ -44,7 +44,25 @@ Phases, each reported on its own line:
      256-row steps of the same traffic (step p50, scan launches, each
      launch timed with CUDA events); its first 10 steps are replayed on
      the CPU and must agree in decisions and books.
-  7. a `{"kernels": [...]}` JSON line, then the card line, then the last
+  7. front    the load balancer front, `TpuBalancer()` on the card, over
+              the in-memory bus: 10,000 simulated invokers register by
+              pings through its supervision pool (the books grow from
+              initial_pad 64 to 16,384 rows on the card), then
+              `publish_many` waves of 256 rows of phase 4's action mix,
+              acked by the fleet 1-8 waves later (one fleet task drains
+              every invoker topic), 1% of the invokers turned unhealthy
+              through the supervision FSM and back by a ping, waves 40-69
+              under `torch.profiler` (the device's idle share), and a
+              1-16-row trickle once the releases have drained (the scan);
+              then a second balancer with `rate_limit_per_minute` over 16
+              waves (throttled rows). Every dispatched packed buffer, idle
+              release fold and health set is recorded by wrapping the
+              balancer's functions here, and replayed on the CPU through
+              the plain fused steps from the same initial books: decisions,
+              throttled bits, rounds and the final books must agree. Every
+              activation must resolve, none stay active, and the books
+              come back to full capacity. One "front" line of numbers.
+  8. a `{"kernels": [...]}` JSON line, then the card line, then the last
      line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
@@ -63,6 +81,7 @@ windows' union, each distinct conc row over the union of its rows'
 windows, read once, and the outputs: chosen, forced, rounds and the book
 cells that changed.
 """
+import asyncio
 import ctypes
 import json
 import math
@@ -855,6 +874,545 @@ def scan_pinned_phase(torch, K, TB):
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+#: the front's traffic: publish_many waves of MAX_BATCH rows, the profiled
+#: waves, the 1% flap (down at FLAP_AT, a ping brings it back FLAP_BACK
+#: waves later), the trickle steps, and the rate-limited segment
+FRONT_WAVES = 80
+FRONT_PROFILE_FROM, FRONT_PROFILE_WAVES = 40, 30
+FLAP_AT, FLAP_BACK = 10, 6
+FRONT_TRICKLE = 20
+RATE_WAVES, RATE_LIMIT = 16, 60
+#: the pool marks an invoker offline after 10 s without a ping: the fleet
+#: pings every invoker again once this many seconds have passed
+REPING_S = 3.0
+PING_CHUNK = 1000  # pings in flight at once (the health topic keeps 4,096)
+
+
+def _percentiles(xs):
+    xs = np.asarray(xs, float)
+    return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99))) \
+        if len(xs) else (None, None)
+
+
+def _time_calls(obj, name, acc, key):
+    """Route obj.name through a wrapper that adds its wall time to
+    acc[key] (a host-time split of the front; coroutines are timed from
+    call to return)."""
+    real = getattr(obj, name)
+    acc.setdefault(key, 0.0)
+    if asyncio.iscoroutinefunction(real):
+        async def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return await real(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t
+    else:
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t
+    setattr(obj, name, timed)
+
+
+class Fleet:
+    """N_INV simulated invokers of MEM_MB on one in-memory bus. One fleet
+    task drains the invoker topics the balancer wrote to (the bus's
+    producer notes them), and acks each activation `delay` waves after it
+    arrived, with its result; pings go out in paced rounds."""
+
+    def __init__(self, seed):
+        from openwhisk_tpu_torch.core import entity as E
+        from openwhisk_tpu_torch.messaging import memory as mem
+        from openwhisk_tpu_torch.messaging import message as M
+        self.E, self.M = E, M
+        self.rng = np.random.RandomState(seed)
+        fleet = self
+        self.touched, self.wake = set(), None
+
+        class Producer(mem.MemoryProducer):
+            async def send(self, topic, msg):
+                await super().send(topic, msg)
+                if topic.startswith("invoker"):
+                    fleet.touched.add(topic)
+                    fleet.wake.set()
+
+        class Bus(mem.MemoryMessagingProvider):
+            def get_producer(self):
+                return Producer(self.bus)
+
+        self.provider = Bus()
+        self.producer = self.provider.get_producer()
+        self.instances = [E.InvokerInstanceId(i, user_memory=E.MB(MEM_MB))
+                          for i in range(N_INV)]
+        self.consumers = {}
+        self.due = {}          # wave -> [ack]
+        self.wave = 0
+        self.received = 0
+        self.last_ping = 0.0
+        self.task = None
+        self.host_s = {"fleet_parse_and_ack_build": 0.0}
+        _time_calls(self, "ack_due", self.host_s, "fleet_ack_send")
+        self.host_s["fleet_ping_send"] = 0.0
+
+    def start(self):
+        self.wake = asyncio.Event()
+        self.task = asyncio.get_event_loop().create_task(self._drain())
+
+    async def stop(self):
+        self.task.cancel()
+        await asyncio.gather(self.task, return_exceptions=True)
+
+    async def _drain(self):
+        E, M = self.E, self.M
+        while True:
+            await self.wake.wait()
+            self.wake.clear()
+            topics, self.touched = self.touched, set()
+            t0 = time.perf_counter()
+            for topic in topics:
+                c = self.consumers.get(topic)
+                if c is None:
+                    c = self.consumers[topic] = self.provider.get_consumer(
+                        topic, topic, max_peek=1 << 16)
+                got = await c.peek(1 << 16, timeout=0)
+                c.commit()
+                inv = self.instances[int(topic[len("invoker"):])]
+                for _, _, _, payload in got:
+                    msg = M.ActivationMessage.parse(payload)
+                    now = time.time()
+                    act = E.WhiskActivation(
+                        E.EntityPath(str(msg.user.namespace.name)),
+                        msg.action.name, msg.user.subject,
+                        msg.activation_id, now, now,
+                        E.ActivationResponse.success({"ok": True}),
+                        duration=1)
+                    ack = (f"completed{msg.root_controller_index.as_string}",
+                           M.CombinedCompletionAndResultMessage(
+                               msg.transid, act, inv))
+                    self.due.setdefault(
+                        self.wave + int(self.rng.randint(1, 9)),
+                        []).append(ack)
+                    self.received += 1
+            self.host_s["fleet_parse_and_ack_build"] += \
+                time.perf_counter() - t0
+
+    async def ack_due(self, wave, everything=False):
+        """Advance to `wave` and send the acks due by then (all of them
+        with `everything`)."""
+        self.wave = wave
+        keys = sorted(k for k in self.due if everything or k <= wave)
+        for k in keys:
+            for topic, ack in self.due.pop(k):
+                await self.producer.send(topic, ack)
+
+    async def ping(self, pool, ids):
+        """Ping invokers `ids` through `pool`'s health feed, PING_CHUNK at
+        a time, each chunk waited for (pings are handled in order)."""
+        t_round = time.monotonic()
+        for s in range(0, len(ids), PING_CHUNK):
+            chunk = ids[s:s + PING_CHUNK]
+            t0 = time.perf_counter()
+            for i in chunk:
+                await self.producer.send("health",
+                                         self.M.PingMessage(self.instances[i]))
+            self.host_s["fleet_ping_send"] += time.perf_counter() - t0
+            last = chunk[-1]
+            while (pool.invokers.get(last) is None
+                   or pool.invokers[last].last_ping < t_round):
+                require(time.monotonic() - t_round < 60.0,
+                        "the pool handled a ping round within 60 s")
+                await asyncio.sleep(0.001)
+        self.last_ping = time.monotonic()
+
+    async def keep_alive(self, pool):
+        if time.monotonic() - self.last_ping > REPING_S:
+            await self.ping(pool, list(range(N_INV)))
+
+
+class ActionMix:
+    """Phase 4's Zipf(1.1) mix over 2,000 actions as `(action, message)`
+    pairs for the front: one namespace identity per ns, memory 128-2048 MB,
+    max_conc 2-16 for a fifth, blackbox for 5%."""
+
+    def __init__(self, seed, ctrl):
+        from openwhisk_tpu_torch.core import entity as E
+        from openwhisk_tpu_torch.messaging import message as M
+        from openwhisk_tpu_torch.utils.transaction import TransactionId
+        self.E, self.M, self.Tx, self.ctrl = E, M, TransactionId, ctrl
+        mix = Traffic(seed)
+        self.rng, self.p = mix.rng, mix.p
+        # deployments opt in to these (the defaults cap at 512 MB / 1)
+        E.MemoryLimit.MAX = E.MB(2048)
+        E.ConcurrencyLimit.MAX = 16
+        self.idents = [E.Identity.from_json({
+            "subject": f"subject{j}",
+            "namespace": {"name": f"ns{j}",
+                          "uuid": f"{j:08x}-71f6-4ed5-8c54-816aa4f8c502"},
+            "authkey": {"api_key": f"{j:08x}-71f6-4ed5-8c54-816aa4f8c502:"
+                                   + "k" * 64},
+            "rights": ["ACTIVATE"], "limits": {}}) for j in range(200)]
+        self.actions = []
+        for k in range(len(mix.p)):
+            exe = (E.BlackBoxExec(image="img") if mix.blackbox[k]
+                   else E.CodeExec(kind="python:3", code="x"))
+            a = E.ExecutableWhiskAction(
+                E.EntityPath(f"ns{k % 200}/pkg"), E.EntityName(f"action{k}"),
+                exe, limits=E.ActionLimits(
+                    E.TimeLimit(60_000), E.MemoryLimit(E.MB(int(mix.mem[k]))),
+                    concurrency=E.ConcurrencyLimit(int(mix.maxc[k]))))
+            a.rev = E.DocRevision("1-a")
+            self.actions.append(a)
+        self.count = 0
+
+    def pairs(self, n):
+        E = self.E
+        out = []
+        for k in self.rng.choice(len(self.p), n, p=self.p):
+            self.count += 1
+            a = self.actions[k]
+            out.append((a, self.M.ActivationMessage(
+                self.Tx(f"front{self.count}"), a.fully_qualified_name,
+                "1-a", self.idents[k % 200], E.ActivationId.generate(),
+                self.ctrl, False, {})))
+        return out
+
+
+class Recorder:
+    """Wraps a balancer's packed step, idle release fold, slot-axis growth
+    and the module's health set, keeping each call's inputs and the step's
+    output (the smoke's instrumentation: the balancer has no such
+    feature)."""
+
+    def __init__(self, bal, TB):
+        self.bal, self.TB, self.log = bal, TB, []
+        step, rel, grow, health = bal._packed_fn, bal._release_packed_fn, \
+            bal._grow_slots, TB.set_health
+        self.undo = lambda: (setattr(bal, "_packed_fn", step),
+                             setattr(bal, "_release_packed_fn", rel),
+                             setattr(bal, "_grow_slots", grow),
+                             setattr(TB, "set_health", health))
+        rate = bal.rate_limit_per_minute is not None
+
+        def grow_slots(new_slots):
+            self.log.append(("slots", new_slots))
+            return grow(new_slots)
+
+        def packed(*args):
+            res = step(*args)
+            buf, *rest = args[1:]
+            now = float(rest.pop(0)) if rate else None
+            self.log.append(("step", buf, now, tuple(rest), res[1]))
+            return res
+
+        def release(state, rel_t):
+            self.log.append(("release", rel_t))
+            return rel(state, rel_t)
+
+        def set_health(state, idx, vals):
+            self.log.append(("health", list(idx), list(vals)))
+            return health(state, idx, vals)
+
+        bal._packed_fn, bal._release_packed_fn = packed, release
+        bal._grow_slots = grow_slots
+        TB.set_health = set_health
+
+    def replay(self, books, buckets, P, TB, TT):
+        """The log through the plain fused steps on the CPU from `books`
+        (free, conc [A, N], health) and `buckets`: (steps whose packed
+        output differs, steps, plain state)."""
+        sched, release, _ = TB._torch_pair(self.bal.placement_kernel)
+        rate = buckets is not None
+        step = (P.make_fused_admit_step_packed if rate
+                else P.make_fused_step_packed)(release, sched)
+        rel_fn = P.make_release_packed(release)
+        free, conc, health = books
+        st = P.placement_state_from_numpy(free, conc.T, health, "cpu")
+        bk = TT.TokenBucketState(*(t.cpu().clone() for t in buckets)) \
+            if rate else None
+        bad = steps = 0
+        for ev in self.log:
+            if ev[0] == "step":
+                _, buf, now, shape, out = ev
+                if rate:
+                    (st, bk), o = step((st, bk), buf.cpu(), np.float32(now),
+                                       *shape)
+                else:
+                    st, o = step(st, buf.cpu(), *shape)
+                steps += 1
+                bad += int(not torch.equal(o, out.cpu()))
+            elif ev[0] == "release":
+                st = rel_fn(st, ev[1].cpu())
+            elif ev[0] == "slots":
+                conc = torch.zeros((ev[1], st.free_mb.shape[0]),
+                                   dtype=torch.int32)
+                conc[:st.conc_free.shape[1]] = st.conc_free.T
+                st = P.PlacementState(st.free_mb, conc.T, st.health)
+            else:
+                st = P.set_health(st, ev[1], ev[2])
+        return bad, steps, st
+
+
+def _books_np(state):
+    return tuple(t.cpu().numpy().copy() for t in (
+        state.free_mb, state.conc_free.T, state.health))
+
+
+async def _drain_front(bal, timeout=120.0):
+    """Until every activation is acked and nothing is queued or folding."""
+    t0 = time.monotonic()
+    while (bal.total_active_activations or bal._inflight_steps
+           or bal._pending or bal._releases or bal._readbacks
+           or not (bal._flush_task is None or bal._flush_task.done())):
+        require(time.monotonic() - t0 < timeout,
+                f"front drained within {timeout} s: "
+                f"{bal.total_active_activations} active")
+        await asyncio.sleep(0.001)
+
+
+async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
+                     flap):
+    """One balancer's run: register the fleet, drive `waves` publish_many
+    waves (acks 1-8 waves later; the 1% flap with `flap`; the profiled
+    window with `profile`), ack everything, the trickle. Returns the run's
+    numbers, its recorder, (books at the start, bucket state at the start,
+    books at the end) and the profiler."""
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.controller.loadbalancer.base import (
+        HEALTHY, LoadBalancerThrottleException)
+    errors = []
+
+    class Log:
+        def error(self, _tid, msg, *_):
+            errors.append(msg)
+
+        def warn(self, *_):
+            pass
+
+        def info(self, *_):
+            pass
+
+    ctrl = E.ControllerInstanceId(ctrl_id)
+    fleet = Fleet(seed=11)
+    fleet.start()
+    bal = TB.TpuBalancer(
+        fleet.provider, ctrl, logger=Log(), managed_fraction=0.9,
+        blackbox_fraction=0.1, max_batch=MAX_BATCH, action_slots=A,
+        initial_pad=64, rate_limit_per_minute=rate_limit,
+        device=None if DEVICE == "cuda" else DEVICE)
+    await bal.start()
+    t0 = time.perf_counter()
+    await fleet.ping(bal.supervision, list(range(N_INV)))
+    register_s = time.perf_counter() - t0
+    require(len(bal._registry) == N_INV and all(bal._healthy)
+            and bal.state.free_mb.shape[0] == N_PAD,
+            f"fleet registered, pad {bal.state.free_mb.shape[0]}")
+    # a step folds at most HEALTH_BATCH of the registration's N_INV health
+    # flips, an idle fold all of them: let one run before the traffic
+    bal._arm_flush()
+    await _drain_front(bal)
+    require(not bal._health_updates and bool(bal.state.health[:N_INV].all()),
+            "the registration's health flips folded")
+    books0 = _books_np(bal.state)
+    buckets0 = (None if bal._bucket_state is None else
+                tuple(t.clone() for t in bal._bucket_state))
+    rec = Recorder(bal, TB)
+    # the host-time split of the driven segment (the smoke's wrappers)
+    host = fleet.host_s
+    for k in host:
+        host[k] = 0.0
+    for name, key in (("publish_many", "balancer_publish_many"),
+                      ("_row_placed", "balancer_fan_out"),
+                      ("send_activation_to_invoker", "balancer_send"),
+                      ("process_acknowledgement", "balancer_ack")):
+        _time_calls(bal, name, host, key)
+    _time_calls(bal.supervision, "on_ping", host, "pool_on_ping")
+    mix = ActionMix(seed=7, ctrl=ctrl)
+    flapped = [int(i) for i in
+               fleet.rng.choice(N_INV, N_INV // 100, replace=False)]
+    lat, outs_all, flap_status = [], [], {}
+    prof = window = rate_waves = None
+
+    async def ack_everything(wave):
+        # the fleet must hold every placed activation before it acks all
+        placed = sum(1 for o in outs_all
+                     if o.done() and not o.cancelled()
+                     and o.exception() is None)
+        t0 = time.monotonic()
+        while fleet.received < placed:
+            require(time.monotonic() - t0 < 60.0,
+                    f"the fleet received {fleet.received} of {placed}")
+            await asyncio.sleep(0.001)
+        await fleet.ack_due(wave, everything=True)
+        await _drain_front(bal)
+
+    K.reset_launch_counts()
+    t_first = time.perf_counter()
+    prev = []
+    for w in range(waves):
+        await fleet.ack_due(w)
+        await fleet.keep_alive(bal.supervision)
+        if flap and w == FLAP_AT:
+            for i in flapped:
+                for _ in range(4):
+                    bal.supervision.on_invocation_finished(
+                        fleet.instances[i], True, False)
+            flap_status["down"] = sum(
+                bal.supervision.invokers[i].status != HEALTHY
+                for i in flapped)
+        if flap and w == FLAP_AT + FLAP_BACK:
+            await fleet.ping(bal.supervision, flapped)
+            flap_status["back"] = sum(
+                bal.supervision.invokers[i].status == HEALTHY
+                for i in flapped)
+        if profile and w == FRONT_PROFILE_FROM:
+            rate_waves = (time.perf_counter() - t_first, w * MAX_BATCH)
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=PROFILE_ACTIVITIES)
+            prof.start()
+            window = torch.profiler.record_function("front_window")
+            window.__enter__()
+        t_pub = time.perf_counter()
+        outs = bal.publish_many(mix.pairs(MAX_BATCH))
+        for o in outs:
+            o.add_done_callback(
+                lambda f, t=t_pub: lat.append(time.perf_counter() - t))
+        outs_all.extend(outs)
+        # up to two waves in flight: wait for the one before this
+        await asyncio.gather(*prev, return_exceptions=True)
+        prev = outs
+        if profile and w == FRONT_PROFILE_FROM + FRONT_PROFILE_WAVES - 1:
+            await asyncio.gather(*prev, return_exceptions=True)
+            torch.cuda.synchronize()
+            window.__exit__(None, None, None)
+            prof.stop()
+    await asyncio.gather(*prev, return_exceptions=True)
+    await ack_everything(waves)
+    # the trickle once the releases have drained: 1-16 rows a step through
+    # publish_many, every second step one serial publish
+    for k in range(trickle):
+        if k % 2:
+            a, msg = mix.pairs(1)[0]
+            outs = [asyncio.ensure_future(bal.publish(a, msg))]
+        else:
+            outs = bal.publish_many(mix.pairs(int(mix.rng.randint(1, 17))))
+        outs_all.extend(outs)
+        await asyncio.gather(*outs, return_exceptions=True)
+        await ack_everything(waves + 1 + k)
+    t_last = time.perf_counter()
+    launches = {"scan": K.schedule_batch_cuda.launches,
+                "repair": K.schedule_batch_repair_cuda.launches}
+    rec.undo()
+    promises, failed, throttled = [], [], 0
+    for o in outs_all:
+        exc = o.exception()
+        if isinstance(exc, LoadBalancerThrottleException):
+            throttled += 1
+        elif exc is not None:
+            failed.append(repr(exc))
+        else:
+            promises.append(o.result())
+    results = await asyncio.gather(*promises, return_exceptions=True)
+    torch.cuda.synchronize()
+    books = _books_np(bal.state)
+    summary = dict(
+        rate_limit=rate_limit, register_s=register_s, waves=waves,
+        trickle_steps=trickle, activations=len(promises),
+        throttled=throttled, failed=len(failed), failed_first=failed[:3],
+        unresolved=sum(not hasattr(r, "response") for r in results),
+        fleet_received=fleet.received,
+        active_at_end=bal.total_active_activations,
+        activations_per_s=len(promises) / (t_last - t_first),
+        placement_ms_p50_p99=[x * 1e3 for x in _percentiles(lat)],
+        step_ms_p50_p99=list(_percentiles(bal.step_ms)),
+        steps=bal.counters["steps"], launches=launches,
+        mean_repair_rounds=(bal.counters["repair_rounds"]
+                            / max(1, bal.counters["repair_steps"])),
+        rtt_policy=bal.rtt_policy, rtt_ewma_ms=bal._rtt_ewma_ms,
+        books_full=bool((books[0][:N_INV] == MEM_MB).all()
+                        and not books[1].any() and books[2][:N_INV].all()),
+        errors=errors[:3],
+        host_s=dict(host, wall=t_last - t_first,
+                    other=t_last - t_first - sum(host.values())))
+    if flap:
+        summary["flap"] = dict(invokers=len(flapped), **flap_status)
+    if rate_waves is not None:
+        summary["placements_per_s_before_profile"] = \
+            rate_waves[1] / rate_waves[0]
+    await bal.close()
+    await fleet.stop()
+    return summary, rec, (books0, buckets0, books), prof
+
+
+def _window_idle_share(prof):
+    """The device's idle share over the host range "front_window"."""
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, \
+        torch.autograd.DeviceType.CUDA
+    evs = prof.events()
+    win = [(e.time_range.start, e.time_range.end) for e in evs
+           if e.name == "front_window" and e.device_type == cpu_t]
+    t0, t1 = win[0]
+    dev = [(e.time_range.start, e.time_range.end) for e in evs
+           if e.device_type == cuda_t and e.name != "front_window"]
+    busy = _union_ms(dev, t0, t1)
+    return dict(window_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1.0 - busy / (t1 - t0))
+
+
+#: the profiler's activities (the CPU rehearsal drops CUDA)
+PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+
+
+def front_phase(torch, P, K, TB):
+    """Phase 7: the front at full width, its checks and its CPU replay."""
+    from openwhisk_tpu_torch.ops import throttle as TT
+    res = {}
+    for label, rate, waves, trickle, profile in (
+            ("main", None, FRONT_WAVES, FRONT_TRICKLE, True),
+            ("rate_limited", RATE_LIMIT, RATE_WAVES, 0, False)):
+        t0 = time.perf_counter()
+        out, rec, (books0, buckets0, books), prof = asyncio.run(_front_run(
+            TB, K, rate, "0" if label == "main" else "1", waves, trickle,
+            profile=profile, flap=profile))
+        if prof is not None:
+            out["profile"] = _window_idle_share(prof)
+        t1 = time.perf_counter()
+        bad, steps, st = rec.replay(books0, buckets0, P, TB, TT)
+        replay_books = _books_np(st)
+        books_equal = all(np.array_equal(x, y)
+                          for x, y in zip(books, replay_books))
+        out["cpu_replay"] = dict(steps=steps, events=len(rec.log),
+                                 mismatched_steps=bad,
+                                 books_equal=books_equal,
+                                 cpu_s=time.perf_counter() - t1)
+        out["run_s"] = t1 - t0
+        say("front", segment=label, **out)
+        require(not out["failed"] and not out["unresolved"]
+                and not out["errors"],
+                f"front {label}: every activation resolved")
+        require(out["active_at_end"] == 0 and out["books_full"],
+                f"front {label}: nothing active, books at full capacity")
+        require(bad == 0 and books_equal,
+                f"front {label}: card and CPU replay agree")
+        if rate is None:
+            require(out["launches"]["scan"] > 0
+                    and out["launches"]["repair"] > 0,
+                    f"both kernels launched on the front: {out['launches']}")
+            require(out["flap"]["down"] == out["flap"]["invokers"]
+                    and out["flap"]["back"] == out["flap"]["invokers"],
+                    f"the 1% flap went down and came back: {out['flap']}")
+        else:
+            require(out["throttled"] > 0, "rows throttled")
+            require(out["launches"]["repair"] > 0,
+                    f"the repair kernel ran: {out['launches']}")
+        res[label] = out
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -900,6 +1458,12 @@ def main():
     pinned = scan_pinned_phase(torch, K, TB)
     say("scan_pinned_phase", seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    front = front_phase(torch, P, K, TB)
+    say("front_phase", seconds=time.perf_counter() - t0)
+    front_launches = {k: sum(seg["launches"][k] for seg in front.values())
+                      for k in ("scan", "repair")}
+
     scan = sk["plain"]
     rep = mk["plain"]
     kernels = [
@@ -907,6 +1471,7 @@ def main():
          "source": "openwhisk_tpu_torch/csrc/placement_scan.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:244",
          "launches": launches["scan"],
+         "front_launches": front_launches["scan"],
          "max_abs_err": max(kres["scan"]["err"], scan["max_abs_err"],
                             sk["penalized"]["max_abs_err"],
                             *(v["max_abs_err"] for v in sserial.values())),
@@ -925,6 +1490,7 @@ def main():
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
          "launches": launches["repair"],
+         "front_launches": front_launches["repair"],
          "max_abs_err": max(kres["repair"]["err"], rep["max_abs_err"]),
          "B": mk["B"], "grid": mk["grid"], "ms": rep["ms"],
          "rounds": rep["rounds"], "ms_per_round": rep["ms_per_round"],

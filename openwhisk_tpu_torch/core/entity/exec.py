@@ -1,0 +1,153 @@
+"""Executable kinds of an action.
+
+Ref: common/scala/.../core/entity/Exec.scala:49-231 — the kind taxonomy:
+  CodeExec      — managed-runtime code ("python:3", "nodejs:14", ...),
+                  inline string or attachment, optional `main`, binary flag
+  BlackBoxExec  — arbitrary docker image (+ optional code injected at /init)
+  SequenceExec  — ordered list of component actions (control-flow construct)
+plus the *metadata* twins used on the control plane where shipping code bodies
+is wasteful (ExecMetaDataBase — only kind/binary/image are needed by the
+balancer and pool).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from .names import FullyQualifiedEntityName
+from .parameters import MalformedEntity
+
+SEQUENCE_KIND = "sequence"
+BLACKBOX_KIND = "blackbox"
+
+
+class Exec:
+    kind: str = ""
+
+    @property
+    def deprecated(self) -> bool:
+        return False
+
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
+    @staticmethod
+    def from_json(j: dict) -> "Exec":
+        if j is not None and not isinstance(j, dict):
+            raise MalformedEntity("exec must be an object")
+        kind = (j or {}).get("kind", "")
+        if not isinstance(kind, str):
+            raise MalformedEntity("exec kind must be a string")
+        if kind == SEQUENCE_KIND:
+            return SequenceExec.from_json(j)
+        if kind == BLACKBOX_KIND:
+            return BlackBoxExec.from_json(j)
+        if not kind:
+            raise ValueError("exec has no kind")
+        return CodeExec.from_json(j)
+
+
+@dataclass
+class CodeExec(Exec):
+    """Managed-runtime code (ref Exec.scala CodeExecAsString/AsAttachment)."""
+    kind: str = "python:3"
+    code: str = ""
+    main: Optional[str] = None
+    binary: bool = False
+    image: Optional[str] = None       # resolved runtime image from the manifest
+    entry_point: Optional[str] = None
+
+    @property
+    def pull(self) -> bool:
+        return False
+
+    def to_json(self) -> dict:
+        j = {"kind": self.kind, "code": self.code, "binary": self.binary}
+        if self.main:
+            j["main"] = self.main
+        if self.image:
+            j["image"] = self.image
+        return j
+
+    @classmethod
+    def from_json(cls, j: dict) -> "CodeExec":
+        return cls(kind=j["kind"], code=j.get("code", ""), main=j.get("main"),
+                   binary=bool(j.get("binary", False)), image=j.get("image"))
+
+
+@dataclass
+class BlackBoxExec(Exec):
+    """User-supplied docker image (ref Exec.scala BlackBoxExec)."""
+    image: str = ""
+    code: Optional[str] = None
+    main: Optional[str] = None
+    binary: bool = False
+    native: bool = False  # true when the image is a system runtime image
+    kind: str = field(default=BLACKBOX_KIND, init=False)
+
+    @property
+    def pull(self) -> bool:
+        return not self.native
+
+    def to_json(self) -> dict:
+        j = {"kind": BLACKBOX_KIND, "image": self.image, "binary": self.binary}
+        if self.code:
+            j["code"] = self.code
+        if self.main:
+            j["main"] = self.main
+        return j
+
+    @classmethod
+    def from_json(cls, j: dict) -> "BlackBoxExec":
+        if not isinstance(j.get("image"), str):
+            raise MalformedEntity("blackbox exec needs a string image")
+        return cls(image=j["image"], code=j.get("code"), main=j.get("main"),
+                   binary=bool(j.get("binary", False)))
+
+
+@dataclass
+class SequenceExec(Exec):
+    """A pipeline of component actions executed in order
+    (ref Exec.scala SequenceExec; executed by SequenceActions.scala)."""
+    components: List[FullyQualifiedEntityName] = field(default_factory=list)
+    kind: str = field(default=SEQUENCE_KIND, init=False)
+
+    def to_json(self) -> dict:
+        return {"kind": SEQUENCE_KIND,
+                "components": [str(c) for c in self.components]}
+
+    @classmethod
+    def from_json(cls, j: dict) -> "SequenceExec":
+        comps = j.get("components", [])
+        if not isinstance(comps, list) or \
+                not all(isinstance(c, str) for c in comps):
+            raise MalformedEntity(
+                "sequence components must be a list of action names")
+        return cls(components=[FullyQualifiedEntityName.parse(c) for c in comps])
+
+
+# ---------------------------------------------------------------------------
+# Metadata twins (ref Exec.scala ExecMetaDataBase): enough for scheduling.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ExecMetaData:
+    kind: str
+    binary: bool = False
+    image: Optional[str] = None
+
+    @property
+    def is_blackbox(self) -> bool:
+        return self.kind == BLACKBOX_KIND
+
+    @property
+    def is_sequence(self) -> bool:
+        return self.kind == SEQUENCE_KIND
+
+    @classmethod
+    def of(cls, e: Exec) -> "ExecMetaData":
+        img = getattr(e, "image", None)
+        return cls(kind=e.kind, binary=getattr(e, "binary", False), image=img)
+
+    def to_json(self):
+        return {"kind": self.kind, "binary": self.binary, "image": self.image}

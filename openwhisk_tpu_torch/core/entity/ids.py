@@ -1,0 +1,232 @@
+"""Identifiers: activation ids, subjects, auth keys, doc ids, instance ids.
+
+Refs: ActivationId.scala, Subject.scala, AuthKey.scala, DocInfo.scala,
+InstanceId.scala (common/scala/.../core/entity/).
+"""
+from __future__ import annotations
+
+import os
+import re
+import secrets
+import uuid
+from dataclasses import dataclass
+from typing import Optional
+
+
+class ActivationId:
+    """32-lowercase-hex activation id (ref ActivationId.scala: UUID sans
+    dashes; accepts UUID-with-dashes on parse)."""
+
+    __slots__ = ("asString",)
+    _RX = re.compile(r"^[0-9a-f]{32}$")
+
+    def __init__(self, as_string: str):
+        s = as_string.replace("-", "").lower()
+        if not self._RX.match(s):
+            raise ValueError(f"activation id is not valid: {as_string!r}")
+        self.asString = s
+
+    @classmethod
+    def generate(cls) -> "ActivationId":
+        # os.urandom(16).hex() is 32 lowercase hex by construction — the
+        # same 128 random bits as uuid4().hex at ~1/4 the cost (uuid4
+        # builds a UUID object, int-converts and re-formats; id minting
+        # is once per activation on the publish hot path and showed up
+        # in the host observatory's self-time census)
+        aid = object.__new__(cls)
+        aid.asString = os.urandom(16).hex()
+        return aid
+
+    def to_json(self) -> str:
+        return self.asString
+
+    @classmethod
+    def from_json(cls, j) -> "ActivationId":
+        return cls(str(j))
+
+    def __eq__(self, other):
+        return isinstance(other, ActivationId) and self.asString == other.asString
+
+    def __hash__(self):
+        return hash(self.asString)
+
+    def __repr__(self):
+        return self.asString
+
+
+@dataclass(frozen=True)
+class Subject:
+    """An authenticated subject name, >= 5 chars (ref Subject.scala)."""
+    asString: str
+
+    def __post_init__(self):
+        if len(self.asString) < 5:
+            raise ValueError("subject must be at least 5 characters")
+
+    @classmethod
+    def generate(cls) -> "Subject":
+        return cls("anon-" + secrets.token_hex(8))
+
+    def to_json(self):
+        return self.asString
+
+    def __str__(self):
+        return self.asString
+
+
+@dataclass(frozen=True)
+class UUID:
+    """Namespace uuid (ref UUID in entity package)."""
+    asString: str
+
+    @classmethod
+    def generate(cls) -> "UUID":
+        return cls(str(uuid.uuid4()))
+
+    def to_json(self):
+        return self.asString
+
+    def __str__(self):
+        return self.asString
+
+
+@dataclass(frozen=True)
+class Secret:
+    asString: str
+
+    @classmethod
+    def generate(cls) -> "Secret":
+        return cls(secrets.token_hex(32))
+
+    def to_json(self):
+        return self.asString
+
+
+@dataclass(frozen=True)
+class BasicAuthenticationAuthKey:
+    """uuid:key credential pair (ref BasicAuthenticationAuthKey.scala)."""
+    uuid: UUID
+    key: Secret
+
+    @classmethod
+    def generate(cls) -> "BasicAuthenticationAuthKey":
+        return cls(UUID.generate(), Secret.generate())
+
+    @classmethod
+    def parse(cls, compact: str) -> "BasicAuthenticationAuthKey":
+        u, _, k = compact.partition(":")
+        if not u or not k:
+            raise ValueError("malformed auth key, want '<uuid>:<key>'")
+        return cls(UUID(u), Secret(k))
+
+    @property
+    def compact(self) -> str:
+        return f"{self.uuid.asString}:{self.key.asString}"
+
+    def to_json(self):
+        return {"api_key": self.compact}
+
+
+@dataclass(frozen=True)
+class DocRevision:
+    rev: Optional[str] = None
+
+    @property
+    def empty(self) -> bool:
+        return self.rev is None
+
+    def to_json(self):
+        return self.rev
+
+    def __repr__(self):
+        return self.rev or ""
+
+
+@dataclass(frozen=True)
+class DocInfo:
+    """Document id + revision (ref DocInfo.scala)."""
+    id: str
+    rev: DocRevision = DocRevision()
+
+    def to_json(self):
+        return {"id": self.id, "rev": self.rev.to_json()}
+
+
+class InstanceId:
+    """Numbered component instance (ref InstanceId.scala:31-60)."""
+
+    __slots__ = ("instance", "unique_name", "display_name")
+    prefix = "instance"
+
+    def __init__(self, instance: int, unique_name: Optional[str] = None,
+                 display_name: Optional[str] = None):
+        if instance < 0:
+            raise ValueError("instance id must be >= 0")
+        self.instance = instance
+        self.unique_name = unique_name
+        self.display_name = display_name
+
+    @property
+    def as_string(self) -> str:
+        return f"{self.prefix}{self.instance}"
+
+    def to_json(self):
+        return {"instance": self.instance, "uniqueName": self.unique_name,
+                "displayName": self.display_name, "instanceType": self.prefix}
+
+    @classmethod
+    def from_json(cls, j) -> "InstanceId":
+        return cls(int(j["instance"]), j.get("uniqueName"), j.get("displayName"))
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.instance == other.instance
+
+    def __hash__(self):
+        return hash((self.prefix, self.instance))
+
+    def __repr__(self):
+        return self.as_string
+
+
+class InvokerInstanceId(InstanceId):
+    """Invoker N; carries its user-memory pool size for the balancer
+    (ref InstanceId.scala InvokerInstanceId with userMemory)."""
+    prefix = "invoker"
+    __slots__ = ("user_memory",)
+
+    def __init__(self, instance: int, unique_name: Optional[str] = None,
+                 display_name: Optional[str] = None, user_memory: Optional[object] = None):
+        super().__init__(instance, unique_name, display_name)
+        from .size import MB, ByteSize
+        self.user_memory: ByteSize = user_memory if user_memory is not None else MB(2048)
+
+    def to_json(self):
+        j = super().to_json()
+        j["userMemory"] = self.user_memory.to_json()
+        return j
+
+    @classmethod
+    def from_json(cls, j) -> "InvokerInstanceId":
+        from .size import ByteSize
+        um = j.get("userMemory")
+        return cls(int(j["instance"]), j.get("uniqueName"), j.get("displayName"),
+                   ByteSize.from_json(um) if um is not None else None)
+
+
+class ControllerInstanceId(InstanceId):
+    prefix = "controller"
+
+    def __init__(self, asString: str | int):
+        if isinstance(asString, int):
+            super().__init__(asString)
+            self.name = str(asString)
+        else:
+            try:
+                super().__init__(int(asString))
+            except ValueError:
+                super().__init__(abs(hash(asString)) % (2**31))
+            self.name = str(asString)
+
+    @property
+    def as_string(self) -> str:
+        return f"{self.prefix}{self.name}"

@@ -1,0 +1,196 @@
+"""Action resource limits.
+
+Refs: MemoryLimit.scala:49-51, TimeLimit.scala:54-56, LogLimit.scala,
+ConcurrencyLimit.scala:51-53, ActionLimits.scala. Defaults mirror the
+reference's application.conf:368-394 (memory 128-512 MB std 256; time
+100 ms - 5 min std 1 min; logs 0-10 MB std 10 MB; concurrency 1-1 std 1 —
+intra-container concurrency is opt-in by raising `ConcurrencyLimit.MAX`).
+All are class-configurable the way the reference reads them from config.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from .parameters import MalformedEntity
+from .size import MB, ByteSize
+
+
+def _int_value(j, what: str) -> int:
+    """Limits are JSON numbers on the wire; anything else — booleans,
+    strings (even numeric ones, matching the reference's JsNumber-only
+    contract), non-integral or non-finite floats — is a malformed body,
+    not a server error (and not a silent truncation)."""
+    if isinstance(j, bool) or not isinstance(j, (int, float)):
+        raise MalformedEntity(f"{what} limit must be an integer")
+    try:
+        n = int(j)
+    except (TypeError, ValueError, OverflowError):
+        raise MalformedEntity(f"{what} limit must be an integer") from None
+    if isinstance(j, float) and j != n:
+        raise MalformedEntity(f"{what} limit must be an integer")
+    return n
+
+
+class LimitViolation(ValueError):
+    pass
+
+
+class MemoryLimit:
+    MIN = MB(128)
+    STD = MB(256)
+    MAX = MB(512)
+
+    __slots__ = ("megabytes",)
+
+    def __init__(self, size: Optional[ByteSize] = None):
+        size = size if size is not None else self.STD
+        if size < self.MIN:
+            raise LimitViolation(f"memory {size} below allowed threshold {self.MIN}")
+        if size > self.MAX:
+            raise LimitViolation(f"memory {size} exceeds allowed threshold {self.MAX}")
+        self.megabytes = size.to_mb
+
+    @property
+    def size(self) -> ByteSize:
+        return MB(self.megabytes)
+
+    def to_json(self):
+        return self.megabytes
+
+    @classmethod
+    def from_json(cls, j) -> "MemoryLimit":
+        return cls(MB(_int_value(j, "memory")))
+
+    def __eq__(self, other):
+        return isinstance(other, MemoryLimit) and self.megabytes == other.megabytes
+
+    def __repr__(self):
+        return f"{self.megabytes} MB"
+
+
+class TimeLimit:
+    MIN_MS = 100
+    STD_MS = 60_000
+    MAX_MS = 300_000
+
+    __slots__ = ("millis",)
+
+    def __init__(self, millis: Optional[int] = None):
+        millis = millis if millis is not None else self.STD_MS
+        if millis < self.MIN_MS:
+            raise LimitViolation(f"duration {millis}ms below allowed threshold {self.MIN_MS}ms")
+        if millis > self.MAX_MS:
+            raise LimitViolation(f"duration {millis}ms exceeds allowed threshold {self.MAX_MS}ms")
+        self.millis = millis
+
+    @property
+    def seconds(self) -> float:
+        return self.millis / 1000.0
+
+    def to_json(self):
+        return self.millis
+
+    @classmethod
+    def from_json(cls, j) -> "TimeLimit":
+        return cls(_int_value(j, "timeout"))
+
+    def __eq__(self, other):
+        return isinstance(other, TimeLimit) and self.millis == other.millis
+
+    def __repr__(self):
+        return f"{self.millis} ms"
+
+
+class LogLimit:
+    MIN = MB(0)
+    STD = MB(10)
+    MAX = MB(10)
+
+    __slots__ = ("megabytes",)
+
+    def __init__(self, size: Optional[ByteSize] = None):
+        size = size if size is not None else self.STD
+        if size < self.MIN or size > self.MAX:
+            raise LimitViolation(f"logs {size} outside allowed range [{self.MIN}, {self.MAX}]")
+        self.megabytes = size.to_mb
+
+    @property
+    def size(self) -> ByteSize:
+        return MB(self.megabytes)
+
+    def to_json(self):
+        return self.megabytes
+
+    @classmethod
+    def from_json(cls, j) -> "LogLimit":
+        return cls(MB(_int_value(j, "logs")))
+
+    def __eq__(self, other):
+        return isinstance(other, LogLimit) and self.megabytes == other.megabytes
+
+    def __repr__(self):
+        return f"{self.megabytes} MB"
+
+
+class ConcurrencyLimit:
+    """Intra-container concurrency (ref ConcurrencyLimit.scala:51-53,
+    docs/concurrency.md): number of activations one warm container may
+    process at once. Disabled (max=1) by default, exactly as the reference."""
+    MIN = 1
+    STD = 1
+    MAX = 1  # deployments raise this to opt in (e.g. 500)
+
+    __slots__ = ("max_concurrent",)
+
+    def __init__(self, concurrency: Optional[int] = None):
+        c = concurrency if concurrency is not None else self.STD
+        if c < self.MIN:
+            raise LimitViolation(f"concurrency {c} below allowed threshold {self.MIN}")
+        if c > self.MAX:
+            raise LimitViolation(f"concurrency {c} exceeds allowed threshold {self.MAX}")
+        self.max_concurrent = c
+
+    def to_json(self):
+        return self.max_concurrent
+
+    @classmethod
+    def from_json(cls, j) -> "ConcurrencyLimit":
+        return cls(_int_value(j, "concurrency"))
+
+    def __eq__(self, other):
+        return isinstance(other, ConcurrencyLimit) and self.max_concurrent == other.max_concurrent
+
+    def __repr__(self):
+        return str(self.max_concurrent)
+
+
+@dataclass
+class ActionLimits:
+    """Bundle of limits on an action (ref ActionLimits.scala)."""
+    timeout: TimeLimit = None  # type: ignore[assignment]
+    memory: MemoryLimit = None  # type: ignore[assignment]
+    logs: LogLimit = None  # type: ignore[assignment]
+    concurrency: ConcurrencyLimit = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        self.timeout = self.timeout or TimeLimit()
+        self.memory = self.memory or MemoryLimit()
+        self.logs = self.logs or LogLimit()
+        self.concurrency = self.concurrency or ConcurrencyLimit()
+
+    def to_json(self):
+        return {"timeout": self.timeout.to_json(), "memory": self.memory.to_json(),
+                "logs": self.logs.to_json(), "concurrency": self.concurrency.to_json()}
+
+    @classmethod
+    def from_json(cls, j) -> "ActionLimits":
+        if j is not None and not isinstance(j, dict):
+            raise MalformedEntity("limits must be an object")
+        j = j or {}
+        return cls(
+            TimeLimit.from_json(j["timeout"]) if "timeout" in j else None,
+            MemoryLimit.from_json(j["memory"]) if "memory" in j else None,
+            LogLimit.from_json(j["logs"]) if "logs" in j else None,
+            ConcurrencyLimit.from_json(j["concurrency"]) if "concurrency" in j else None,
+        )

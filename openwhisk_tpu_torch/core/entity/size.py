@@ -1,0 +1,87 @@
+"""Byte sizes (ref common/scala/.../core/entity/size.scala).
+
+Parses/renders the reference's wire format ("256 MB", "10485760 B") and
+supports the arithmetic the capacity model needs (MB-quantized permits).
+"""
+from __future__ import annotations
+
+import re
+from functools import total_ordering
+
+_UNITS = {"B": 1, "KB": 1024, "MB": 1024**2, "GB": 1024**3, "TB": 1024**4}
+_RX = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([KMGT]?B)?\s*$", re.IGNORECASE)
+
+
+@total_ordering
+class ByteSize:
+    __slots__ = ("bytes",)
+
+    def __init__(self, size: float, unit: str = "B"):
+        u = unit.upper()
+        if u not in _UNITS:
+            raise ValueError(f"unknown size unit {unit!r}")
+        self.bytes = int(size * _UNITS[u])
+
+    @classmethod
+    def from_string(cls, s: str) -> "ByteSize":
+        m = _RX.match(s)
+        if not m:
+            raise ValueError(f"invalid size string {s!r} (want e.g. '256 MB')")
+        return cls(float(m.group(1)), (m.group(2) or "B"))
+
+    @property
+    def to_kb(self) -> int:
+        return self.bytes // 1024
+
+    @property
+    def to_mb(self) -> int:
+        return self.bytes // (1024**2)
+
+    def __add__(self, other: "ByteSize") -> "ByteSize":
+        return ByteSize(self.bytes + other.bytes)
+
+    def __sub__(self, other: "ByteSize") -> "ByteSize":
+        return ByteSize(self.bytes - other.bytes)
+
+    def __mul__(self, k) -> "ByteSize":
+        return ByteSize(int(self.bytes * k))
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ByteSize) and self.bytes == other.bytes
+
+    def __lt__(self, other: "ByteSize") -> bool:
+        return self.bytes < other.bytes
+
+    def __hash__(self) -> int:
+        return hash(self.bytes)
+
+    def __repr__(self) -> str:
+        for unit in ("TB", "GB", "MB", "KB"):
+            if self.bytes and self.bytes % _UNITS[unit] == 0:
+                return f"{self.bytes // _UNITS[unit]} {unit}"
+        return f"{self.bytes} B"
+
+    def to_json(self) -> str:
+        return repr(self)
+
+    @classmethod
+    def from_json(cls, j) -> "ByteSize":
+        if isinstance(j, (int, float)):
+            return cls(int(j))
+        return cls.from_string(str(j))
+
+
+def MB(n: float) -> ByteSize:
+    return ByteSize(n, "MB")
+
+
+def KB(n: float) -> ByteSize:
+    return ByteSize(n, "KB")
+
+
+def B(n: float) -> ByteSize:
+    return ByteSize(n, "B")
+
+
+def GB(n: float) -> ByteSize:
+    return ByteSize(n, "GB")

@@ -713,6 +713,44 @@ def make_fused_step_packed(release_fn=None, schedule_fn=None):
     return packed
 
 
+def make_fused_admit_step_packed(release_fn=None, schedule_fn=None):
+    """`make_fused_step_packed` with device token-bucket admission
+    (ops/throttle.py) before the schedule: the step folds releases and
+    health, ADMITS the batch against per-namespace buckets, then schedules
+    only the admitted requests. Over-rate requests come back with bit 1 of
+    their packed decision set (chosen -1) and never consume capacity.
+
+      carry (state, buckets); buf int32[5R + 3H + 10B]: req grows a 10th
+      row, ns_slot (the balancer's namespace -> bucket index); `now` is
+      the balancer's small-magnitude clock in seconds.
+      out int32[B + 1]: ((chosen+1)<<2) | throttled<<1 | forced, then the
+      repair-round count.
+
+    The books are updated in place; the bucket state comes back new."""
+    from .throttle import admit_batch
+
+    fused = make_fused_step(release_fn, schedule_fn)
+
+    def packed(carry, buf, now, R: int, H: int, B: int):
+        state, buckets = carry
+        rel = buf[:5 * R].view(5, R)
+        health = buf[5 * R:5 * R + 3 * H].view(3, H)
+        req = buf[5 * R + 3 * H:].view(10, B)
+        valid = req[8].bool()
+        buckets, admitted = admit_batch(buckets, now, req[9], valid)
+        throttled = valid & ~admitted
+        batch = RequestBatch(req[0], req[1], req[2], req[3], req[4], req[5],
+                             req[6], req[7], admitted)
+        state, chosen, forced, rounds = fused(
+            state, rel[0], rel[1], rel[2], rel[3], rel[4].bool(),
+            health[0], health[1].bool(), health[2].bool(), batch)
+        out = (((chosen + 1) << 2) | (throttled.to(I32) << 1)
+               | forced.to(I32))
+        return (state, buckets), torch.cat([out, rounds.reshape(1).to(I32)])
+
+    return packed
+
+
 def unpack_chosen(out):
     """Decode the packed step output's per-request slice (numpy or torch)
     -> (chosen int32, forced bool, throttled bool). Slice off the trailing

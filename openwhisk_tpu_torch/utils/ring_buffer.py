@@ -1,12 +1,38 @@
-"""Column ring for the balancer core's batch assembly.
+"""Ring buffers of the balancer's host side.
 
-A copy of `ColumnRing` from `openwhisk_tpu/utils/ring_buffer.py`: numpy
-host code, carried over unchanged so the port never imports the JAX
-package.
+Copies of `RingBuffer` and `ColumnRing` from
+`openwhisk_tpu/utils/ring_buffer.py`: plain Python and numpy host code,
+carried over unchanged so the port never imports the JAX package.
+`RingBuffer` keeps invoker supervision's last N invocation outcomes
+(InvokerSupervision.scala:435-443 keeps 10 with error tolerance 3);
+`ColumnRing` assembles the packed request and release matrices.
 """
 from __future__ import annotations
 
+from collections import deque
+from typing import Callable, Deque, Generic, List, TypeVar
+
 import numpy as np
+
+T = TypeVar("T")
+
+
+class RingBuffer(Generic[T]):
+    def __init__(self, size: int):
+        self._buf: Deque[T] = deque(maxlen=size)
+        self.size = size
+
+    def add(self, item: T) -> None:
+        self._buf.append(item)
+
+    def to_list(self) -> List[T]:
+        return list(self._buf)
+
+    def count(self, predicate: Callable[[T], bool]) -> int:
+        return sum(1 for x in self._buf if predicate(x))
+
+    def __len__(self) -> int:
+        return len(self._buf)
 
 
 class ColumnRing:
