@@ -922,9 +922,12 @@ class Fleet:
     """N_INV simulated invokers of MEM_MB on one in-memory bus. One fleet
     task drains the invoker topics the balancer wrote to (the bus's
     producer notes them), and acks each activation `delay` waves after it
-    arrived, with its result; pings go out in paced rounds."""
+    arrived, with its result; pings go out in paced rounds. With `echo`
+    every activation is acked as soon as it is drained, with its
+    arguments as its result."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, echo=False):
+        self.echo = echo
         from openwhisk_tpu_torch.core import entity as E
         from openwhisk_tpu_torch.messaging import memory as mem
         from openwhisk_tpu_torch.messaging import message as M
@@ -972,6 +975,7 @@ class Fleet:
             await self.wake.wait()
             self.wake.clear()
             topics, self.touched = self.touched, set()
+            echoed = []
             t0 = time.perf_counter()
             for topic in topics:
                 c = self.consumers.get(topic)
@@ -988,17 +992,26 @@ class Fleet:
                         E.EntityPath(str(msg.user.namespace.name)),
                         msg.action.name, msg.user.subject,
                         msg.activation_id, now, now,
-                        E.ActivationResponse.success({"ok": True}),
+                        E.ActivationResponse.success(
+                            msg.content if self.echo else {"ok": True}),
                         duration=1)
                     ack = (f"completed{msg.root_controller_index.as_string}",
                            M.CombinedCompletionAndResultMessage(
                                msg.transid, act, inv))
-                    self.due.setdefault(
-                        self.wave + int(self.rng.randint(1, 9)),
-                        []).append(ack)
+                    if self.echo:
+                        echoed.append(ack)
+                    else:
+                        self.due.setdefault(
+                            self.wave + int(self.rng.randint(1, 9)),
+                            []).append(ack)
                     self.received += 1
             self.host_s["fleet_parse_and_ack_build"] += \
                 time.perf_counter() - t0
+            if echoed:
+                t0 = time.perf_counter()
+                for topic, ack in echoed:
+                    await self.producer.send(topic, ack)
+                self.host_s["fleet_ack_send"] += time.perf_counter() - t0
 
     async def ack_due(self, wave, everything=False):
         """Advance to `wave` and send the acks due by then (all of them
@@ -1347,16 +1360,16 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
     return summary, rec, (books0, buckets0, books), prof
 
 
-def _window_idle_share(prof):
-    """The device's idle share over the host range "front_window"."""
+def _window_idle_share(prof, window="front_window"):
+    """The device's idle share over the host range `window`."""
     cpu_t, cuda_t = torch.autograd.DeviceType.CPU, \
         torch.autograd.DeviceType.CUDA
     evs = prof.events()
     win = [(e.time_range.start, e.time_range.end) for e in evs
-           if e.name == "front_window" and e.device_type == cpu_t]
+           if e.name == window and e.device_type == cpu_t]
     t0, t1 = win[0]
     dev = [(e.time_range.start, e.time_range.end) for e in evs
-           if e.device_type == cuda_t and e.name != "front_window"]
+           if e.device_type == cuda_t and e.name != window]
     busy = _union_ms(dev, t0, t1)
     return dict(window_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
                 device_idle_share=1.0 - busy / (t1 - t0))
@@ -1413,7 +1426,392 @@ def front_phase(torch, P, K, TB):
     return res
 
 
+# ---------------------------------------------------------------- phase 8
+#: 8a, the standalone as a user runs it: sequential and concurrent blocking
+#: invokes of `hello` on real python:3 process sandboxes
+STANDALONE_SEQ, STANDALONE_CONC, STANDALONE_MEMORY_MB = 16, 48, 4096
+#: 8b, the same assembly at the fleet: actions created over HTTP, blocking
+#: invokes in flight from a client process, then a sequential trickle, and
+#: the device profiled from HTTP_PROFILE_FROM scheduled rows for HTTP_PROFILE_S,
+#: or until HTTP_PROFILE_TO rows, so that the window lies inside the
+#: concurrent segment
+HTTP_ACTIONS, HTTP_INVOKES, HTTP_INFLIGHT, HTTP_TRICKLE = 200, 8_000, 256, 200
+HTTP_PROFILE_FROM, HTTP_PROFILE_TO, HTTP_PROFILE_S = 2_000, 7_000, 2.0
+#: the front door's throttles, raised so that nothing is throttled
+UNTHROTTLED = dict(invocations_per_minute=10 ** 9,
+                   concurrent_invocations=10 ** 9)
+
+HELLO_CODE = ("def main(args):\n"
+              "    return {'greeting': 'Hello ' + args.get('name', 'stranger')"
+              " + '!'}\n")
+FAIL_CODE = "def main(args):\n    return {'error': 'deliberate failure'}\n"
+STEP_CODE = "def main(args):\n    return {'n': args.get('n', 0) + 1}\n"
+ECHO_CODE = "def main(args):\n    return args\n"
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _standalone_kw():
+    """No device argument on the card: the standalone's default is the card.
+    The CPU rehearsal names its device."""
+    return {} if DEVICE == "cuda" else {"device": DEVICE}
+
+
+async def _standalone_run(K):
+    """8a: the standalone with its in-process invoker, driven over HTTP."""
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    from openwhisk_tpu_torch.controller.loadbalancer.base import HEALTHY
+    port = _free_port()
+    ctrl = await S.make_standalone(
+        port=port, balancer="tpu", ui=False,
+        user_memory_mb=STANDALONE_MEMORY_MB, **UNTHROTTLED,
+        **_standalone_kw())
+    lb = ctrl.load_balancer
+    base = f"http://127.0.0.1:{port}/api/v1/namespaces/_"
+    out = {"device": str(lb.device)}
+    try:
+        async with aiohttp.ClientSession(
+                auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)) as s:
+            async def put(name, exec_):
+                async with s.put(f"{base}/actions/{name}",
+                                 json={"exec": exec_}) as r:
+                    require(r.status == 200, f"PUT {name}: {r.status}")
+
+            async def invoke(name, args):
+                async with s.post(f"{base}/actions/{name}?blocking=true"
+                                  "&result=true", json=args) as r:
+                    return r.status, await r.json()
+
+            for name, code in (("hello", HELLO_CODE), ("failer", FAIL_CODE),
+                               ("step", STEP_CODE)):
+                await put(name, {"kind": "python:3", "code": code})
+            await put("seq", {"kind": "sequence",
+                              "components": ["_/step", "_/step"]})
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            seq = [await invoke("hello", {"name": f"n{i}"})
+                   for i in range(STANDALONE_SEQ)]
+            out["sequential_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            conc = await asyncio.gather(*[
+                invoke("hello", {"name": f"c{i}"})
+                for i in range(STANDALONE_CONC)])
+            out["concurrent_s"] = time.perf_counter() - t0
+            failer = await invoke("failer", {})
+            chained = await invoke("seq", {"n": 1})
+            out["launches"] = {"scan": K.schedule_batch_cuda.launches,
+                               "repair": K.schedule_batch_repair_cuda.launches}
+        out["sequential_ok"] = sum(
+            st == 200 and body == {"greeting": f"Hello n{i}!"}
+            for i, (st, body) in enumerate(seq))
+        out["concurrent_ok"] = sum(
+            st == 200 and body == {"greeting": f"Hello c{i}!"}
+            for i, (st, body) in enumerate(conc))
+        out["failing_status"] = failer[0]
+        out["sequence"] = list(chained)
+        out["invokers"] = [(h.id.as_string, h.status)
+                           for h in lb.supervision.health()]
+        out["healthy"] = any(h.status == HEALTHY
+                             for h in lb.supervision.health())
+    finally:
+        await ctrl.stop()
+    return out
+
+
+def _zipf(n):
+    p = np.arange(1, n + 1, dtype=float) ** -1.1
+    return p / p.sum()
+
+
+def http_client(cfg):
+    """The load client of 8b, run in a process of its own (`--http-client
+    CONFIG`): HTTP_INFLIGHT workers send the Zipf(1.1) mix of blocking
+    invokes, each with its index as an argument, then one worker sends the
+    trickle. Prints one JSON object: latencies, timestamps, failures and
+    the process's CPU seconds."""
+    import aiohttp
+    cpu0 = time.process_time()
+
+    async def run():
+        rng = np.random.RandomState(cfg["seed"])
+        names = cfg["names"]
+        pick = rng.choice(len(names), cfg["invokes"] + cfg["trickle"],
+                          p=_zipf(len(names)))
+        conn = aiohttp.TCPConnector(limit=cfg["inflight"] + 8)
+        lat = [0.0] * len(pick)
+        bad = []
+        async with aiohttp.ClientSession(
+                connector=conn, auth=aiohttp.BasicAuth(*cfg["auth"])) as s:
+            async def one(i):
+                name = names[pick[i]]
+                args = {"i": i, "action": name}
+                t = time.perf_counter()
+                async with s.post(f"{cfg['base']}/actions/{name}"
+                                  "?blocking=true&result=true",
+                                  json=args) as r:
+                    body = await r.json()
+                lat[i] = time.perf_counter() - t
+                if r.status != 200 or body != args:
+                    bad.append([i, r.status, body])
+
+            todo = iter(range(cfg["invokes"]))
+
+            async def worker():
+                for i in todo:
+                    await one(i)
+
+            t_first = time.time()
+            await asyncio.gather(*[worker() for _ in range(cfg["inflight"])])
+            t_conc = time.time()
+            for i in range(cfg["invokes"], len(pick)):
+                await one(i)
+            t_last = time.time()
+        return dict(t_first=t_first, t_concurrent_end=t_conc, t_last=t_last,
+                    latency_s=lat, bad=bad[:5], n_bad=len(bad))
+
+    res = asyncio.run(run())
+    res["cpu_s"] = time.process_time() - cpu0
+    print(json.dumps(res))
+    return 0
+
+
+async def _profile_window(bal, box):
+    """Profile the device from HTTP_PROFILE_FROM scheduled rows of the
+    driven segment for HTTP_PROFILE_S, or until HTTP_PROFILE_TO rows. Gives
+    up, leaving no profile, once box["stop"] is set."""
+    def rows():
+        return bal.counters["scheduled"] - box["scheduled0"]
+
+    while rows() < HTTP_PROFILE_FROM:
+        if box["stop"]:
+            return
+        await asyncio.sleep(0.005)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=PROFILE_ACTIVITIES)
+    prof.start()
+    window = torch.profiler.record_function("http_window")
+    window.__enter__()
+    rows0, t_end = rows(), time.perf_counter() + HTTP_PROFILE_S
+    while (time.perf_counter() < t_end and rows() < HTTP_PROFILE_TO
+           and not box["stop"]):
+        await asyncio.sleep(0.005)
+    torch.cuda.synchronize()
+    window.__exit__(None, None, None)
+    box["rows"] = rows() - rows0
+    t0 = time.perf_counter()
+    prof.stop()
+    box["prof"], box["stop_ms"] = prof, (time.perf_counter() - t0) * 1e3
+
+
+def _warm_profiler():
+    """The first profiler start of a process initializes the tracer for
+    seconds: do it before the driven segment, not inside it."""
+    prof = torch.profiler.profile(activities=PROFILE_ACTIVITIES)
+    prof.start()
+    torch.ones(8, device=DEVICE).sum().item()
+    prof.stop()
+
+
+async def _http_fleet_run(TB, K):
+    """8b: the standalone's assembly over the simulated fleet, driven over
+    HTTP by a client process."""
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    from openwhisk_tpu_torch.core import entity as E
+    E.ConcurrencyLimit.MAX = 16  # deployments opt in (the default caps at 1)
+    fleet = Fleet(seed=13, echo=True)
+    fleet.start()
+    port = _free_port()
+    ctrl = await S.make_standalone(
+        port=port, balancer="tpu", ui=False, invoker=False,
+        messaging_provider=fleet.provider, **UNTHROTTLED, **_standalone_kw())
+    bal = ctrl.load_balancer
+    out = {"device": str(bal.device)}
+    stop_pinging, pinger = asyncio.Event(), None
+    try:
+        t0 = time.perf_counter()
+        await fleet.ping(bal.supervision, list(range(N_INV)))
+        out["register_s"] = time.perf_counter() - t0
+        require(len(bal._registry) == N_INV and all(bal._healthy)
+                and bal.state.free_mb.shape[0] == N_PAD,
+                f"fleet registered, pad {bal.state.free_mb.shape[0]}")
+        bal._arm_flush()
+        await _drain_front(bal)
+        pinger = asyncio.get_event_loop().create_task(
+            _keep_pinging(fleet, bal.supervision, stop_pinging))
+        base = f"http://127.0.0.1:{port}/api/v1/namespaces/_"
+        rng = np.random.RandomState(17)
+        names = [f"a{k}" for k in range(HTTP_ACTIONS)]
+        async with aiohttp.ClientSession(
+                auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)) as s:
+            for name in names:
+                limits = {"memory": int(rng.choice(range(128, 513, 64)))}
+                if rng.rand() < 0.2:
+                    limits["concurrency"] = int(rng.randint(2, 17))
+                async with s.put(f"{base}/actions/{name}", json={
+                        "exec": {"kind": "python:3", "code": ECHO_CODE},
+                        "limits": limits}) as r:
+                    require(r.status == 200, f"PUT {name}: {r.status}")
+        books0 = _books_np(bal.state)
+        rec = Recorder(bal, TB)
+        host = fleet.host_s
+        for k in host:
+            host[k] = 0.0
+        depth = [0]
+        for name, key in (("publish_many", "balancer_publish_many"),
+                          ("_dispatch_batch", "balancer_dispatch"),
+                          ("_row_placed", "balancer_fan_out"),
+                          ("process_acknowledgement", "balancer_ack")):
+            _time_outer(bal, name, host, key, depth)
+        _time_calls(bal, "send_activation_to_invoker", host, "balancer_send")
+        cfg = dict(seed=19, names=names, invokes=HTTP_INVOKES,
+                   inflight=HTTP_INFLIGHT, trickle=HTTP_TRICKLE, base=base,
+                   auth=[S.GUEST_UUID, S.GUEST_KEY])
+        _warm_profiler()
+        box = {"scheduled0": bal.counters["scheduled"], "stop": False,
+               "prof": None}
+        steps0 = len(bal.step_ms)
+        counters0 = dict(bal.counters)
+        K.reset_launch_counts()
+        cpu0 = time.process_time()
+        prof_task = asyncio.get_event_loop().create_task(
+            _profile_window(bal, box))
+        client = await asyncio.create_subprocess_exec(
+            sys.executable, __file__, "--http-client", json.dumps(cfg),
+            stdout=asyncio.subprocess.PIPE)
+        stdout, _ = await client.communicate()
+        require(client.returncode == 0, f"http client exit {client.returncode}")
+        res = json.loads(stdout.decode().strip().splitlines()[-1])
+        await _drain_front(bal)
+        stop_pinging.set()
+        await pinger
+        server_cpu = time.process_time() - cpu0
+        launches = {"scan": K.schedule_batch_cuda.launches,
+                    "repair": K.schedule_batch_repair_cuda.launches}
+        box["stop"] = True
+        await prof_task
+        rec.undo()
+        torch.cuda.synchronize()
+        books = _books_np(bal.state)
+        lat = np.asarray(res["latency_s"]) * 1e3
+        n = HTTP_INVOKES
+        d = {k: bal.counters[k] - counters0.get(k, 0) for k in
+             ("steps", "scheduled", "repair_steps", "repair_rounds")}
+        balancer_s = sum(v for k, v in host.items()
+                         if k.startswith("balancer_"))
+        fleet_s = sum(v for k, v in host.items() if k.startswith("fleet_"))
+        out.update(
+            invokes=n + HTTP_TRICKLE, inflight=HTTP_INFLIGHT,
+            actions=HTTP_ACTIONS, n_bad=res["n_bad"], bad_first=res["bad"],
+            invokes_per_s=(n + HTTP_TRICKLE) / (res["t_last"]
+                                                - res["t_first"]),
+            concurrent_invokes_per_s=n / (res["t_concurrent_end"]
+                                          - res["t_first"]),
+            http_ms_p50_p99_concurrent=list(_percentiles(lat[:n])),
+            http_ms_p50_p99_trickle=list(_percentiles(lat[n:])),
+            step_ms_p50_p99=list(_percentiles(list(bal.step_ms)[steps0:])),
+            steps=d["steps"], rows_per_step=d["scheduled"] / max(1,
+                                                                 d["steps"]),
+            mean_repair_rounds=d["repair_rounds"] / max(1, d["repair_steps"]),
+            launches=launches,
+            active_at_end=bal.total_active_activations,
+            books_full=bool((books[0][:N_INV] == MEM_MB).all()
+                            and not books[1].any()
+                            and books[2][:N_INV].all()),
+            profile=(dict(_window_idle_share(box["prof"], "http_window"),
+                          rows=box["rows"], stop_ms=box["stop_ms"])
+                     if box["prof"] is not None else None),
+            host_s=dict(
+                client=res["cpu_s"], balancer=balancer_s, fleet=fleet_s,
+                api_entitlement_and_loop=server_cpu - balancer_s - fleet_s,
+                server_process=server_cpu, split=host,
+                wall=res["t_last"] - res["t_first"]))
+    finally:
+        stop_pinging.set()
+        if pinger is not None:
+            await pinger
+        await ctrl.stop()
+        await fleet.stop()
+    return out, rec, books0, books
+
+
+async def _keep_pinging(fleet, pool, stop):
+    """Re-ping the whole fleet every REPING_S until `stop` is set: the
+    supervision takes an invoker offline after 10 s without a ping."""
+    while not stop.is_set():
+        await fleet.keep_alive(pool)
+        try:
+            await asyncio.wait_for(stop.wait(), 0.25)
+        except asyncio.TimeoutError:
+            pass
+
+
+def _time_outer(obj, name, acc, key, depth):
+    """Route the synchronous obj.name through a wrapper that adds its wall
+    time to acc[key] unless another such wrapper is already timing (an
+    inline dispatch inside publish_many counts once)."""
+    real = getattr(obj, name)
+    acc.setdefault(key, 0.0)
+
+    def timed(*a, **k):
+        if depth[0]:
+            return real(*a, **k)
+        depth[0] += 1
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            acc[key] += time.perf_counter() - t
+            depth[0] -= 1
+    setattr(obj, name, timed)
+
+
+def http_phase(torch, P, K, TB):
+    """Phase 8: the port's server over HTTP, 8a then 8b, with 8b's CPU
+    replay."""
+    t0 = time.perf_counter()
+    sa = asyncio.run(_standalone_run(K))
+    sa["run_s"] = time.perf_counter() - t0
+    say("standalone", **sa)
+    require(sa["sequential_ok"] == STANDALONE_SEQ
+            and sa["concurrent_ok"] == STANDALONE_CONC,
+            f"standalone invokes all 200 with their results: {sa}")
+    require(sa["failing_status"] == 502, "the failing action answers 502")
+    require(sa["sequence"] == [200, {"n": 3}], "the sequence chained")
+    require(sa["launches"]["scan"] > 0, "the scan ran on the standalone")
+    require(sa["healthy"], "the supervision registered the invoker healthy")
+    t0 = time.perf_counter()
+    out, rec, books0, books = asyncio.run(_http_fleet_run(TB, K))
+    t1 = time.perf_counter()
+    bad, steps, st = rec.replay(books0, None, P, TB, None)
+    books_equal = all(np.array_equal(x, y)
+                      for x, y in zip(books, _books_np(st)))
+    out["cpu_replay"] = dict(steps=steps, events=len(rec.log),
+                             mismatched_steps=bad, books_equal=books_equal,
+                             cpu_s=time.perf_counter() - t1)
+    out["run_s"] = t1 - t0
+    say("http", **out)
+    require(out["n_bad"] == 0, f"every invoke 200 with its echo: "
+            f"{out['bad_first']}")
+    require(out["launches"]["scan"] > 0 and out["launches"]["repair"] > 0,
+            f"both kernels launched on the HTTP path: {out['launches']}")
+    require(out["active_at_end"] == 0 and out["books_full"],
+            "http: nothing active, books at full capacity")
+    require(bad == 0 and books_equal, "http: card and CPU replay agree")
+    require(out["profile"] is not None,
+            "http: the device was profiled inside the concurrent segment")
+    return sa, out
+
+
 def main():
+    if sys.argv[1:2] == ["--http-client"]:
+        return http_client(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1464,6 +1862,10 @@ def main():
     front_launches = {k: sum(seg["launches"][k] for seg in front.values())
                       for k in ("scan", "repair")}
 
+    t0 = time.perf_counter()
+    standalone, http = http_phase(torch, P, K, TB)
+    say("http_phase", seconds=time.perf_counter() - t0)
+
     scan = sk["plain"]
     rep = mk["plain"]
     kernels = [
@@ -1472,6 +1874,8 @@ def main():
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:244",
          "launches": launches["scan"],
          "front_launches": front_launches["scan"],
+         "standalone_launches": standalone["launches"]["scan"],
+         "http_launches": http["launches"]["scan"],
          "max_abs_err": max(kres["scan"]["err"], scan["max_abs_err"],
                             sk["penalized"]["max_abs_err"],
                             *(v["max_abs_err"] for v in sserial.values())),
@@ -1491,6 +1895,8 @@ def main():
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
          "launches": launches["repair"],
          "front_launches": front_launches["repair"],
+         "standalone_launches": standalone["launches"]["repair"],
+         "http_launches": http["launches"]["repair"],
          "max_abs_err": max(kres["repair"]["err"], rep["max_abs_err"]),
          "B": mk["B"], "grid": mk["grid"], "ms": rep["ms"],
          "rounds": rep["rounds"], "ms_per_round": rep["ms_per_round"],

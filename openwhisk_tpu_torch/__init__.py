@@ -1,4 +1,6 @@
-"""PyTorch and CUDA port of the openwhisk_tpu placement core.
+"""PyTorch and CUDA port of openwhisk_tpu: the placement core, the load
+balancer front, the controller with its REST API, the stores, the
+in-process invoker and the standalone server.
 
 The JAX package `openwhisk_tpu` is the reference; every module here mirrors
 its counterpart's path and is held against it, bit for bit, by the

@@ -16,24 +16,35 @@ CommonLoadBalancer.scala), with the parts the TPU balancer's front needs:
     ack after forced completion (only counts toward invoker health), and
     healthcheck acks from system test actions.
 
-The observability planes of the JAX package's balancer (flight recorder,
-telemetry, profiler, anomaly, waterfall, quality, trace store, incidents)
-and its HA / partition fencing are not here: none of them changes a
-decision. Events are counted in `counters` instead of a metric emitter.
+  - the system health test action that the supervision sends to an
+    unhealthy invoker (ref InvokerSupervision.scala:239-252), and the
+    front-door `PublishCoalescer` that hands one event-loop sweep of
+    publishes to `publish_many` as one batch.
+
+Of the JAX package's observability planes only the process-wide latency
+waterfall is here (its stamps and folds, and its families on /metrics);
+the flight recorder, telemetry, profiler, anomaly, quality, trace store and
+incident planes and the HA / partition fencing are not: none of them
+changes a decision. Events are counted in `counters`, rendered on the
+metric emitter's page as `openwhisk_loadbalancer_<event>` counters.
 """
 from __future__ import annotations
 
 import asyncio
+import time
 from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
 
-from ...core.entity import (ActivationId, ExecutableWhiskAction,
+from ...core.entity import (ActivationId, ExecutableWhiskAction, Identity,
                             InvokerInstanceId, WhiskAction, WhiskActivation)
 from ...messaging.connector import MessageFeed, decode_message
 from ...messaging.message import (AcknowledgementMessage, ActivationMessage,
                                   parse_ack)
+from ...utils.logging import MetricEmitter
 from ...utils.transaction import TransactionId
+from ...utils.waterfall import (GLOBAL_WATERFALL, STAGE_COMPLETION_ACK,
+                                ActivationWaterfall)
 
 # invoker states (ref InvokerState in InvokerSupervision.scala)
 HEALTHY = "up"
@@ -73,6 +84,10 @@ class ActivationEntry:
     action_key: str
     is_blackbox: bool
     is_blocking: bool
+    #: the waterfall plane's stage vector ([t0_ns, trace_id, s_0..s_N]);
+    #: None when the plane is off or the activation entered through a path
+    #: that never opened a context
+    stages: Optional[list] = None
     #: forced-timeout timer (a TimerHandle; .cancel() like a Task)
     timeout_task: Optional[asyncio.TimerHandle] = None
     promise: Optional[asyncio.Future] = None
@@ -163,10 +178,13 @@ class CommonLoadBalancer(LoadBalancer):
     TIMEOUT_ADDON = 60.0
     STD_TIMEOUT = 60.0
 
-    def __init__(self, messaging_provider, controller_instance, logger=None):
+    def __init__(self, messaging_provider, controller_instance, logger=None,
+                 metrics: Optional[MetricEmitter] = None,
+                 waterfall: Optional[ActivationWaterfall] = None):
         self.provider = messaging_provider
         self.controller = controller_instance
         self.logger = logger
+        self.metrics = metrics or MetricEmitter()
         #: the raw bus producer: one send per dispatch
         self.producer = messaging_provider.get_producer()
         self.activation_slots: Dict[str, ActivationEntry] = {}
@@ -178,6 +196,73 @@ class CommonLoadBalancer(LoadBalancer):
         self._health_probe_ids: set = set()
         #: event counts (the JAX package's `loadbalancer_*` counters)
         self.counters: Counter = Counter()
+        self.metrics.register_renderer(self._counters_exposition)
+        # the latency-waterfall plane, process-wide: its stages span layers
+        # that never see a balancer (API handler, entitlement, invoker,
+        # container pool, record batcher); this hook stamps the completion
+        # edge, folds each activation's vector and renders the families
+        self.waterfall = (waterfall if waterfall is not None
+                          else GLOBAL_WATERFALL)
+        self.metrics.register_renderer(self._waterfall_exposition)
+
+    def _counters_exposition(self) -> str:
+        return "\n".join(
+            f"# TYPE openwhisk_loadbalancer_{name} counter\n"
+            f"openwhisk_loadbalancer_{name} {value}"
+            for name, value in sorted(self.counters.items()))
+
+    def _waterfall_exposition(self, openmetrics: bool = False) -> str:
+        return self.waterfall.prometheus_text(openmetrics=openmetrics)
+
+    # -- health test actions (ref InvokerPool.prepare + healthAction) ------
+    HEALTH_ACTION_NAMESPACE = "whisk.system"
+
+    async def prepare_health_test_action(self, entity_store) -> None:
+        """Write the system no-op test action
+        (`whisk.system/invokerHealthTestAction<controller>`, ref
+        InvokerSupervision.scala:239-252) and switch the supervision FSM to
+        probing unhealthy invokers with real test activations instead of
+        optimistic window re-opens. Healthcheck acks come back untracked and
+        feed on_invocation_finished via the 4-way disambiguation."""
+        from ...core.entity import (CodeExec, EntityName, EntityPath,
+                                    FullyQualifiedEntityName)
+        name = f"invokerHealthTestAction{self.controller.name}"
+        action = WhiskAction(
+            namespace=EntityPath(self.HEALTH_ACTION_NAMESPACE),
+            name=EntityName(name),
+            exec=CodeExec(kind="python:3",
+                          code="def main(args):\n    return {}\n"))
+        from ...database import DocumentConflict
+        try:
+            await entity_store.put(action)
+        except DocumentConflict:
+            # present from a previous boot: re-put at the stored revision so
+            # a changed definition takes effect (ref InvokerPool.prepare)
+            existing = await entity_store.get_action(
+                f"{self.HEALTH_ACTION_NAMESPACE}/{name}")
+            action.rev = existing.rev
+            await entity_store.put(action)
+        self._health_action_fqn = FullyQualifiedEntityName(
+            EntityPath(self.HEALTH_ACTION_NAMESPACE), EntityName(name))
+        self._system_identity = Identity.generate(self.HEALTH_ACTION_NAMESPACE)
+        supervision = getattr(self, "supervision", None)
+        if supervision is not None:
+            supervision.send_test_action = self._send_health_test_action
+
+    async def _send_health_test_action(self, invoker: InvokerInstanceId
+                                       ) -> None:
+        aid = ActivationId.generate()
+        msg = ActivationMessage(
+            transid=TransactionId(system=True),
+            action=self._health_action_fqn, revision=None,
+            user=self._system_identity, activation_id=aid,
+            root_controller_index=self.controller, blocking=False, content={})
+        # remember probe ids so their acks disambiguate as healthchecks
+        self._health_probe_ids.add(aid.asString)
+        while len(self._health_probe_ids) > 1024:
+            self._health_probe_ids.pop()
+        await self.send_activation_to_invoker(msg, invoker)
+        self.counters["health_test_actions"] += 1
 
     # -- counters (ref :60-99) --------------------------------------------
     def active_activations_for(self, namespace_id: str) -> int:
@@ -222,6 +307,7 @@ class CommonLoadBalancer(LoadBalancer):
             action_key=f"{action.fully_qualified_name}@{action.rev.rev or ''}",
             is_blackbox=action.exec_metadata().is_blackbox,
             is_blocking=msg.blocking,
+            stages=self.waterfall.ctx_of(msg.activation_id.asString),
             promise=promise,
         )
         # call_later, not a task per activation: a TimerHandle is one heap
@@ -296,17 +382,25 @@ class CommonLoadBalancer(LoadBalancer):
         `process_completion`; acks off the wire are never `forced` (only
         the timeout timer forces). One ack's failure does not strand the
         rest."""
+        wf = self.waterfall
+        now_ns = time.monotonic_ns() if wf.enabled else 0
+        finish_aids: List[str] = []
         regular = 0
         for ack in acks:
             try:
-                regular += self._process_ack_batched(ack)
+                regular += self._process_ack_batched(ack, now_ns, wf,
+                                                     finish_aids)
             except Exception as e:  # noqa: BLE001 — per-ack isolation
                 if self.logger:
                     self.logger.error(TransactionId.LOADBALANCER,
                                       f"batched ack failed: {e!r}")
         self.counters["completion_ack_regular"] += regular
+        if finish_aids:
+            wf.finish_many(finish_aids)
 
-    def _process_ack_batched(self, ack: AcknowledgementMessage) -> int:
+    def _process_ack_batched(self, ack: AcknowledgementMessage, now_ns: int,
+                             wf: ActivationWaterfall,
+                             finish_aids: List[str]) -> int:
         """One ack's share of the batched pass; returns 1 when it released
         a tracked (regular) slot, 0 otherwise."""
         if ack.activation is not None:
@@ -332,6 +426,9 @@ class CommonLoadBalancer(LoadBalancer):
         self._decr(entry)
         if entry.invoker is not None:
             self.release_invoker(entry.invoker, entry)
+        if wf.enabled:
+            self._stamp_completion(entry, aid.asString, now_ns)
+            finish_aids.append(aid.asString)
         self.on_invocation_finished(ack.invoker or entry.invoker,
                                     is_system_error=ack.is_system_error,
                                     forced=False)
@@ -361,6 +458,13 @@ class CommonLoadBalancer(LoadBalancer):
                     entry.promise.set_exception(ActiveAckTimeout(aid))
             else:
                 self.counters["completion_ack_regular"] += 1
+            # waterfall: the completion ack is the last causally-ordered
+            # stage — stamp it and fold the activation's stage vector
+            # (forced timeouts fold too: their partial vectors are the
+            # tail evidence)
+            if self.waterfall.enabled:
+                self._stamp_completion(entry, aid.asString)
+                self.waterfall.finish(aid.asString)
             self.on_invocation_finished(invoker or entry.invoker,
                                         is_system_error=is_system_error,
                                         forced=forced)
@@ -378,6 +482,14 @@ class CommonLoadBalancer(LoadBalancer):
         else:
             self.counters["completion_ack_forcedAfterRegular"] += 1
 
+    def _stamp_completion(self, entry: ActivationEntry, aid: str,
+                          now_ns: Optional[int] = None) -> None:
+        if entry.stages is not None:
+            self.waterfall.stamp_ctx(entry.stages, STAGE_COMPLETION_ACK,
+                                     now_ns)
+        else:
+            self.waterfall.stamp(aid, STAGE_COMPLETION_ACK, now_ns)
+
     # -- subclass hooks ----------------------------------------------------
     def release_invoker(self, invoker: InvokerInstanceId, entry: ActivationEntry) -> None:
         """Return the capacity slot taken for this activation."""
@@ -394,3 +506,121 @@ class CommonLoadBalancer(LoadBalancer):
             if entry.timeout_task:
                 entry.timeout_task.cancel()
         self.activation_slots.clear()
+        # a shared (process-wide) emitter outlives the balancer: stop
+        # contributing families once closed
+        self.metrics.unregister_renderer(self._counters_exposition)
+        self.metrics.unregister_renderer(self._waterfall_exposition)
+
+
+def _bridge_publish_future(row: asyncio.Future, waiter: asyncio.Future) -> None:
+    """Wire one publish_many row future to its caller-facing waiter with
+    done-callbacks only — no task per activation. Result/exception copy
+    forward; a caller that goes away (waiter cancelled) cancels the row,
+    which the balancer's readback fan-out reads as an abandoned publisher
+    and returns the reserved capacity."""
+
+    def forward(f: asyncio.Future) -> None:
+        # retrieve the row's exception unconditionally: a row failing
+        # after its waiter was cancelled has nobody else to read it, and
+        # an unretrieved exception is loop-noise at GC time
+        exc = None if f.cancelled() else f.exception()
+        if waiter.done():
+            # waiter cancelled before the row resolved: the outcome is
+            # orphaned — a successful placement self-heals through the
+            # activation entry's forced timeout
+            return
+        if f.cancelled():
+            waiter.cancel()
+        elif exc is not None:
+            waiter.set_exception(exc)
+        else:
+            waiter.set_result(f.result())
+
+    def backward(w: asyncio.Future) -> None:
+        if w.cancelled() and not row.done():
+            row.cancel()
+
+    row.add_done_callback(forward)
+    waiter.add_done_callback(backward)
+
+
+class PublishCoalescer:
+    """Front-door publish batcher: concurrent `publish` calls in one
+    event-loop sweep reach the balancer as ONE `publish_many` batch.
+
+    The per-activation asyncio floor the host observatory measured lived
+    exactly here: every admitted activation minted a publish coroutine, a
+    flush-timer arm, a clock read and an arrival-EWMA blend of its own.
+    This coalescer queues `(action, msg)` on the caller's turn and drains
+    the queue with `loop.call_soon` — end-of-sweep, the bus coalescer's
+    zero-idle-latency rule, with NO drainer task — handing the whole
+    sweep's arrivals to `publish_many` in one call. Waiters resolve to
+    the completion promise (or the serial path's exact exceptions)
+    through done-callback bridges, so the publish hot path adds zero
+    tasks per activation.
+
+    Built only when the balancer advertises `batch_publish`
+    (CONFIG_whisk_loadBalancer_batchPublish; `maybe_batch_publish`
+    returns None otherwise and callers keep the serial `publish` path
+    bit-exactly)."""
+
+    def __init__(self, balancer, max_batch: Optional[int] = None):
+        self._bal = balancer
+        self.max_batch = max_batch or getattr(balancer, "max_batch", 256)
+        self._q: List[tuple] = []
+        self._armed = False
+        self.flushes = 0
+        self.submitted = 0
+
+    def submit(self, action, msg) -> asyncio.Future:
+        """Queue one publish; returns a future resolving to the
+        completion promise (what `await balancer.publish(...)` returns)."""
+        loop = asyncio.get_event_loop()
+        waiter: asyncio.Future = loop.create_future()
+        self._q.append((action, msg, waiter))
+        self.submitted += 1
+        if len(self._q) >= self.max_batch:
+            self._flush()
+        elif not self._armed:
+            self._armed = True
+            loop.call_soon(self._flush)
+        return waiter
+
+    async def publish(self, action, msg) -> asyncio.Future:
+        """Drop-in for `balancer.publish`: same awaited value, same
+        exceptions, batched under the hood."""
+        return await self.submit(action, msg)
+
+    def _flush(self) -> None:
+        self._armed = False
+        q, self._q = self._q, []
+        if not q:
+            return
+        self.flushes += 1
+        try:
+            rows = self._bal.publish_many([(a, m) for a, m, _w in q])
+        except Exception as e:  # noqa: BLE001 — a synchronously-raising
+            # publish_many must fail its waiters, not the event loop's
+            # call_soon handler
+            for _a, _m, w in q:
+                if not w.done():
+                    # fresh instance per waiter where the constructor
+                    # allows it: N waiters re-raising one shared object
+                    # interleave their __traceback__ frames
+                    try:
+                        exc = type(e)(*e.args)
+                    except Exception:  # noqa: BLE001 — exotic ctor
+                        exc = e
+                    w.set_exception(exc)
+            return
+        for (_a, _m, waiter), row in zip(q, rows):
+            _bridge_publish_future(row, waiter)
+
+
+def maybe_batch_publish(balancer) -> Optional[PublishCoalescer]:
+    """The wiring hook (the `maybe_coalesce` pattern): a PublishCoalescer
+    when the balancer runs the batched publish SPI, None — the serial
+    per-call path, bit-exact — otherwise."""
+    if getattr(balancer, "batch_publish", False):
+        return PublishCoalescer(balancer)
+    return None

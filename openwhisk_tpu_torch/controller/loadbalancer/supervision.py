@@ -11,14 +11,16 @@ core/controller/.../loadBalancer/InvokerSupervision.scala):
   - Offline after 10 s of ping silence (:294);
   - new invokers register lazily on their first ping (:191-207) and the
     balancer state grows in place — shrinking is by marking Offline only;
-  - unhealthy invokers recover on a ping after a cooldown: the FSM re-opens
-    the error window (the reference posts a system test action once per
-    minute instead; the port has no test action yet).
+  - unhealthy invokers recover via test traffic: with `send_test_action`
+    set (the balancer's `prepare_health_test_action` sets it) a ping after
+    the cooldown posts one system test activation, whose successful ack
+    heals the window; without it the FSM re-opens the error window.
 Status changes are pushed to the balancer through `on_status_change`, which
 feeds the device health mask in the TPU balancer.
 """
 from __future__ import annotations
 
+import asyncio
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -67,9 +69,11 @@ class InvokerPool:
     def __init__(self, messaging_provider,
                  on_status_change: Optional[Callable] = None,
                  logger=None, ping_timeout: float = PING_TIMEOUT_S,
-                 group: str = "health"):
+                 group: str = "health",
+                 send_test_action: Optional[Callable] = None):
         self.provider = messaging_provider
         self.on_status_change = on_status_change or (lambda inv, status: None)
+        self.send_test_action = send_test_action
         self.logger = logger
         self.ping_timeout = ping_timeout
         self.group = group
@@ -145,9 +149,12 @@ class InvokerPool:
         if now - st.last_recovery_attempt < RECOVERY_COOLDOWN_S:
             return
         st.last_recovery_attempt = now
-        # re-open the window for organic traffic
-        st.buffer = RingBuffer(BUFFER_SIZE)
-        self._transition(st, HEALTHY)
+        if self.send_test_action is not None:
+            asyncio.get_event_loop().create_task(self.send_test_action(st.id))
+        else:
+            # no test-action channel: re-open the window for organic traffic
+            st.buffer = RingBuffer(BUFFER_SIZE)
+            self._transition(st, HEALTHY)
 
     def _transition(self, st: InvokerActorState, new_status: str) -> None:
         if new_status != st.status:

@@ -503,9 +503,10 @@ class TpuBalancer(CommonLoadBalancer):
                  rate_limit_per_minute: Optional[int] = None,
                  placement_kernel: str = "auto",
                  adaptive_window: bool = True, batch_publish: bool = True,
-                 device=None):
+                 device=None, metrics=None):
         self.device = resolve_device(device)
-        super().__init__(messaging_provider, controller_instance, logger)
+        super().__init__(messaging_provider, controller_instance, logger,
+                         metrics=metrics)
         self._cluster_size = cluster_size
         self.managed_fraction = managed_fraction
         self.blackbox_fraction = blackbox_fraction

@@ -1,10 +1,8 @@
-"""The domain model the load balancer and its messages need.
+"""The domain model (ref common/scala/.../core/entity).
 
-Copies of the modules of `openwhisk_tpu/core/entity/` (ids, sizes, names,
-parameters, versions, limits, execs, actions, activations, identities):
-plain Python, carried over unchanged so that the port never imports the
-JAX package and its messages serialize byte for byte as the JAX
-package's do.
+Copies of the modules of `openwhisk_tpu/core/entity/`: plain Python,
+carried over unchanged so that the port never imports the JAX package and
+its entities and messages serialize byte for byte as the JAX package's do.
 """
 from .size import B, KB, MB, GB, ByteSize
 from .semver import SemVer
@@ -18,11 +16,16 @@ from .limits import (ActionLimits, ConcurrencyLimit, LimitViolation, LogLimit,
                      MemoryLimit, TimeLimit)
 from .exec import (BLACKBOX_KIND, SEQUENCE_KIND, BlackBoxExec, CodeExec, Exec,
                    ExecMetaData, SequenceExec)
+from .manifest import (DEFAULT_MANIFEST_JSON, ExecManifest, ImageName,
+                       RuntimeManifest, Runtimes, StemCell)
 from .entity import WhiskEntity
 from .action import ExecutableWhiskAction, WhiskAction
 from .activation import (APPLICATION_ERROR, DEVELOPER_ERROR, SUCCESS,
                          WHISK_INTERNAL_ERROR, ActivationResponse,
                          WhiskActivation)
+from .trigger_rule import (ACTIVE, INACTIVE, ReducedRule, Status, WhiskRule,
+                           WhiskTrigger)
+from .package import Binding, WhiskPackage
 from .identity import (ACTIVATE, ALL_RIGHTS, DELETE, PUT, READ, REJECT,
                        Identity, Namespace, UserLimits, WhiskAuthRecord)
 

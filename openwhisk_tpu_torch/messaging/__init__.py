@@ -3,7 +3,7 @@ in-memory provider (copies of `openwhisk_tpu/messaging/`'s modules of the
 same names)."""
 from .message import (AcknowledgementMessage, ActivationMessage,
                       CombinedCompletionAndResultMessage, CompletionMessage,
-                      PingMessage, ResultMessage, parse_ack)
+                      EventMessage, PingMessage, ResultMessage, parse_ack)
 from .connector import (HEALTH_RETENTION_BYTES, HEALTH_TOPIC,
                         MessageConsumer, MessageFeed, MessageProducer,
                         MessagingProvider, decode_message, encode_message)

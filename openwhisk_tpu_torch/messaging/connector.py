@@ -25,9 +25,11 @@ def encode_message(msg) -> bytes:
     return msg.serialize()
 
 
-def decode_message(parse, raw):
+def decode_message(parse, raw, hop: Optional[str] = None):
     """`parse(raw)`: the one place a consumer turns bus bytes into a
-    message (the balancer's ack parse, an invoker's activation parse)."""
+    message (the balancer's ack parse, an invoker's activation parse).
+    `hop` names the bus hop, as the JAX package's serde accounting does;
+    the port keeps no such counters."""
     return parse(raw)
 
 

@@ -12,10 +12,12 @@ other's messages:
                                        logs are already collected)
     with `shrink` to keep oversized results under the bus payload cap
   PingMessage (:124-131)       invoker -> controller health topic, 1 Hz
+  EventMessage (:291-427)      user-facing metrics/activation events topic
 """
 from __future__ import annotations
 
 import json
+import time
 from typing import Any, Dict, Optional, Union
 
 from ..core.entity import (ActivationId, ControllerInstanceId, Identity,
@@ -234,3 +236,51 @@ class PingMessage(Message):
         admin = j.get("admin")
         return cls(InvokerInstanceId.from_json(j["name"]),
                    admin=admin if isinstance(admin, str) and admin else None)
+
+
+class EventMessage(Message):
+    """User-facing event (Message.scala:291-427): body is either an
+    Activation summary or a Metric, consumed by the user-events service."""
+
+    def __init__(self, source: str, body: dict, subject: str, namespace: str,
+                 user_id: str, event_type: str, timestamp: Optional[float] = None):
+        self.source = source
+        self.body = body
+        self.subject = subject
+        self.namespace = namespace
+        self.user_id = user_id
+        self.event_type = event_type
+        self.timestamp = timestamp if timestamp is not None else time.time()
+
+    @classmethod
+    def for_activation(cls, source: str, activation: WhiskActivation,
+                       user_id: str, kind: str, conductor: bool = False,
+                       memory_mb: int = 256, wait_time: int = 0,
+                       init_time: int = 0) -> "EventMessage":
+        body = {
+            "name": f"{activation.namespace}/{activation.name}",
+            "statusCode": activation.response.status_code,
+            "duration": activation.duration or 0,
+            "waitTime": wait_time, "initTime": init_time,
+            "kind": kind, "conductor": conductor, "memory": memory_mb,
+            "causedBy": activation.cause.to_json() if activation.cause else None,
+        }
+        return cls(source, body, str(activation.subject), str(activation.namespace),
+                   user_id, "Activation")
+
+    @classmethod
+    def for_metric(cls, source: str, metric_name: str, value: int,
+                   subject: str, namespace: str, user_id: str) -> "EventMessage":
+        return cls(source, {"metricName": metric_name, "metricValue": value},
+                   subject, namespace, user_id, "Metric")
+
+    def to_json(self) -> dict:
+        return {"source": self.source, "body": self.body, "subject": self.subject,
+                "namespace": self.namespace, "userId": self.user_id,
+                "eventType": self.event_type, "timestamp": int(self.timestamp * 1000)}
+
+    @classmethod
+    def parse(cls, raw) -> "EventMessage":
+        j = json.loads(raw)
+        return cls(j["source"], j["body"], j["subject"], j["namespace"],
+                   j["userId"], j["eventType"], j.get("timestamp", 0) / 1000.0)

@@ -1,6 +1,6 @@
 """Ring buffers of the balancer's host side.
 
-Copies of `RingBuffer` and `ColumnRing` from
+Copies of `RingBuffer`, `SeqRingBuffer` and `ColumnRing` from
 `openwhisk_tpu/utils/ring_buffer.py`: plain Python and numpy host code,
 carried over unchanged so the port never imports the JAX package.
 `RingBuffer` keeps invoker supervision's last N invocation outcomes
@@ -10,7 +10,8 @@ carried over unchanged so the port never imports the JAX package.
 from __future__ import annotations
 
 from collections import deque
-from typing import Callable, Deque, Generic, List, TypeVar
+from typing import (Callable, Deque, Generic, List, Optional, Tuple,
+                    TypeVar)
 
 import numpy as np
 
@@ -33,6 +34,53 @@ class RingBuffer(Generic[T]):
 
     def __len__(self) -> int:
         return len(self._buf)
+
+
+class SeqRingBuffer(Generic[T]):
+    """Pre-sized ring keyed by monotonically increasing sequence number.
+
+    `append` returns (seq, evicted): the sequence assigned to the new item
+    and whichever item it overwrote (None while the ring is filling), so the
+    caller can keep a by-key index consistent without scanning the ring.
+    `get(seq)` answers None once the ring has wrapped past `seq`.
+    """
+
+    def __init__(self, size: int):
+        if size <= 0:
+            raise ValueError("size must be > 0")
+        self.size = size
+        self._buf: List[Optional[T]] = [None] * size
+        self._next_seq = 0
+
+    @property
+    def next_seq(self) -> int:
+        return self._next_seq
+
+    @property
+    def evicted(self) -> int:
+        """How many items the ring has wrapped past (dropped from history)."""
+        return max(0, self._next_seq - self.size)
+
+    def append(self, item: T) -> Tuple[int, Optional[T]]:
+        seq = self._next_seq
+        slot = seq % self.size
+        old = self._buf[slot]
+        self._buf[slot] = item
+        self._next_seq = seq + 1
+        return seq, old
+
+    def get(self, seq: int) -> Optional[T]:
+        if seq < 0 or seq >= self._next_seq or seq < self._next_seq - self.size:
+            return None
+        return self._buf[seq % self.size]
+
+    def last(self, n: int) -> List[T]:
+        """The most recent min(n, len) items, oldest first."""
+        lo = max(0, self._next_seq - min(max(n, 0), self.size))
+        return [self._buf[s % self.size] for s in range(lo, self._next_seq)]
+
+    def __len__(self) -> int:
+        return min(self._next_seq, self.size)
 
 
 class ColumnRing:
