@@ -40,6 +40,18 @@ Phases, each reported on its own line:
      one grid barrier at the repair's launch shape, and at the scan's one
      cluster barrier and one exchange of its minima (the kernel's and its
      first design's).
+  5b. wide   the scan past 2^17 padded invokers (its wide instance:
+              registers, shared memory and streamed columns): B = 16 at
+              N = 262,144 (140,000 invokers, the balancer's managed 0.9 /
+              blackbox 0.1 partitions, A = 4,096) and at N = 1,048,576
+              (1,000,000 invokers, windows of up to 2^17, A = 256), each
+              bit-exact against the plain version with and without a
+              penalty, timed with CUDA events beside its bound and launch
+              shape; then `TpuBalancer()` over 140,000 invokers registered
+              by pings (books grown to N = 262,144 on the card) takes 20
+              single invokes, each placed by the scan, and the first
+              scan launch's batch is held against the plain version and
+              timed the same way.
   6. scan-pinned main path: `BalancerCore(placement_kernel="scan")`, 40 full
      256-row steps of the same traffic (step p50, scan launches, each
      launch timed with CUDA events); its first 10 steps are replayed on
@@ -62,7 +74,25 @@ Phases, each reported on its own line:
               throttled bits, rounds and the final books must agree. Every
               activation must resolve, none stay active, and the books
               come back to full capacity. One "front" line of numbers.
-  8. a `{"kernels": [...]}` JSON line, then the card line, then the last
+              The host planes run at their defaults: the coalescing
+              producer with the columnar batch wire (the fleet acks each
+              wave as one frame, as an invoker's coalescing producer
+              does), batched acks, the flight recorder, the trace store,
+              and the host observatory installed on the loop; the line
+              carries the frames and messages a frame for dispatches and
+              acks ("wire"), the observatory's loop lag, GC pauses, tasks
+              an invoke, serde by hop and the loop thread's samples by
+              host layer ("host_observatory"), and the records filed.
+  8. http     8a the standalone with real sandboxes; 8b the same assembly
+              over the simulated fleet at 10,000 invokers, 8,000 blocking
+              invokes at 256 in flight from a client process then 200 one
+              at a time, with the planes at their defaults
+              (`Controller.start` installs the observatory) and the same
+              readings as phase 7; 8c four runs of 8b's configuration at
+              2,000 invokes, the coalescing producer on, off, off, on
+              ("http_ab" lines: invokes/s, HTTP p50/p99, server CPU an
+              invoke).
+  9. a `{"kernels": [...]}` JSON line, then the card line, then the last
      line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
@@ -895,6 +925,17 @@ def _percentiles(xs):
         if len(xs) else (None, None)
 
 
+def _time_sends(bal, acc, key):
+    """Time the balancer's dispatch sends under acc[key]: the coalescing
+    producer's flush (one frame a topic) when it is on, else each awaited
+    send."""
+    co = getattr(bal.producer, "_co", None)
+    if co is not None:
+        _time_calls(co, "_flush", acc, key)
+    else:
+        _time_calls(bal, "send_activation_to_invoker", acc, key)
+
+
 def _time_calls(obj, name, acc, key):
     """Route obj.name through a wrapper that adds its wall time to
     acc[key] (a host-time split of the front; coroutines are timed from
@@ -919,29 +960,50 @@ def _time_calls(obj, name, acc, key):
 
 
 class Fleet:
-    """N_INV simulated invokers of MEM_MB on one in-memory bus. One fleet
+    """`n_inv` simulated invokers of MEM_MB on one in-memory bus. One fleet
     task drains the invoker topics the balancer wrote to (the bus's
-    producer notes them), and acks each activation `delay` waves after it
-    arrived, with its result; pings go out in paced rounds. With `echo`
-    every activation is acked as soon as it is drained, with its
-    arguments as its result."""
+    producer notes them), decodes columnar batch frames and plain messages
+    as the port's invoker does, and acks each activation `delay` waves
+    after it arrived, with its result, through the coalescing producer an
+    invoker uses (`maybe_coalesce`: one frame a wave when it is on); pings
+    go out in paced rounds. With `echo` every activation is acked as soon
+    as it is drained, with its arguments as its result. `wire` counts the
+    frames the bus carried and the messages in them, for dispatches and
+    for acks."""
 
-    def __init__(self, seed, echo=False):
+    def __init__(self, seed, echo=False, n_inv=None):
         self.echo = echo
+        self.n_inv = N_INV if n_inv is None else n_inv
         from openwhisk_tpu_torch.core import entity as E
         from openwhisk_tpu_torch.messaging import memory as mem
         from openwhisk_tpu_torch.messaging import message as M
+        from openwhisk_tpu_torch.messaging.coalesce import maybe_coalesce
         self.E, self.M = E, M
         self.rng = np.random.RandomState(seed)
         fleet = self
         self.touched, self.wake = set(), None
+        self.wire = {"dispatch": [0, 0], "ack": [0, 0]}
+
+        def note(topic, msg):
+            kind = ("dispatch" if topic.startswith("invoker") else
+                    "ack" if topic.startswith("completed") else None)
+            if kind is not None:
+                aids = getattr(msg, "activation_ids", None)
+                fleet.wire[kind][0] += 1
+                fleet.wire[kind][1] += 1 if aids is None else len(aids)
+            if kind == "dispatch":
+                fleet.touched.add(topic)
+                fleet.wake.set()
 
         class Producer(mem.MemoryProducer):
             async def send(self, topic, msg):
                 await super().send(topic, msg)
-                if topic.startswith("invoker"):
-                    fleet.touched.add(topic)
-                    fleet.wake.set()
+                note(topic, msg)
+
+            async def send_many(self, items):
+                await super().send_many(items)
+                for topic, _payload, msg in items:
+                    note(topic, msg)
 
         class Bus(mem.MemoryMessagingProvider):
             def get_producer(self):
@@ -949,8 +1011,9 @@ class Fleet:
 
         self.provider = Bus()
         self.producer = self.provider.get_producer()
+        self.ack_producer = maybe_coalesce(self.provider.get_producer())
         self.instances = [E.InvokerInstanceId(i, user_memory=E.MB(MEM_MB))
-                          for i in range(N_INV)]
+                          for i in range(self.n_inv)]
         self.consumers = {}
         self.due = {}          # wave -> [ack]
         self.wave = 0
@@ -968,8 +1031,19 @@ class Fleet:
     async def stop(self):
         self.task.cancel()
         await asyncio.gather(self.task, return_exceptions=True)
+        await self.ack_producer.close()
+
+    def wire_report(self):
+        """Frames the bus carried and messages a frame, for dispatches
+        (to invoker topics) and for acks (to completed topics)."""
+        return {k: dict(frames=f, messages=m,
+                        messages_per_frame=m / f if f else None)
+                for k, (f, m) in self.wire.items()}
 
     async def _drain(self):
+        from openwhisk_tpu_torch.messaging.columnar import is_batch_payload
+        from openwhisk_tpu_torch.messaging.connector import (decode_batch,
+                                                             decode_message)
         E, M = self.E, self.M
         while True:
             await self.wake.wait()
@@ -985,8 +1059,14 @@ class Fleet:
                 got = await c.peek(1 << 16, timeout=0)
                 c.commit()
                 inv = self.instances[int(topic[len("invoker"):])]
+                msgs = []
                 for _, _, _, payload in got:
-                    msg = M.ActivationMessage.parse(payload)
+                    if is_batch_payload(payload):
+                        msgs.extend(decode_batch(payload)[1])
+                    else:
+                        msgs.append(decode_message(M.ActivationMessage.parse,
+                                                   payload, "activation"))
+                for msg in msgs:
                     now = time.time()
                     act = E.WhiskActivation(
                         E.EntityPath(str(msg.user.namespace.name)),
@@ -1009,18 +1089,27 @@ class Fleet:
                 time.perf_counter() - t0
             if echoed:
                 t0 = time.perf_counter()
-                for topic, ack in echoed:
-                    await self.producer.send(topic, ack)
+                await self._send_acks(echoed)
                 self.host_s["fleet_ack_send"] += time.perf_counter() - t0
+
+    async def _send_acks(self, acks):
+        """One `send_batch` a topic: a wave of acks is one frame on the
+        coalescing producer, one send each on the raw one."""
+        by_topic = {}
+        for topic, ack in acks:
+            by_topic.setdefault(topic, []).append(ack)
+        for topic, msgs in by_topic.items():
+            await self.ack_producer.send_batch(topic, msgs)
 
     async def ack_due(self, wave, everything=False):
         """Advance to `wave` and send the acks due by then (all of them
         with `everything`)."""
         self.wave = wave
         keys = sorted(k for k in self.due if everything or k <= wave)
+        acks = []
         for k in keys:
-            for topic, ack in self.due.pop(k):
-                await self.producer.send(topic, ack)
+            acks.extend(self.due.pop(k))
+        await self._send_acks(acks)
 
     async def ping(self, pool, ids):
         """Ping invokers `ids` through `pool`'s health feed, PING_CHUNK at
@@ -1043,7 +1132,108 @@ class Fleet:
 
     async def keep_alive(self, pool):
         if time.monotonic() - self.last_ping > REPING_S:
-            await self.ping(pool, list(range(N_INV)))
+            await self.ping(pool, list(range(self.n_inv)))
+
+
+#: the host layers the observatory's samples are filed under: a sample goes
+#: to the first of these files found from its leaf frame up; a leaf in the
+#: selector is the loop waiting for I/O, any other sample the loop itself
+HOST_LAYERS = (
+    ("balancer", ("tpu_balancer.py", "base.py", "supervision.py",
+                  "flight_recorder.py", "placement.py", "throttle.py",
+                  "ring_buffer.py", "placement_cuda.py")),
+    ("bus", ("coalesce.py", "columnar.py", "connector.py", "memory.py",
+             "message.py", "microbatch.py")),
+    ("entitlement", ("entitlement.py", "admission.py")),
+    ("api_handler", ("api.py", "invoke.py", "authentication.py",
+                     "entities.py", "cache.py", "store.py",
+                     "memory_store.py", "activation_store.py",
+                     "batcher.py", "activation.py", "action.py")),
+    ("aiohttp", ("web_protocol.py", "web_request.py", "web_response.py",
+                 "http_parser.py", "http_writer.py", "streams.py",
+                 "web_urldispatcher.py", "web_app.py", "web_middlewares.py",
+                 "base_protocol.py", "web_server.py", "helpers.py",
+                 "payload.py", "web_exceptions.py")),
+    ("host_planes", ("hostprof.py", "tracestore.py", "waterfall.py",
+                     "tracing.py", "eventlog.py", "logging.py")),
+    ("simulated_fleet", ("chip_smoke.py",)),
+)
+
+
+def _host_layer(stack):
+    frames = stack.split(";")
+    leaf = frames[-1].split(":")[0]
+    if leaf == "selectors.py":
+        return "loop_waiting_for_io"
+    for frame in reversed(frames):
+        name = frame.split(":")[0]
+        for layer, files in HOST_LAYERS:
+            if name in files:
+                return layer
+    return "event_loop"
+
+
+def _census():
+    from openwhisk_tpu_torch.utils.hostprof import GLOBAL_HOST_OBSERVATORY
+    out = {}
+    for line in GLOBAL_HOST_OBSERVATORY.collapsed_text().splitlines():
+        stack, _, n = line.rpartition(" ")
+        out[stack] = int(n)
+    return out
+
+
+def _obs_mark():
+    """The host observatory's counters now: raw histograms, and the
+    always-on sampler's collapsed stacks."""
+    from openwhisk_tpu_torch.utils.hostprof import GLOBAL_HOST_OBSERVATORY
+    return GLOBAL_HOST_OBSERVATORY.raw_counts(), _census()
+
+
+def _obs_delta(mark, invokes, wall_s):
+    """What the host observatory counted since `mark`, over `invokes`
+    activations and `wall_s` seconds: loop-lag p50/p99 from the lag
+    histogram's difference, GC pauses and pause ms by generation, tasks
+    created per invoke, serde count, bytes and ms by (hop, direction), and
+    the event-loop thread's samples filed by host layer (HOST_LAYERS), as
+    shares and as loop ms an invoke."""
+    from openwhisk_tpu_torch.utils.hostprof import GLOBAL_HOST_OBSERVATORY
+    obs = GLOBAL_HOST_OBSERVATORY
+    (raw0, census0), (raw1, census1) = mark, _obs_mark()
+    if not raw1["enabled"]:
+        return {"enabled": False}
+    lag = [b - a for a, b in zip(raw0["lag"]["hist"], raw1["lag"]["hist"])]
+    g0, g1 = raw0["gc"], raw1["gc"]
+    serde0 = {(h, d): r for h, d, *r in raw0["serde"]}
+    serde = []
+    for hop, direction, count, nbytes, ns in raw1["serde"]:
+        c0, b0, n0 = serde0.get((hop, direction), (0, 0, 0))
+        if count > c0:
+            serde.append(dict(hop=hop, direction=direction,
+                              count=count - c0, bytes=nbytes - b0,
+                              ms=(ns - n0) / 1e6))
+    tasks = raw1["tasks"]["created"] - raw0["tasks"]["created"]
+    layers, samples = {}, 0
+    for stack, n in census1.items():
+        n -= census0.get(stack, 0)
+        if n > 0:
+            layer = _host_layer(stack)
+            layers[layer] = layers.get(layer, 0) + n
+            samples += n
+    split = {k: dict(samples=v, share=v / samples,
+                     loop_ms_per_invoke=v / samples * wall_s * 1e3
+                     / max(1, invokes))
+             for k, v in sorted(layers.items(), key=lambda kv: -kv[1])}
+    return dict(
+        enabled=True, installed=obs.installed,
+        loop_lag_ms_p50_p99=[obs._pctl_ms(lag, 0.5), obs._pctl_ms(lag, 0.99)],
+        lag_ticks=sum(lag),
+        gc_pauses=[b - a for a, b in zip(g0["count"], g1["count"])],
+        gc_pause_ms=[(b - a) / 1e3 for a, b in zip(g0["sum_us"],
+                                                   g1["sum_us"])],
+        gc_overlapping_dispatch=(g1["overlapping_dispatch"]
+                                 - g0["overlapping_dispatch"]),
+        tasks_created=tasks, tasks_per_invoke=tasks / max(1, invokes),
+        serde=serde, loop_samples=samples, loop_split=split)
 
 
 class ActionMix:
@@ -1169,6 +1359,18 @@ class Recorder:
         return bad, steps, st
 
 
+def _planes(bal):
+    """The host planes' switches as this balancer runs them."""
+    from openwhisk_tpu_torch.utils.hostprof import GLOBAL_HOST_OBSERVATORY
+    co = getattr(bal.producer, "_co", None) is not None
+    return dict(coalescing=co,
+                batch_wire=bool(getattr(bal.producer, "batch_wire", False)),
+                batched_ack=bal.batched_ack,
+                host_observatory=GLOBAL_HOST_OBSERVATORY.installed,
+                flight_recorder=bal.flight_recorder.enabled,
+                trace_store=bal.trace_store.enabled)
+
+
 def _books_np(state):
     return tuple(t.cpu().numpy().copy() for t in (
         state.free_mb, state.conc_free.T, state.health))
@@ -1239,10 +1441,18 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         host[k] = 0.0
     for name, key in (("publish_many", "balancer_publish_many"),
                       ("_row_placed", "balancer_fan_out"),
-                      ("send_activation_to_invoker", "balancer_send"),
-                      ("process_acknowledgement", "balancer_ack")):
+                      ("process_acknowledgement", "balancer_ack"),
+                      ("process_acknowledgement_frame", "balancer_ack")):
         _time_calls(bal, name, host, key)
+    _time_sends(bal, host, "balancer_send")
     _time_calls(bal.supervision, "on_ping", host, "pool_on_ping")
+    # the host observatory on this loop, as a controller installs it
+    from openwhisk_tpu_torch.utils.hostprof import GLOBAL_HOST_OBSERVATORY
+    obs_owner = GLOBAL_HOST_OBSERVATORY.install(metrics=bal.metrics)
+    planes = _planes(bal)
+    fleet.wire = {k: [0, 0] for k in fleet.wire}
+    obs_mark = _obs_mark()
+    fr_filed0 = len(bal.flight_recorder) + bal.flight_recorder.dropped
     mix = ActionMix(seed=7, ctrl=ctrl)
     flapped = [int(i) for i in
                fleet.rng.choice(N_INV, N_INV // 100, replace=False)]
@@ -1318,6 +1528,11 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
     t_last = time.perf_counter()
     launches = {"scan": K.schedule_batch_cuda.launches,
                 "repair": K.schedule_batch_repair_cuda.launches}
+    host_obs = _obs_delta(obs_mark, len(outs_all), t_last - t_first)
+    if obs_owner:
+        GLOBAL_HOST_OBSERVATORY.uninstall()
+    fr_filed = (len(bal.flight_recorder) + bal.flight_recorder.dropped
+                - fr_filed0)
     rec.undo()
     promises, failed, throttled = [], [], 0
     for o in outs_all:
@@ -1349,7 +1564,9 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
                         and not books[1].any() and books[2][:N_INV].all()),
         errors=errors[:3],
         host_s=dict(host, wall=t_last - t_first,
-                    other=t_last - t_first - sum(host.values())))
+                    other=t_last - t_first - sum(host.values())),
+        planes=planes, wire=fleet.wire_report(),
+        host_observatory=host_obs, flight_recorder_records=fr_filed)
     if flap:
         summary["flap"] = dict(invokers=len(flapped), **flap_status)
     if rate_waves is not None:
@@ -1411,6 +1628,14 @@ def front_phase(torch, P, K, TB):
                 f"front {label}: nothing active, books at full capacity")
         require(bad == 0 and books_equal,
                 f"front {label}: card and CPU replay agree")
+        require(all(out["planes"].values()),
+                f"front {label}: the host planes at their defaults: "
+                f"{out['planes']}")
+        require(out["wire"]["ack"]["frames"] < out["wire"]["ack"]["messages"]
+                and out["flight_recorder_records"] > 0
+                and out["host_observatory"]["lag_ticks"] > 0,
+                f"front {label}: acks went out in batch frames, the flight "
+                f"recorder filed, the observatory ticked")
         if rate is None:
             require(out["launches"]["scan"] > 0
                     and out["launches"]["repair"] > 0,
@@ -1426,6 +1651,186 @@ def front_phase(torch, P, K, TB):
     return res
 
 
+# ------------------------------------------------------------- phase 5b
+#: fleets padded past 2^17 (the scan kernel's wide instance): 140,000
+#: invokers pad to N = 2^18 at the balancer's A = 4,096 (conc is 4 GiB),
+#: managed 0.9 (a 126,000-invoker partition, within 2^17); N = 2^20 holds
+#: 1,000,000 invokers at A = 256 with partitions of up to 2^17 anywhere
+WIDE_INV, WIDE_PAD = 140_000, 1 << 18
+WIDE_BIG_INV, WIDE_BIG_PAD, WIDE_BIG_A = 1_000_000, 1 << 20, 256
+WIDE_B, WIDE_TRICKLE = 16, 20
+
+
+def wide_case(n_inv, n_pad, a, seed, torch, P, managed=None):
+    """Books on the card (n_inv invokers in n_pad rows, some full, 2% down,
+    permits on the batch's slot rows) and a WIDE_B-row batch: with
+    `managed`, the balancer's partitions (managed [0, managed), blackbox
+    the rest); else windows of up to 2^17 anywhere in the fleet."""
+    rng = np.random.RandomState(seed)
+    b = WIDE_B
+    if managed is not None:
+        bb = rng.rand(b) < 0.1
+        off = np.where(bb, managed, 0)
+        size = np.where(bb, n_inv - managed, managed)
+    else:
+        size = rng.randint(1, min(1 << 17, n_inv) + 1, b)
+        off = np.array([rng.randint(0, n_inv - s + 1) for s in size])
+    home = rng.randint(0, 1 << 30, b) % size
+    rand = rng.randint(0, 1 << 30, b) % size
+    step_inv = np.array([_inv(rng, s) for s in size])
+    need = rng.choice([128, 256, 512, 1024, 2048], b)
+    slot = rng.randint(0, 8, b)
+    maxc = np.where(rng.rand(b) < 0.3, 4, 1)
+    valid = rng.rand(b) < 0.95
+    free = np.zeros(n_pad, np.int32)
+    free[:n_inv] = rng.choice([0, 512, 2048, MEM_MB], n_inv,
+                              p=[0.3, 0.1, 0.1, 0.5])
+    health = np.zeros(n_pad, bool)
+    health[:n_inv] = rng.rand(n_inv) >= 0.02
+    conc = torch.zeros((a, n_pad), dtype=torch.int32, device=DEVICE)
+    vals = np.where(rng.rand(8, n_inv) < 0.02,
+                    rng.randint(1, 4, (8, n_inv)), 0).astype(np.int32)
+    conc[:8, :n_inv] = torch.from_numpy(vals).to(DEVICE)
+    state = P.PlacementState(torch.from_numpy(free).to(DEVICE), conc.T,
+                             torch.from_numpy(health).to(DEVICE))
+    batch = P.request_batch_from_numpy(off, size, home, step_inv, need, slot,
+                                       maxc, rand, valid, device=DEVICE)
+    pen = torch.from_numpy(rng.randint(0, 4, n_pad).astype(np.int32)).to(
+        DEVICE)
+    return state, batch, pen
+
+
+def wide_kernel(label, state, batch, pen, torch, P, K):
+    """The scan at a wide fleet against the plain version (with and
+    without a penalty, bit-exact), timed with CUDA events beside the
+    plain version, with its bound and launch shape."""
+    for p in (None, pen):
+        err, _, _ = compare("scan", state, batch, p, P, K, torch)
+        require(err == 0, f"wide scan {label} (penalty {p is not None}) "
+                          f"differs from plain by {err}")
+    work = clone_state(P, state)
+    kview = K.to_transposed(work)
+
+    def restore():
+        work.free_mb.copy_(state.free_mb)
+        work.conc_free.copy_(state.conc_free)
+
+    ms = time_ms(lambda: K.schedule_batch_cuda(kview, batch), restore,
+                 torch)
+    plain_ms = time_ms(lambda: P.schedule_batch(work, batch), restore,
+                       torch, reps=3)
+    nbytes, ops, _ = work_bytes_ops("scan", state, batch, None, P)
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = dict(N=int(state.free_mb.shape[0]),
+               A=int(state.conc_free.shape[1]), B=int(batch.valid.shape[0]),
+               valid_rows=int(batch.valid.sum()), ms=ms, plain_ms=plain_ms,
+               bytes=nbytes, key_evals=ops, bound_ms=bound_ms,
+               bound_by=bound_by, max_abs_err=0,
+               cluster=K.schedule_batch_cuda.cluster)
+    say("wide_kernel", case=label, **row)
+    del work, kview
+    return row
+
+
+async def _wide_balancer_run(TB, K):
+    """`TpuBalancer` over WIDE_INV invokers registered by pings (the books
+    grow to N = 2^18 on the card): WIDE_TRICKLE single invokes, each acked
+    at once, every one placed by the scan. The simulated fleet pings once,
+    so the supervision's offline timeout is raised for the run."""
+    from openwhisk_tpu_torch.core import entity as E
+    errors = []
+
+    class Log:
+        def error(self, _tid, msg, *_):
+            errors.append(msg)
+
+        def warn(self, *_):
+            pass
+
+        def info(self, *_):
+            pass
+
+    ctrl = E.ControllerInstanceId("2")
+    fleet = Fleet(seed=23, echo=True, n_inv=WIDE_INV)
+    fleet.start()
+    bal = TB.TpuBalancer(
+        fleet.provider, ctrl, logger=Log(), managed_fraction=0.9,
+        blackbox_fraction=0.1, max_batch=MAX_BATCH, action_slots=A,
+        initial_pad=64, device=None if DEVICE == "cuda" else DEVICE)
+    bal.supervision.ping_timeout = 3600.0
+    await bal.start()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        await fleet.ping(bal.supervision, list(range(WIDE_INV)))
+        out["register_s"] = time.perf_counter() - t0
+        require(len(bal._registry) == WIDE_INV and all(bal._healthy)
+                and bal.state.free_mb.shape[0] == WIDE_PAD,
+                f"wide fleet registered, pad {bal.state.free_mb.shape[0]}")
+        bal._arm_flush()
+        await _drain_front(bal)
+        mix = ActionMix(seed=29, ctrl=ctrl)
+        box, undo = capture_next(TB, "schedule_batch_cuda")
+        K.reset_launch_counts()
+        placed, refused = [], []
+        for _ in range(WIDE_TRICKLE):
+            a, msg = mix.pairs(1)[0]
+            try:
+                placed.append(await bal.publish(a, msg))
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                refused.append(repr(e))
+            await _drain_front(bal)
+        out["launches"] = {"scan": K.schedule_batch_cuda.launches,
+                           "repair": K.schedule_batch_repair_cuda.launches}
+        undo()
+        out["managed"], out["blackbox"] = bal.managed_count, \
+            bal.blackbox_count
+        results = await asyncio.gather(*placed, return_exceptions=True)
+        out.update(placed=sum(hasattr(r, "response") for r in results),
+                   refused=len(refused), refused_first=refused[:3],
+                   errors=errors[:3],
+                   active_at_end=bal.total_active_activations,
+                   step_ms_p50_p99=list(_percentiles(bal.step_ms)))
+    finally:
+        await bal.close()
+        await fleet.stop()
+    return out, box
+
+
+def wide_phase(torch, P, K, TB):
+    """Phase 5b: the scan past 2^17 padded invokers, at the kernel and
+    through the balancer."""
+    rows = {}
+    state, batch, pen = wide_case(WIDE_INV, WIDE_PAD, A, 31, torch, P,
+                                  managed=int(0.9 * WIDE_INV))
+    rows["N262144_B16"] = wide_kernel("N262144_B16", state, batch, pen,
+                                      torch, P, K)
+    del state, batch, pen
+    state, batch, pen = wide_case(WIDE_BIG_INV, WIDE_BIG_PAD, WIDE_BIG_A,
+                                  37, torch, P)
+    rows["N1048576_B16"] = wide_kernel("N1048576_B16", state, batch, pen,
+                                       torch, P, K)
+    del state, batch, pen
+    torch.cuda.empty_cache()
+    run, box = asyncio.run(_wide_balancer_run(TB, K))
+    say("wide_balancer", **run)
+    require(run["placed"] == WIDE_TRICKLE and not run["refused"]
+            and not run["errors"] and run["active_at_end"] == 0,
+            f"the {WIDE_INV}-invoker balancer placed every trickle invoke: "
+            f"{run}")
+    require(run["launches"]["scan"] >= WIDE_TRICKLE,
+            f"the scan placed the wide trickle: {run['launches']}")
+    free0, conc0, health = box["state"]
+    kept = K.to_transposed(P.PlacementState(free0, conc0, health))
+    pen = torch.from_numpy(np.random.RandomState(41).randint(
+        0, 4, free0.shape[0]).astype(np.int32)).to(free0.device)
+    rows["kept_trickle"] = wide_kernel("kept_trickle", kept, box["batch"],
+                                       pen, torch, P, K)
+    del box, kept
+    torch.cuda.empty_cache()
+    return dict(rows, balancer=run)
+
+
 # ---------------------------------------------------------------- phase 8
 #: 8a, the standalone as a user runs it: sequential and concurrent blocking
 #: invokes of `hello` on real python:3 process sandboxes
@@ -1437,6 +1842,8 @@ STANDALONE_SEQ, STANDALONE_CONC, STANDALONE_MEMORY_MB = 16, 48, 4096
 #: concurrent segment
 HTTP_ACTIONS, HTTP_INVOKES, HTTP_INFLIGHT, HTTP_TRICKLE = 200, 8_000, 256, 200
 HTTP_PROFILE_FROM, HTTP_PROFILE_TO, HTTP_PROFILE_S = 2_000, 7_000, 2.0
+#: 8c, the coalescing A/B: blocking invokes a run (four runs)
+AB_INVOKES = 2_000
 #: the front door's throttles, raised so that nothing is throttled
 UNTHROTTLED = dict(invocations_per_minute=10 ** 9,
                    concurrent_invocations=10 ** 9)
@@ -1618,9 +2025,14 @@ def _warm_profiler():
     prof.stop()
 
 
-async def _http_fleet_run(TB, K):
+async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
     """8b: the standalone's assembly over the simulated fleet, driven over
-    HTTP by a client process."""
+    HTTP by a client process: `invokes` blocking invokes in flight, then a
+    `trickle` one at a time. `full` adds the step recorder (for the CPU
+    replay) and the device profile window; without it the run is 8c's, an
+    A/B leg."""
+    invokes = HTTP_INVOKES if invokes is None else invokes
+    trickle = HTTP_TRICKLE if trickle is None else trickle
     import aiohttp
     from openwhisk_tpu_torch import standalone as S
     from openwhisk_tpu_torch.core import entity as E
@@ -1659,7 +2071,7 @@ async def _http_fleet_run(TB, K):
                         "limits": limits}) as r:
                     require(r.status == 200, f"PUT {name}: {r.status}")
         books0 = _books_np(bal.state)
-        rec = Recorder(bal, TB)
+        rec = Recorder(bal, TB) if full else None
         host = fleet.host_s
         for k in host:
             host[k] = 0.0
@@ -1667,17 +2079,23 @@ async def _http_fleet_run(TB, K):
         for name, key in (("publish_many", "balancer_publish_many"),
                           ("_dispatch_batch", "balancer_dispatch"),
                           ("_row_placed", "balancer_fan_out"),
-                          ("process_acknowledgement", "balancer_ack")):
+                          ("process_acknowledgement", "balancer_ack"),
+                          ("process_acknowledgement_frame", "balancer_ack")):
             _time_outer(bal, name, host, key, depth)
-        _time_calls(bal, "send_activation_to_invoker", host, "balancer_send")
-        cfg = dict(seed=19, names=names, invokes=HTTP_INVOKES,
-                   inflight=HTTP_INFLIGHT, trickle=HTTP_TRICKLE, base=base,
+        _time_sends(bal, host, "balancer_send")
+        cfg = dict(seed=19, names=names, invokes=invokes,
+                   inflight=HTTP_INFLIGHT, trickle=trickle, base=base,
                    auth=[S.GUEST_UUID, S.GUEST_KEY])
-        _warm_profiler()
-        box = {"scheduled0": bal.counters["scheduled"], "stop": False,
+        if full:
+            _warm_profiler()
+        box = {"scheduled0": bal.counters["scheduled"], "stop": not full,
                "prof": None}
         steps0 = len(bal.step_ms)
         counters0 = dict(bal.counters)
+        planes = _planes(bal)
+        fleet.wire = {k: [0, 0] for k in fleet.wire}
+        obs_mark = _obs_mark()
+        fr_filed0 = len(bal.flight_recorder) + bal.flight_recorder.dropped
         K.reset_launch_counts()
         cpu0 = time.process_time()
         prof_task = asyncio.get_event_loop().create_task(
@@ -1694,27 +2112,32 @@ async def _http_fleet_run(TB, K):
         server_cpu = time.process_time() - cpu0
         launches = {"scan": K.schedule_batch_cuda.launches,
                     "repair": K.schedule_batch_repair_cuda.launches}
+        host_obs = _obs_delta(obs_mark, invokes + trickle,
+                              res["t_last"] - res["t_first"])
+        fr_filed = (len(bal.flight_recorder) + bal.flight_recorder.dropped
+                    - fr_filed0)
         box["stop"] = True
         await prof_task
-        rec.undo()
+        if rec is not None:
+            rec.undo()
         torch.cuda.synchronize()
         books = _books_np(bal.state)
         lat = np.asarray(res["latency_s"]) * 1e3
-        n = HTTP_INVOKES
+        n = invokes
         d = {k: bal.counters[k] - counters0.get(k, 0) for k in
              ("steps", "scheduled", "repair_steps", "repair_rounds")}
         balancer_s = sum(v for k, v in host.items()
                          if k.startswith("balancer_"))
         fleet_s = sum(v for k, v in host.items() if k.startswith("fleet_"))
         out.update(
-            invokes=n + HTTP_TRICKLE, inflight=HTTP_INFLIGHT,
+            invokes=n + trickle, inflight=HTTP_INFLIGHT,
             actions=HTTP_ACTIONS, n_bad=res["n_bad"], bad_first=res["bad"],
-            invokes_per_s=(n + HTTP_TRICKLE) / (res["t_last"]
-                                                - res["t_first"]),
+            invokes_per_s=(n + trickle) / (res["t_last"] - res["t_first"]),
             concurrent_invokes_per_s=n / (res["t_concurrent_end"]
                                           - res["t_first"]),
             http_ms_p50_p99_concurrent=list(_percentiles(lat[:n])),
             http_ms_p50_p99_trickle=list(_percentiles(lat[n:])),
+            server_cpu_ms_per_invoke=server_cpu * 1e3 / (n + trickle),
             step_ms_p50_p99=list(_percentiles(list(bal.step_ms)[steps0:])),
             steps=d["steps"], rows_per_step=d["scheduled"] / max(1,
                                                                  d["steps"]),
@@ -1731,7 +2154,9 @@ async def _http_fleet_run(TB, K):
                 client=res["cpu_s"], balancer=balancer_s, fleet=fleet_s,
                 api_entitlement_and_loop=server_cpu - balancer_s - fleet_s,
                 server_process=server_cpu, split=host,
-                wall=res["t_last"] - res["t_first"]))
+                wall=res["t_last"] - res["t_first"]),
+            planes=planes, wire=fleet.wire_report(),
+            host_observatory=host_obs, flight_recorder_records=fr_filed)
     finally:
         stop_pinging.set()
         if pinger is not None:
@@ -1806,7 +2231,55 @@ def http_phase(torch, P, K, TB):
     require(bad == 0 and books_equal, "http: card and CPU replay agree")
     require(out["profile"] is not None,
             "http: the device was profiled inside the concurrent segment")
+    require(all(out["planes"].values()),
+            f"http: the host planes at their defaults: {out['planes']}")
+    require(out["host_observatory"].get("installed")
+            and out["host_observatory"]["lag_ticks"] > 0
+            and out["flight_recorder_records"] > 0,
+            "http: Controller.start installed the observatory, the flight "
+            "recorder filed")
+    out["ab"] = coalesce_ab(TB, K)
     return sa, out
+
+
+def coalesce_ab(TB, K):
+    """8c: phase 8b's configuration at AB_INVOKES blocking invokes a run,
+    the coalescing producer on, off, off, on
+    (CONFIG_whisk_bus_coalesce_enabled), each run a fresh server and fleet:
+    host numbers move by a fifth between calls, so the two settings are
+    compared inside one call."""
+    import os
+    key = "CONFIG_whisk_bus_coalesce_enabled"
+    prior = os.environ.get(key)
+    runs = []
+    try:
+        for on in (True, False, False, True):
+            os.environ[key] = "true" if on else "false"
+            out, _rec, _b0, _b1 = asyncio.run(_http_fleet_run(
+                TB, K, invokes=AB_INVOKES, trickle=0, full=False))
+            row = dict(coalescing=on, planes=out["planes"],
+                       invokes_per_s=out["invokes_per_s"],
+                       http_ms_p50_p99=out["http_ms_p50_p99_concurrent"],
+                       server_cpu_ms_per_invoke=out[
+                           "server_cpu_ms_per_invoke"],
+                       wire=out["wire"], n_bad=out["n_bad"],
+                       tasks_per_invoke=out["host_observatory"].get(
+                           "tasks_per_invoke"),
+                       launches=out["launches"])
+            say("http_ab", **row)
+            require(out["n_bad"] == 0 and out["active_at_end"] == 0
+                    and out["books_full"],
+                    f"http A/B (coalescing {on}): every invoke 200, books "
+                    f"full")
+            require(out["planes"]["coalescing"] == on,
+                    f"the A/B leg runs coalescing={on}")
+            runs.append(row)
+    finally:
+        if prior is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = prior
+    return runs
 
 
 def main():
@@ -1853,6 +2326,10 @@ def main():
     say("main_kernel_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    wide = wide_phase(torch, P, K, TB)
+    say("wide_phase", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     pinned = scan_pinned_phase(torch, K, TB)
     say("scan_pinned_phase", seconds=time.perf_counter() - t0)
 
@@ -1889,7 +2366,13 @@ def main():
          "serial": sserial, "memory_traffic": kres["scan"]["times"],
          "scan_pinned": {k: pinned[k] for k in
                          ("step_p50_ms", "kernel_ms_per_launch", "launches")},
-         "penalized": sk["penalized"]},
+         "penalized": sk["penalized"],
+         "wide": {k: (v if k == "balancer" else
+                      {f: v[f] for f in ("N", "A", "B", "valid_rows", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "cluster")})
+                  for k, v in wide.items()},
+         "wide_launches": wide["balancer"]["launches"]["scan"]},
         {"name": "placement_repair", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
@@ -1897,6 +2380,7 @@ def main():
          "front_launches": front_launches["repair"],
          "standalone_launches": standalone["launches"]["repair"],
          "http_launches": http["launches"]["repair"],
+         "wide_launches": wide["balancer"]["launches"]["repair"],
          "max_abs_err": max(kres["repair"]["err"], rep["max_abs_err"]),
          "B": mk["B"], "grid": mk["grid"], "ms": rep["ms"],
          "rounds": rep["rounds"], "ms_per_round": rep["ms_per_round"],

@@ -2,8 +2,10 @@
 
 A copy of `openwhisk_tpu/controller/api.py` with every /api/v1 route,
 /ping, /invokers and /metrics. Of its /admin surface the port serves the
-occupancy books, the latency waterfall, the readiness probe and the index;
-the routes of planes not ported yet answer 404 naming the plane.
+flight recorder, the occupancy books, the host observatory, the latency
+waterfall, the trace store, the incident recorder, the readiness probe and
+the index; the routes of planes not ported yet answer 404 naming the
+plane.
 
 Rebuild of core/controller/.../controller/RestAPIs.scala:160-228 (versioned
 route tree + auth directive) with the per-collection APIs:
@@ -116,14 +118,40 @@ class ControllerApi:
         # system
         r.add_get("/invokers", self.invokers)
         r.add_get("/metrics", self.metrics)
-        # admin surface: the balancer's books, the latency waterfall, the
-        # readiness probe and the index; the planes not ported yet answer
-        # 404 naming the plane. Auth-gated: none of these paths are in the
-        # anonymous whitelist.
-        r.add_get("/admin", self.admin_index)
+        # placement introspection plane (flight recorder + books), auth-gated
+        # like /invokers: none of these paths are in the anonymous whitelist
+        r.add_get("/admin/placement/recent", self.placement_recent)
+        r.add_get("/admin/placement/explain/{activation_id}",
+                  self.placement_explain)
         r.add_get("/admin/placement/occupancy", self.placement_occupancy)
+        # host hot-loop observatory: event-loop lag / GC pauses / task
+        # churn / serde shares / sampler self-time census, plus the
+        # bounded full-rate capture window (auth-gated)
+        r.add_get("/admin/profile/host", self.profile_host)
+        r.add_post("/admin/profile/host/capture", self.profile_host_capture)
+        # end-to-end latency waterfall: live per-stage percentiles, the
+        # tail budget breakdown and slowest-activation exemplars joined to
+        # flight-recorder trace ids (auth-gated; host-side reads only)
         r.add_get("/admin/latency/waterfall", self.latency_waterfall)
         r.add_get("/admin/ready", self.admin_ready)
+        # trace observatory: the tail-sampled kept-trace read side.
+        # `local` (a peer-scrape leaf) must register before the assembling
+        # route — aiohttp matches in registration order. Auth-gated; every
+        # handler 404s while CONFIG_whisk_tracing_tail_enabled=false.
+        r.add_get("/admin/traces", self.traces_list)
+        r.add_get("/admin/trace/local/{trace_id}", self.trace_local)
+        r.add_get("/admin/trace/{trace_id}", self.trace_assembled)
+        r.add_get("/admin", self.admin_index)
+        # incident forensics observatory: alert-triggered black-box
+        # bundles (utils/blackbox.py). The `local` leaf must register
+        # before the parameterized route (aiohttp registration order, same
+        # as traces). Every handler 404s while
+        # CONFIG_whisk_incidents_enabled=false.
+        r.add_get("/admin/incidents", self.incidents_list)
+        r.add_get("/admin/incident/local/{incident_id}",
+                  self.incident_local)
+        r.add_get("/admin/incident/{incident_id}", self.incident_get)
+        # the planes not ported yet answer 404 naming the plane
         self._add_unported_admin_routes(r)
         return app
 
@@ -349,13 +377,237 @@ class ControllerApi:
                 content_type="application/openmetrics-text")
         return web.Response(text=text, content_type="text/plain")
 
+    # ------------------------------------------- placement introspection
+    def _flight_recorder(self):
+        return getattr(self.c.load_balancer, "flight_recorder", None)
+
+    async def placement_recent(self, request):
+        """Last N flight-recorder batch records (newest last). `?limit=N`
+        bounds the answer (default 20, capped at the ring size);
+        `?decisions=false` returns digests + timings only."""
+        fr = self._flight_recorder()
+        if fr is None:
+            return _error(404, "this balancer has no flight recorder",
+                          request.get("transid"))
+        try:
+            limit = max(0, int(request.query.get("limit", 20)))
+        except ValueError:
+            return _error(400, "limit must be an integer",
+                          request.get("transid"))
+        with_decisions = request.query.get(
+            "decisions", "true").lower() not in ("false", "0", "no")
+        return web.json_response({
+            "enabled": fr.enabled,
+            "size": fr.size,
+            "recorded": len(fr),
+            "dropped": fr.dropped,
+            "records": fr.recent(limit, with_decisions=with_decisions),
+        })
+
+    async def placement_explain(self, request):
+        """Why did activation X land on invoker Y: the recorded decision row
+        plus the batch record it rode in (input digest + phase timings),
+        cross-linked to the kept trace (if the tail sampler kept one) and
+        any incident bundles whose window covers this activation — the
+        triage jumping-off points, one lookup instead of three.
+        404 once the ring has wrapped past the activation."""
+        aid = request.match_info["activation_id"]
+        fr = self._flight_recorder()
+        found = fr.explain(aid) if fr is not None else None
+        if found is None:
+            return _error(
+                404, "activation not in the flight recorder (never placed "
+                "by this controller, recorder disabled, or the ring has "
+                "wrapped past it)", request.get("transid"))
+        trace_id = (found.get("batch") or {}).get(
+            "digest", {}).get("trace_id")
+        store = self._trace_store()
+        if store is not None:
+            kept = next((r["trace_id"] for r in store.list(n=4096)
+                         if r.get("activation_id") == aid
+                         and r.get("trace_id")), None)
+            trace_id = kept or trace_id
+        rec = self._incidents()
+        incident_ids = []
+        if rec is not None:
+            # bundle index scan reads retention-bounded files — worker
+            # thread, never on the event loop
+            incident_ids = await asyncio.to_thread(
+                rec.incidents_for_activation, aid)
+        found["cross_links"] = {"trace_id": trace_id,
+                                "incident_ids": incident_ids}
+        return web.json_response(found)
+
+    async def profile_host(self, request):
+        """The host hot-loop observatory snapshot (utils/hostprof.py):
+        event-loop lag percentiles (measured from each probe tick's
+        SCHEDULED deadline), the worst-stall ring, per-generation GC pause
+        accounting with the dispatch-overlap counter, task churn, per-hop
+        serde shares and the sampler's self-time top-N. Host-side reads
+        only — never a device sync, so it runs inline. `?collapsed=1`
+        adds the always-on census as flamegraph-format collapsed stacks
+        (the capture endpoint returns a full-rate bounded window
+        instead)."""
+        from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
+        if request.query.get("raw", "").lower() in ("1", "true", "yes"):
+            # the exact-merge export the fleet federation scrapes
+            return web.json_response(obs.raw_counts())
+        snap = obs.snapshot()
+        if snap.get("enabled") and request.query.get(
+                "collapsed", "").lower() in ("1", "true", "yes"):
+            snap["collapsed"] = obs.collapsed_text()
+        return web.json_response(snap)
+
+    async def profile_host_capture(self, request):
+        """Arm a bounded full-rate host sampling window: `{"seconds": N}`
+        (capped at CONFIG_whisk_hostProfiling_captureLimitS) samples the
+        event-loop thread at CAPTURE_HZ and returns the window's self-time
+        top-N plus the collapsed (flamegraph-format) stacks. One window at
+        a time; 409 while host profiling is off or the sampler is down."""
+        from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
+        if not obs.enabled:
+            return _error(409, "host profiling is disabled "
+                          "(CONFIG_whisk_hostProfiling_enabled=false)",
+                          request.get("transid"))
+        if not obs.sampler_running:
+            return _error(409, "the host sampler is not running "
+                          "(observatory not installed or sampleHz=0)",
+                          request.get("transid"))
+        body = (await request.json()) if request.can_read_body else {}
+        if not isinstance(body, dict):
+            return _error(400, "capture request body must be a JSON object",
+                          request.get("transid"))
+        try:
+            seconds = float(body.get("seconds", 2.0))
+        except (TypeError, ValueError):
+            return _error(400, "seconds must be a number",
+                          request.get("transid"))
+        if seconds <= 0:
+            return _error(400, "seconds must be > 0", request.get("transid"))
+        try:
+            return web.json_response(await obs.capture(seconds))
+        except RuntimeError as e:
+            # a concurrent window is already armed (or the sampler died
+            # between the check above and the arm)
+            return _error(409, str(e), request.get("transid"))
+
+    def _trace_store(self):
+        from ..utils.tracestore import GLOBAL_TRACE_STORE
+        return GLOBAL_TRACE_STORE if GLOBAL_TRACE_STORE.enabled else None
+
+    def _trace_disabled(self, request):
+        return _error(404, "the trace observatory is disabled "
+                      "(CONFIG_whisk_tracing_tail_enabled=false)",
+                      request.get("transid"))
+
+    async def traces_list(self, request):
+        """Kept-trace summaries, newest first: `?reason=` filters by
+        verdict reason (error/timeout/fenced/spilled/forced/divergent/
+        exemplar/slow/floor), `?n=` caps the page. The `stats` block
+        carries the keep/drop/pending counters and the live tail
+        threshold."""
+        store = self._trace_store()
+        if store is None:
+            return self._trace_disabled(request)
+        try:
+            n = max(1, int(request.query.get("n", 50)))
+        except ValueError:
+            return _error(400, "n must be an integer",
+                          request.get("transid"))
+        reason = request.query.get("reason") or None
+        return web.json_response({"traces": store.list(reason=reason, n=n),
+                                  "stats": store.stats()})
+
+    async def trace_local(self, request):
+        """This process's kept half of one trace — the leaf the
+        assembling route scrapes from every peer. Unknown trace ids
+        answer 200 `{"found": false}` (a live peer that never kept the
+        trace is NOT a missing member); only a disabled plane 404s."""
+        store = self._trace_store()
+        if store is None:
+            return self._trace_disabled(request)
+        tid = request.match_info["trace_id"]
+        entry = store.get(tid)
+        return web.json_response({"trace_id": tid,
+                                  "found": entry is not None,
+                                  "entry": entry})
+
+    async def trace_assembled(self, request):
+        """ONE causal span tree for a trace id, assembled from the halves
+        this process kept (the peers' `/admin/trace/local/{id}` leaves
+        come with the fleet observatory's directory), clock-aligned at the
+        bus handoff pairs and telescoping to the measured e2e. Answers 200
+        with whatever halves there are, never a 500."""
+        store = self._trace_store()
+        if store is None:
+            return self._trace_disabled(request)
+        from ..utils.tracestore import assemble_trace
+        tid = request.match_info["trace_id"]
+        halves = []
+        local = store.get(tid)
+        if local is not None:
+            halves.append(local)
+        # the peers' halves come with the fleet observatory's directory
+        return web.json_response(
+            assemble_trace(tid, halves, members_missing=[]))
+
+    # --------------------------------------------- incident forensics
+    def _incidents(self):
+        from ..utils.blackbox import GLOBAL_INCIDENTS
+        return GLOBAL_INCIDENTS if GLOBAL_INCIDENTS.enabled else None
+
+    def _incidents_disabled(self, request):
+        return _error(404, "the incident forensics observatory is "
+                      "disabled (CONFIG_whisk_incidents_enabled=false)",
+                      request.get("transid"))
+
+    async def incidents_list(self, request):
+        """Captured incident bundles, newest first: summary rows (trigger,
+        planes captured, journal window, coalesced count) plus the
+        recorder's counters. The rows are the in-memory index — no disk
+        read on this path."""
+        rec = self._incidents()
+        if rec is None:
+            return self._incidents_disabled(request)
+        return web.json_response({"incidents": rec.list_incidents(),
+                                  "stats": rec.stats()})
+
+    async def incident_local(self, request):
+        """This process's copy of one bundle — the leaf the federated
+        lookup scrapes from every peer. Unknown ids answer 200
+        `{"found": false}` (a live peer that never captured the incident
+        is NOT a missing member); only a disabled plane 404s. The bundle
+        read is a CRC-checked file parse — worker thread, never on the
+        event loop."""
+        rec = self._incidents()
+        if rec is None:
+            return self._incidents_disabled(request)
+        iid = request.match_info["incident_id"]
+        payload = await asyncio.to_thread(rec.get, iid)
+        return web.json_response({"incident_id": iid,
+                                  "found": payload is not None,
+                                  "incident": payload})
+
+    async def incident_get(self, request):
+        """One full forensic bundle. Local bundles answer directly (the
+        peers' `local` leaves come with the fleet observatory's
+        directory)."""
+        rec = self._incidents()
+        if rec is None:
+            return self._incidents_disabled(request)
+        iid = request.match_info["incident_id"]
+        payload = await asyncio.to_thread(rec.get, iid)
+        if payload is not None:
+            return web.json_response({"incident": payload,
+                                      "member": "local"})
+        return _error(404, "incident not found (unknown id, pruned by "
+                      "retention, or corrupt bundle)",
+                      request.get("transid"))
+
     # ------------------------------------------------------- admin surface
     #: the admin routes of the JAX package's API whose plane this package
     #: does not carry yet, by plane: each answers 404 naming its plane
     UNPORTED_ADMIN = (
-        ("flight recorder", (
-            ("GET", "/admin/placement/recent"),
-            ("GET", "/admin/placement/explain/{activation_id}"))),
         ("placement quality plane", (
             ("GET", "/admin/placement/quality"),)),
         ("telemetry plane", (
@@ -363,9 +615,6 @@ class ControllerApi:
         ("kernel profiler", (
             ("GET", "/admin/profile/kernel"),
             ("POST", "/admin/profile/capture"))),
-        ("host profiler", (
-            ("GET", "/admin/profile/host"),
-            ("POST", "/admin/profile/host/capture"))),
         ("anomaly plane", (
             ("GET", "/admin/alerts"),
             ("GET", "/admin/anomalies"))),
@@ -378,14 +627,6 @@ class ControllerApi:
             ("GET", "/admin/fleet/quality"),
             ("GET", "/admin/fleet/timeline"),
             ("GET", "/admin/fleet/incidents"))),
-        ("trace store", (
-            ("GET", "/admin/traces"),
-            ("GET", "/admin/trace/local/{trace_id}"),
-            ("GET", "/admin/trace/{trace_id}"))),
-        ("incident recorder", (
-            ("GET", "/admin/incidents"),
-            ("GET", "/admin/incident/local/{incident_id}"),
-            ("GET", "/admin/incident/{incident_id}"))),
     )
 
     def _add_unported_admin_routes(self, router) -> None:
@@ -437,16 +678,43 @@ class ControllerApi:
     def _admin_routes(self) -> list:
         lb = self.c.load_balancer
 
-        def row(path, method, enabled, plane=None):
-            return {"path": path, "method": method, "knob": None,
+        fr = self._flight_recorder()
+        from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
+        traces_on = self._trace_store() is not None
+        incidents_on = self._incidents() is not None
+
+        def row(path, method, enabled, plane=None, knob=None):
+            return {"path": path, "method": method, "knob": knob,
                     "enabled": bool(enabled), "plane": plane}
 
         rows = [
             row("/admin", "GET", True),
+            row("/admin/placement/recent", "GET", fr is not None,
+                knob="CONFIG_whisk_loadBalancer_flightRecorder_enabled"),
+            row("/admin/placement/explain/{activation_id}", "GET",
+                fr is not None,
+                knob="CONFIG_whisk_loadBalancer_flightRecorder_enabled"),
             row("/admin/placement/occupancy", "GET", lb is not None),
+            row("/admin/profile/host", "GET", True,
+                knob="CONFIG_whisk_hostProfiling_enabled"),
+            row("/admin/profile/host/capture", "POST",
+                obs.enabled and obs.sampler_running,
+                knob="CONFIG_whisk_hostProfiling_enabled"),
             row("/admin/latency/waterfall", "GET",
                 getattr(lb, "waterfall", None) is not None),
             row("/admin/ready", "GET", True),
+            row("/admin/traces", "GET", traces_on,
+                knob="CONFIG_whisk_tracing_tail_enabled"),
+            row("/admin/trace/local/{trace_id}", "GET", traces_on,
+                knob="CONFIG_whisk_tracing_tail_enabled"),
+            row("/admin/trace/{trace_id}", "GET", traces_on,
+                knob="CONFIG_whisk_tracing_tail_enabled"),
+            row("/admin/incidents", "GET", incidents_on,
+                knob="CONFIG_whisk_incidents_enabled"),
+            row("/admin/incident/local/{incident_id}", "GET", incidents_on,
+                knob="CONFIG_whisk_incidents_enabled"),
+            row("/admin/incident/{incident_id}", "GET", incidents_on,
+                knob="CONFIG_whisk_incidents_enabled"),
         ]
         for plane, routes in self.UNPORTED_ADMIN:
             rows += [row(path, method, False, plane)

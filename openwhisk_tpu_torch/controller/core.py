@@ -5,10 +5,12 @@ core/controller/.../controller/Controller.scala:74-166) for one controller:
 it boots the HTTP service, resolves the load balancer, entitlement,
 authentication and stores, and exposes /invokers and /metrics. Rule status
 lives on the trigger document exactly as in the reference (Rules.scala).
-The membership join that a clustering balancer triggers, HA failover,
-partitions, spillover, the admission funnel, the host observatory and the
-fleet events are not ported yet: they come with the multi-process
-controller.
+`start` installs the host observatory on the controller's loop (and the
+opt-in GC tuning) and keeps the event log on while an incident recorder is
+armed; `stop` uninstalls the observatory. The membership join that a
+clustering balancer triggers, HA failover, partitions, spillover, the
+admission funnel and the fleet events are not ported yet: they come with
+the multi-process controller.
 """
 from __future__ import annotations
 
@@ -122,6 +124,32 @@ class Controller:
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self, host: str = "127.0.0.1", port: int = 3233) -> None:
+        from ..utils.eventlog import GLOBAL_EVENT_LOG
+        # an armed incident recorder (utils/blackbox.py) forces the event
+        # log on — its structural-distress triggers arrive through it
+        from ..utils.blackbox import GLOBAL_INCIDENTS
+        incidents_armed = GLOBAL_INCIDENTS.stats()["installed"]
+        if incidents_armed:
+            GLOBAL_EVENT_LOG.enabled = True
+        # host hot-loop observatory (utils/hostprof.py): event-loop lag,
+        # GC pauses, task churn/serde accounting and the sampling profiler
+        # arm on THIS controller's loop; the renderer joins this
+        # controller's /metrics page. install() is a refused no-op when
+        # CONFIG_whisk_hostProfiling_enabled=false or another controller
+        # in this process already owns the observatory.
+        from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY, tune_gc
+        self._host_observatory_owner = GLOBAL_HOST_OBSERVATORY.install(
+            metrics=self.metrics)
+        # opt-in GC tuning (CONFIG_whisk_host_gc_enabled): freeze the
+        # boot-time permanent heap out of the collector and raise the
+        # thresholds — full gen-2 scans were measured at 100-250 ms event
+        # loop stalls under load (utils/hostprof.py GcTuningConfig)
+        tuned = tune_gc()
+        if tuned is not None:
+            self.logger.info("controller",
+                             f"gc tuned: froze {tuned['frozen']} objects, "
+                             f"thresholds {tuned['thresholds']}",
+                             "Controller")
         self.cache_invalidation.start()
         if hasattr(self.load_balancer, "start"):
             await self.load_balancer.start()
@@ -140,6 +168,10 @@ class Controller:
                          "Controller")
 
     async def stop(self) -> None:
+        if getattr(self, "_host_observatory_owner", False):
+            from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY
+            GLOBAL_HOST_OBSERVATORY.uninstall()
+            self._host_observatory_owner = False
         if self._runner:
             await self._runner.cleanup()
         for resource in self.owned_resources:

@@ -20,13 +20,17 @@ CommonLoadBalancer.scala), with the parts the TPU balancer's front needs:
     unhealthy invoker (ref InvokerSupervision.scala:239-252), and the
     front-door `PublishCoalescer` that hands one event-loop sweep of
     publishes to `publish_many` as one batch.
+  - the dispatch producer behind the coalescing wrapper
+    (`maybe_coalesce`), columnar ack batch frames through the batched
+    completion pass (`BatchedAckConfig`), and the host planes the JAX
+    package turns on by default: the placement flight recorder, the
+    tail-sampled trace store and the incident recorder's arming (off by
+    default), beside the process-wide latency waterfall.
 
-Of the JAX package's observability planes only the process-wide latency
-waterfall is here (its stamps and folds, and its families on /metrics);
-the flight recorder, telemetry, profiler, anomaly, quality, trace store and
-incident planes and the HA / partition fencing are not: none of them
-changes a decision. Events are counted in `counters`, rendered on the
-metric emitter's page as `openwhisk_loadbalancer_<event>` counters.
+The telemetry, profiler, anomaly and quality planes and the HA / partition
+fencing are not here: none of them changes a decision. Events are counted
+in `counters`, rendered on the metric emitter's page as
+`openwhisk_loadbalancer_<event>` counters.
 """
 from __future__ import annotations
 
@@ -38,13 +42,19 @@ from typing import Dict, List, Optional, Union
 
 from ...core.entity import (ActivationId, ExecutableWhiskAction, Identity,
                             InvokerInstanceId, WhiskAction, WhiskActivation)
-from ...messaging.connector import MessageFeed, decode_message
+from ...messaging.connector import MessageFeed, decode_batch, decode_message
+from ...messaging.columnar import is_batch_payload
 from ...messaging.message import (AcknowledgementMessage, ActivationMessage,
                                   parse_ack)
+from ...utils.config import load_config
 from ...utils.logging import MetricEmitter
+from ...utils.blackbox import GLOBAL_INCIDENTS
+from ...utils.tracestore import GLOBAL_TRACE_STORE
+from ...utils.tracing import trace_id_of
 from ...utils.transaction import TransactionId
 from ...utils.waterfall import (GLOBAL_WATERFALL, STAGE_COMPLETION_ACK,
                                 ActivationWaterfall)
+from .flight_recorder import BatchRecord, FlightRecorder
 
 # invoker states (ref InvokerState in InvokerSupervision.scala)
 HEALTHY = "up"
@@ -57,6 +67,19 @@ OFFLINE = "down"
 class InvokerHealth:
     id: InvokerInstanceId
     status: str = HEALTHY
+
+
+@dataclass(frozen=True)
+class BatchedAckConfig:
+    """`CONFIG_whisk_loadBalancer_batchedAck_*` env overrides: the
+    batch-shaped completion pipeline's off switch. Off = every ack in a
+    batch wire frame replays through the serial per-ack path —
+    bit-exact with processing N independent frames."""
+    enabled: bool = True
+
+    @classmethod
+    def from_env(cls) -> "BatchedAckConfig":
+        return load_config(cls, env_path="load_balancer.batched_ack")
 
 
 class LoadBalancerException(Exception):
@@ -84,6 +107,8 @@ class ActivationEntry:
     action_key: str
     is_blackbox: bool
     is_blocking: bool
+    #: monotonic stamp at setup — the trace store's e2e latency base
+    t_start: float = 0.0
     #: the waterfall plane's stage vector ([t0_ns, trace_id, s_0..s_N]);
     #: None when the plane is off or the activation entered through a path
     #: that never opened a context
@@ -96,35 +121,6 @@ class ActivationEntry:
     #: acquire returned, so its release lands on exactly that slot even if
     #: the action's key->slot mapping migrates while it is in flight
     conc_slot: Optional[int] = None
-
-
-def occupancy_json(kernel: Optional[str], rows) -> dict:
-    """The occupancy payload from per-invoker (name, healthy, capacity_mb,
-    free_mb, used_mb) tuples — the JAX package's documented shape. `used`
-    may exceed `cap` (forced over-commit): the ratio then exceeds 1."""
-    invokers = []
-    cap_total = used_total = 0
-    for name, healthy, cap, free, used in rows:
-        invokers.append({
-            "invoker": name,
-            "healthy": bool(healthy),
-            "capacity_mb": cap,
-            "free_mb": free,
-            "used_mb": used,
-            "occupancy": round(used / cap, 4) if cap else 0.0,
-        })
-        cap_total += cap
-        used_total += used
-    return {
-        "kernel": kernel,
-        "invokers": invokers,
-        "fleet": {
-            "capacity_mb": cap_total,
-            "used_mb": used_total,
-            "occupancy": (round(used_total / cap_total, 4)
-                          if cap_total else 0.0),
-        },
-    }
 
 
 class LoadBalancer:
@@ -167,6 +163,7 @@ class LoadBalancer:
     def occupancy(self) -> dict:
         """Per-invoker memory in use against capacity from the balancer's
         books. Balancers without capacity books answer an empty fleet."""
+        from .flight_recorder import occupancy_json
         return occupancy_json(None, [])
 
     async def close(self) -> None:
@@ -180,13 +177,24 @@ class CommonLoadBalancer(LoadBalancer):
 
     def __init__(self, messaging_provider, controller_instance, logger=None,
                  metrics: Optional[MetricEmitter] = None,
+                 flight_recorder: Optional[FlightRecorder] = None,
                  waterfall: Optional[ActivationWaterfall] = None):
         self.provider = messaging_provider
         self.controller = controller_instance
         self.logger = logger
         self.metrics = metrics or MetricEmitter()
-        #: the raw bus producer: one send per dispatch
-        self.producer = messaging_provider.get_producer()
+        # the dispatch fan-out producer rides the coalescing wrapper
+        # (messaging/coalesce.py): one readback wave's N invoker sends ship
+        # as micro-batches (one frame + one ack on the TCP bus) instead of
+        # N serialized round trips. CONFIG_whisk_bus_coalesce_enabled=false
+        # restores the raw serial producer bit-exactly.
+        from ...messaging.coalesce import maybe_coalesce
+        self.producer = maybe_coalesce(messaging_provider.get_producer())
+        #: batch-shaped completion pipeline: a batch wire ack
+        #: frame is processed in ONE pass (entries, telemetry, waterfall
+        #: folds) instead of N per-ack callback hops. False replays each
+        #: decoded ack through the serial path — bit-exact.
+        self.batched_ack = BatchedAckConfig.from_env().enabled
         self.activation_slots: Dict[str, ActivationEntry] = {}
         self.activations_per_namespace: Dict[str, int] = {}
         self._total = 0
@@ -197,6 +205,11 @@ class CommonLoadBalancer(LoadBalancer):
         #: event counts (the JAX package's `loadbalancer_*` counters)
         self.counters: Counter = Counter()
         self.metrics.register_renderer(self._counters_exposition)
+        # the shared introspection plane: every balancer — TPU or CPU —
+        # reports placement decisions through this recorder, so the
+        # /admin/placement/* endpoints are backend-agnostic
+        self.flight_recorder = (flight_recorder if flight_recorder is not None
+                                else FlightRecorder.from_config())
         # the latency-waterfall plane, process-wide: its stages span layers
         # that never see a balancer (API handler, entitlement, invoker,
         # container pool, record batcher); this hook stamps the completion
@@ -204,6 +217,33 @@ class CommonLoadBalancer(LoadBalancer):
         self.waterfall = (waterfall if waterfall is not None
                           else GLOBAL_WATERFALL)
         self.metrics.register_renderer(self._waterfall_exposition)
+        # the tail-sampled trace observatory (same hook pattern,
+        # PROCESS-WIDE like the waterfall: spans report from layers that
+        # never see a balancer — this hook attaches the reporter tee,
+        # wires the completion verdict's live threshold + placement join,
+        # and owns the trace_kept/dropped exposition). Disabled config
+        # means NOTHING here runs: no tee, no renderer, no attribute but
+        # the store reference itself.
+        self.trace_store = GLOBAL_TRACE_STORE
+        self._trace_renderer = None
+        if self.trace_store.enabled:
+            self.trace_store.attach()
+            wf_threshold = getattr(self.waterfall, "tail_threshold_ms", None)
+            if wf_threshold is not None:
+                self.trace_store.threshold_source = wf_threshold
+            self.trace_store.placement_lookup = self._trace_placement_lookup
+            self._trace_renderer = self.trace_store.prometheus_text
+            self.metrics.register_renderer(self._trace_renderer)
+        # the incident forensics observatory (process-global
+        # like the host observatory, default OFF): alert-triggered
+        # black-box bundles joining every plane above. install() is a
+        # refused no-op when disabled or already owned — first balancer
+        # in a shared test process wins, and only the owner detaches.
+        self.incidents = GLOBAL_INCIDENTS
+        self._incidents_renderer = None
+        if self.incidents.install(balancer=self, owner=self):
+            self._incidents_renderer = self.incidents.prometheus_text
+            self.metrics.register_renderer(self._incidents_renderer)
 
     def _counters_exposition(self) -> str:
         return "\n".join(
@@ -307,6 +347,7 @@ class CommonLoadBalancer(LoadBalancer):
             action_key=f"{action.fully_qualified_name}@{action.rev.rev or ''}",
             is_blackbox=action.exec_metadata().is_blackbox,
             is_blocking=msg.blocking,
+            t_start=time.monotonic(),
             stages=self.waterfall.ctx_of(msg.activation_id.asString),
             promise=promise,
         )
@@ -344,7 +385,10 @@ class CommonLoadBalancer(LoadBalancer):
 
         async def handle(payload: bytes):
             try:
-                self.process_acknowledgement(payload)
+                if is_batch_payload(payload):
+                    self.process_acknowledgement_frame(payload)
+                else:
+                    self.process_acknowledgement(payload)
             finally:
                 feed_box["feed"].processed()
 
@@ -355,7 +399,11 @@ class CommonLoadBalancer(LoadBalancer):
 
     def process_acknowledgement(self, raw: bytes) -> None:
         try:
-            ack: AcknowledgementMessage = decode_message(parse_ack, raw)
+            # decode_message: the ack parse is the completion fan-in's
+            # per-activation JSON cost — the host observatory counts its
+            # bytes + wall time under {hop="completion_ack",deserialize}
+            ack: AcknowledgementMessage = decode_message(
+                parse_ack, raw, "completion_ack")
         except (ValueError, KeyError) as e:
             if self.logger:
                 self.logger.error(TransactionId.LOADBALANCER,
@@ -373,34 +421,82 @@ class CommonLoadBalancer(LoadBalancer):
                                     is_system_error=ack.is_system_error,
                                     invoker=ack.invoker)
 
+    def process_acknowledgement_frame(self, raw: bytes) -> None:
+        """A columnar ack batch frame off the completion feed: ONE decode
+        for the whole frame, then the batched one-pass completion path
+        (or, with `batched_ack` off, a serial replay of each ack —
+        bit-exact with N independent frames)."""
+        try:
+            _kind, acks = decode_batch(raw)
+        except (ValueError, KeyError, IndexError, TypeError,
+                AssertionError) as e:
+            if self.logger:
+                self.logger.error(TransactionId.LOADBALANCER,
+                                  f"corrupt completion ack batch: {e!r}")
+            return
+        if self.batched_ack:
+            self.process_acknowledgements(acks)
+        else:
+            for ack in acks:
+                try:
+                    self._process_ack(ack)
+                except Exception as e:  # noqa: BLE001 — per-ack isolation:
+                    # serial frames isolated failures per feed hand-off;
+                    # one ack's failure must not strand its frame-mates
+                    if self.logger:
+                        self.logger.error(TransactionId.LOADBALANCER,
+                                          f"ack processing failed: {e!r}")
+
     def process_acknowledgements(self, acks: List[AcknowledgementMessage]
                                  ) -> None:
         """The batch-shaped completion pipeline: N decoded acks in ONE
         pass — each ack's result resolves first, then its slot release
-        updates the entry books directly, and the regular-ack counter moves
-        once with the batch count. Decision-for-decision identical to
-        `process_completion`; acks off the wire are never `forced` (only
-        the timeout timer forces). One ack's failure does not strand the
-        rest."""
+        updates the entry books directly, the completion_ack stamps share
+        one clock, the waterfall folds under one lock (finish_many) and the
+        regular-ack counter moves once with the batch count. Decision-for-
+        decision identical to `process_completion`; acks off the wire are
+        never `forced` (only the timeout timer forces). One ack's failure
+        does not strand the rest."""
         wf = self.waterfall
         now_ns = time.monotonic_ns() if wf.enabled else 0
+        now_mono = time.monotonic()
         finish_aids: List[str] = []
+        # (aid, trace_id, e2e_ms, is_error) per released slot, consumed by
+        # the trace store's completion verdict after the waterfall fold
+        # hands back the computed rows. None = plane off: the
+        # whole leg is one attribute check.
+        trace_done: Optional[List[tuple]] = \
+            [] if self.trace_store.enabled else None
         regular = 0
         for ack in acks:
             try:
-                regular += self._process_ack_batched(ack, now_ns, wf,
-                                                     finish_aids)
+                regular += self._process_ack_batched(
+                    ack, now_ns, now_mono, wf, finish_aids, trace_done)
             except Exception as e:  # noqa: BLE001 — per-ack isolation
                 if self.logger:
                     self.logger.error(TransactionId.LOADBALANCER,
                                       f"batched ack failed: {e!r}")
         self.counters["completion_ack_regular"] += regular
         if finish_aids:
-            wf.finish_many(finish_aids)
+            if trace_done is not None:
+                rows: List[dict] = []
+                wf.finish_many(finish_aids, rows_out=rows)
+                rowmap = {r["activation_id"]: r for r in rows}
+            else:
+                wf.finish_many(finish_aids)
+        elif trace_done is not None:
+            rowmap = {}
+        if trace_done:
+            store = self.trace_store
+            for aid_s, tid, e2e_ms, err in trace_done:
+                store.complete(aid_s, tid, e2e_ms, error=err,
+                               row=rowmap.get(aid_s))
 
     def _process_ack_batched(self, ack: AcknowledgementMessage, now_ns: int,
-                             wf: ActivationWaterfall,
-                             finish_aids: List[str]) -> int:
+                             now_mono: float, wf: ActivationWaterfall,
+                             finish_aids: List[str],
+                             trace_done: Optional[List[tuple]] = None
+                             ) -> int:
         """One ack's share of the batched pass; returns 1 when it released
         a tracked (regular) slot, 0 otherwise."""
         if ack.activation is not None:
@@ -429,6 +525,17 @@ class CommonLoadBalancer(LoadBalancer):
         if wf.enabled:
             self._stamp_completion(entry, aid.asString, now_ns)
             finish_aids.append(aid.asString)
+        if trace_done is not None:
+            # the verdict inputs are all already in hand — trace id off
+            # the ack (the invoker's active-ack rider), e2e off the
+            # pass's clock read: no new clock, no I/O
+            tc = getattr(ack, "trace_context", None)
+            trace_done.append((
+                aid.asString,
+                trace_id_of(tc) if tc else None,
+                ((now_mono - entry.t_start) * 1e3
+                 if entry.t_start > 0.0 else None),
+                bool(ack.is_system_error)))
         self.on_invocation_finished(ack.invoker or entry.invoker,
                                     is_system_error=ack.is_system_error,
                                     forced=False)
@@ -462,9 +569,20 @@ class CommonLoadBalancer(LoadBalancer):
             # stage — stamp it and fold the activation's stage vector
             # (forced timeouts fold too: their partial vectors are the
             # tail evidence)
+            row = None
             if self.waterfall.enabled:
                 self._stamp_completion(entry, aid.asString)
-                self.waterfall.finish(aid.asString)
+                row = self.waterfall.finish(aid.asString)
+            if self.trace_store.enabled:
+                # serial-path verdict: forced completions are
+                # the controller-side timeout — exactly the traces tail
+                # sampling exists to keep
+                e2e_ms = ((time.monotonic() - entry.t_start) * 1e3
+                          if entry.t_start > 0.0 else None)
+                self.trace_store.complete(
+                    aid.asString,
+                    row.get("trace_id") if row else None,
+                    e2e_ms, error=is_system_error, timeout=forced, row=row)
             self.on_invocation_finished(invoker or entry.invoker,
                                         is_system_error=is_system_error,
                                         forced=forced)
@@ -490,6 +608,56 @@ class CommonLoadBalancer(LoadBalancer):
         else:
             self.waterfall.stamp(aid, STAGE_COMPLETION_ACK, now_ns)
 
+    # -- flight recorder (single-decision hook for CPU balancers) ----------
+    def record_placement(self, msg: ActivationMessage,
+                         action: Union[WhiskAction, ExecutableWhiskAction],
+                         chosen: int, invoker: Optional[InvokerInstanceId],
+                         forced: bool = False, throttled: bool = False,
+                         digest: Optional[dict] = None) -> None:
+        """Record one placement decision as a one-row batch record (the TPU
+        balancer records whole micro-batches itself). CPU balancers carry a
+        `kernel: "cpu"` digest; callers may add backend detail."""
+        fr = self.flight_recorder
+        if not fr.enabled:
+            return
+        d = {"kernel": "cpu", "queue_depth": 0, "oldest_age_ms": 0.0}
+        tid = trace_id_of(getattr(msg, "trace_context", None))
+        if tid is not None:
+            # the row carries its trace: exemplar plumbing links the phase
+            # histogram's bucket lines back to this trace on OpenMetrics
+            # scrapes
+            d["trace_id"] = tid
+        if digest:
+            d.update(digest)
+        rec = BatchRecord(digest=d, decisions=[(
+            msg.activation_id.asString, str(action.fully_qualified_name),
+            chosen, invoker.as_string if invoker is not None else None,
+            bool(forced), bool(throttled),
+            action.limits.memory.megabytes)])
+        fr.record(rec)
+        self.metrics.gauge("loadbalancer_healthy_invokers",
+                           d.get("healthy_invokers", 0))
+        self.metrics.gauge("loadbalancer_flight_recorder_dropped", fr.dropped)
+
+    def _trace_placement_lookup(self, activation_id: str) -> Optional[dict]:
+        """The trace store's keep-time join: the flight
+        recorder's placement batch for a KEPT activation — the same shape
+        the latency-waterfall slowest-row join ships, plus the quality
+        digest. Called only on the keep path, never per completion."""
+        found = self.flight_recorder.explain(activation_id)
+        if found is None:
+            return None
+        batch = found["batch"]
+        return {
+            "seq": batch["seq"],
+            "kernel": batch["digest"].get("kernel"),
+            "queue_depth": batch["digest"].get("queue_depth"),
+            "trace_id": batch["digest"].get("trace_id"),
+            "timings": batch.get("timings", {}),
+            "quality": batch["digest"].get("quality"),
+            "decision": found.get("decision"),
+        }
+
     # -- subclass hooks ----------------------------------------------------
     def release_invoker(self, invoker: InvokerInstanceId, entry: ActivationEntry) -> None:
         """Return the capacity slot taken for this activation."""
@@ -501,6 +669,8 @@ class CommonLoadBalancer(LoadBalancer):
     async def close(self) -> None:
         if self._ack_feed:
             await self._ack_feed.stop()
+        # flush any coalescing window still holding queued sends, then
+        # release the producer's transport
         await self.producer.close()
         for entry in list(self.activation_slots.values()):
             if entry.timeout_task:
@@ -510,6 +680,11 @@ class CommonLoadBalancer(LoadBalancer):
         # contributing families once closed
         self.metrics.unregister_renderer(self._counters_exposition)
         self.metrics.unregister_renderer(self._waterfall_exposition)
+        if self._trace_renderer is not None:
+            self.metrics.unregister_renderer(self._trace_renderer)
+        if self._incidents_renderer is not None:
+            self.metrics.unregister_renderer(self._incidents_renderer)
+        self.incidents.uninstall(owner=self)
 
 
 def _bridge_publish_future(row: asyncio.Future, waiter: asyncio.Future) -> None:

@@ -1,7 +1,7 @@
 """Invoker supervision: the health protocol.
 
 A copy of `openwhisk_tpu/controller/loadbalancer/supervision.py` without
-its observability hooks (rebuild of
+its anomaly hints and fleet-observatory addresses (rebuild of
 core/controller/.../loadBalancer/InvokerSupervision.scala):
   - invokers ping the `health` topic at 1 Hz (InvokerReactive.scala:337-342);
   - one FSM per invoker with states Healthy('up') / Unhealthy / Unresponsive
@@ -70,10 +70,15 @@ class InvokerPool:
                  on_status_change: Optional[Callable] = None,
                  logger=None, ping_timeout: float = PING_TIMEOUT_S,
                  group: str = "health",
-                 send_test_action: Optional[Callable] = None):
+                 send_test_action: Optional[Callable] = None,
+                 on_tick: Optional[Callable] = None):
         self.provider = messaging_provider
         self.on_status_change = on_status_change or (lambda inv, status: None)
         self.send_test_action = send_test_action
+        #: optional 1 Hz callback riding the watchdog — the balancer hangs
+        #: its bus gauge refresh here so dashboards stay fresh without a
+        #: scheduler of their own
+        self.on_tick = on_tick
         self.logger = logger
         self.ping_timeout = ping_timeout
         self.group = group
@@ -143,6 +148,11 @@ class InvokerPool:
         for st in self.invokers.values():
             if st.status != OFFLINE and now - st.last_ping > self.ping_timeout:
                 self._transition(st, OFFLINE)
+        if self.on_tick is not None:
+            try:
+                self.on_tick()
+            except Exception:  # noqa: BLE001 — a gauge refresh must never
+                pass           # kill the health watchdog
 
     def _maybe_recover(self, st: InvokerActorState) -> None:
         now = time.monotonic()

@@ -20,6 +20,12 @@ in two parts that share one device half:
                                      │ (readback on a worker thread)
              assignments ──> ActivationMessage dispatch over the bus
 
+The host planes ride the same loop as the JAX package's: dispatches go out
+through the coalescing producer without a task a row (`_row_placed`'s
+`send_nowait`), each step's input digest and decisions file into the
+flight recorder, the device dispatch sits inside the host observatory's
+GC bracket, and the trace store gets each batch's `device_dispatch` span.
+
 The device half: each step packs releases, health flips and requests into
 ONE int32 host buffer, copies it to the device once, runs ONE fused step
 and copies the B+1 decision vector back once. On the card (`device=None`
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from ...core.entity import ExecutableWhiskAction, InvokerInstanceId
+from ...messaging.coalesce import export_coalesce_gauges
 from ...messaging.message import ActivationMessage
 from ...models.sharding_policy import (MIN_SLOT_MB, generate_hash,
                                        pairwise_coprimes)
@@ -54,10 +61,12 @@ from ...ops.placement_cuda import (schedule_batch_cuda,
                                    schedule_batch_repair_cuda,
                                    to_transposed)
 from ...ops.throttle import init_buckets
+from ...utils.hostprof import GLOBAL_HOST_OBSERVATORY
 from ...utils.ring_buffer import ColumnRing
+from ...utils.tracing import trace_id_of
 from .base import (HEALTHY, CommonLoadBalancer, InvokerHealth,
-                   LoadBalancerException, LoadBalancerThrottleException,
-                   occupancy_json)
+                   LoadBalancerException, LoadBalancerThrottleException)
+from .flight_recorder import BatchRecord, free_slot_histogram, occupancy_json
 from .supervision import InvokerPool
 
 #: batch-bucket width from which placement_kernel="auto" swaps the scan
@@ -563,9 +572,10 @@ class TpuBalancer(CommonLoadBalancer):
         self.state: Optional[PlacementState] = None
         self._init_device_state()
 
-        # request queue: (req, placement future, slot key) per row, its int
-        # columns mirrored in a ring; releases: (slot key, slot) per row,
-        # columns in a ring
+        # request queue: (req, placement future, slot key, enqueue time,
+        # activation id, action, trace id) per row — the trailing fields
+        # feed the flight recorder — its int columns mirrored in a ring;
+        # releases: (slot key, slot) per row, columns in a ring
         self._pending: List[tuple] = []
         self._req_ring = ColumnRing(10, max_batch * 4)
         self._releases: deque = deque()
@@ -588,7 +598,8 @@ class TpuBalancer(CommonLoadBalancer):
         # a per-controller group: every controller sees every ping
         self.supervision = InvokerPool(
             messaging_provider, on_status_change=self._status_change,
-            logger=logger, group=f"health-{controller_instance.as_string}")
+            logger=logger, group=f"health-{controller_instance.as_string}",
+            on_tick=self._telemetry_tick)
 
     # -- device state ------------------------------------------------------
     def _slot_mb(self, user_memory_mb: int) -> int:
@@ -739,6 +750,11 @@ class TpuBalancer(CommonLoadBalancer):
             steps = self._coprimes[x] = pairwise_coprimes(x)
         return steps
 
+    def _telemetry_tick(self) -> None:
+        # bus-client health rides the supervision's 1 Hz cadence:
+        # coalescing batch sizes (messaging/coalesce.py)
+        export_coalesce_gauges(self.metrics)
+
     def update_cluster(self, cluster_size: int) -> None:
         """Controller joined/left: re-shard every invoker's memory (ref
         updateCluster :561-584); the books restart at full capacity."""
@@ -768,7 +784,7 @@ class TpuBalancer(CommonLoadBalancer):
         # fail queued publishers instead of leaving them awaiting forever
         pending, self._pending = self._pending, []
         self._req_ring.clear()
-        for req, fut, slot_key in pending:
+        for req, fut, slot_key, *_ in pending:
             self._slots.release(slot_key, req[self.R_CONC_SLOT])
             if not fut.done():
                 fut.set_exception(LoadBalancerException("load balancer shut down"))
@@ -807,10 +823,10 @@ class TpuBalancer(CommonLoadBalancer):
     def _build_row(self, action: ExecutableWhiskAction,
                    msg: ActivationMessage) -> tuple:
         """One request row in packed-matrix order (10 fields: the 9 of the
-        schedule plus the rate-admission namespace slot), shared by the
-        serial and batched paths; everything stateful (_rand_counter, the
-        slot allocator, slot-axis growth) mutates in exactly the serial
-        order."""
+        schedule plus the rate-admission namespace slot) with its slot key
+        and action name, shared by the serial and batched paths;
+        everything stateful (_rand_counter, the slot allocator, slot-axis
+        growth) mutates in exactly the serial order."""
         self._refresh_partitions()
         n = len(self._registry)
         blackbox = action.exec_metadata().is_blackbox
@@ -842,7 +858,7 @@ class TpuBalancer(CommonLoadBalancer):
                self._slots.acquire(slot_key), maxc,
                (h ^ (self._rand_counter * 2654435761)) % max(size, 1), 1,
                ns_slot)
-        return req, slot_key
+        return req, slot_key, fqn_str
 
     def _eager(self) -> bool:
         """Dispatch an idle balancer's queue now: nothing in flight, a fast
@@ -856,11 +872,19 @@ class TpuBalancer(CommonLoadBalancer):
         err = self._standby_error()
         if err is not None:
             raise err
-        req, slot_key = self._build_row(action, msg)
+        req, slot_key, fqn_str = self._build_row(action, msg)
         fut: asyncio.Future = asyncio.get_event_loop().create_future()
-        self._note_arrival(time.monotonic())
+        # trailing fields feed the flight recorder: enqueue time (queue-age
+        # digest), the activation/action ids for the decision row, and the
+        # trace id (exemplar plumbing on OpenMetrics scrapes)
+        aid_str = msg.activation_id.asString
+        t_now = time.monotonic()
+        self._note_arrival(t_now)
+        entry = (req, fut, slot_key, t_now,
+                 aid_str, fqn_str,
+                 trace_id_of(msg.trace_context))
         self._req_ring.push(req)
-        self._pending.append((req, fut, slot_key))
+        self._pending.append(entry)
         # inline fast path: with free pipeline capacity, dispatch NOW when
         # the batch is full or the idle device is fast (the dispatch body
         # has no awaits); otherwise arm the flush window
@@ -928,21 +952,25 @@ class TpuBalancer(CommonLoadBalancer):
         built: List[tuple] = []
         for (action, msg), out in zip(pairs, outs):
             try:
-                req, slot_key = self._build_row(action, msg)
+                req, slot_key, fqn_str = self._build_row(action, msg)
             except Exception as e:  # noqa: BLE001 — per-row isolation,
                 # like N independent publish calls
                 out.set_exception(e)
                 continue
             built.append((req, loop.create_future(), slot_key, msg, action,
-                          out))
+                          out, fqn_str))
         if not built:
             return outs
         # the serial path notes an arrival only after a successful row
         # build, so the shared clock read counts built rows
-        self._note_arrivals(time.monotonic(), len(built))
+        t_now = time.monotonic()
+        self._note_arrivals(t_now, len(built))
         self._req_ring.push_block(
             np.asarray([b[0] for b in built], np.int32).T)
-        self._pending.extend(b[:3] for b in built)
+        for req, fut, slot_key, msg, _action, _out, fqn_str in built:
+            self._pending.append((req, fut, slot_key, t_now,
+                                  msg.activation_id.asString, fqn_str,
+                                  trace_id_of(msg.trace_context)))
         # ONE shared flush decision: drain full buckets inline, then apply
         # the serial eager/window rule once
         while (len(self._pending) >= self.max_batch
@@ -950,7 +978,7 @@ class TpuBalancer(CommonLoadBalancer):
             pass
         if self._pending and not (self._eager() and self._try_flush_now()):
             self._arm_flush(urgent=len(self._pending) >= self.max_batch)
-        for req, fut, slot_key, msg, action, out in built:
+        for req, fut, slot_key, msg, action, out, _fqn in built:
             # a caller that goes away cancels its row: the readback fan-out
             # reads that as an abandoned publisher and returns the capacity
             out.add_done_callback(
@@ -965,9 +993,12 @@ class TpuBalancer(CommonLoadBalancer):
     def _row_placed(self, fut: asyncio.Future, req: tuple, slot_key: str,
                     msg, action, out: asyncio.Future) -> None:
         """One batched row's continuation (a done-callback on its placement
-        future): the serial publish's post-placement body, then the send
-        on a task of its own (the raw producer has no task-free submit)
-        whose outcome resolves `out`."""
+        future): the serial publish's post-placement body, then the
+        dispatch send handed to the bus coalescer WITHOUT awaiting (its
+        flush future resolves `out`, so send failures still surface exactly
+        like the serial path's raised send errors). All rows of a readback
+        wave run their callbacks in one sweep, so their sends coalesce into
+        the same bus frames the serial path's fan-out produced."""
         try:
             if fut.cancelled():
                 return  # abandoned: the fan-out returned the capacity
@@ -985,10 +1016,54 @@ class TpuBalancer(CommonLoadBalancer):
                 return
             invoker, promise = self._map_placement(inv_idx, forced, req,
                                                    slot_key, msg, action)
-            task = asyncio.get_event_loop().create_task(
-                self._send_then_resolve(invoker, msg, out, promise))
-            self._publish_finishers.add(task)
-            task.add_done_callback(self._publish_finishers.discard)
+            send_nowait = getattr(self.producer, "send_nowait", None)
+            if send_nowait is not None:
+                # fence stamping + published counter shared with the
+                # serial send (prepare_dispatch), so the two paths
+                # cannot drift. Note this task-free submit is the one
+                # dispatch that does NOT flow through the
+                # send_activation_to_invoker hook — minting a coroutine
+                # per row to honor it would be the exact per-activation
+                # floor this path removes.
+                topic = self.prepare_dispatch(msg, invoker)
+                sendf = send_nowait(topic, msg)
+
+                def _sent(sf: asyncio.Future) -> None:
+                    # retrieve the flush outcome UNCONDITIONALLY (before
+                    # any early-return): a caller gone by cancellation
+                    # must not leave an unretrieved flush exception
+                    # spamming the loop's GC-time logger
+                    send_exc = (None if sf.cancelled()
+                                else sf.exception())
+                    if out.done():
+                        return
+                    if sf.cancelled():
+                        # the coalescer's drainer was cancelled with the
+                        # dispatch still queued (loop teardown): serial
+                        # parity is the awaited send RAISING
+                        # CancelledError to the caller — never success
+                        # for an unsent dispatch
+                        out.cancel()
+                        return
+                    if send_exc is not None:
+                        # serial parity: the entry stays; the forced
+                        # timeout self-heals the held capacity
+                        out.set_exception(send_exc)
+                    else:
+                        out.set_result(promise)
+
+                sendf.add_done_callback(_sent)
+            else:
+                # raw (non-coalescing) producer: no task-free submit —
+                # one send task per row, the serial cost (this is the
+                # coalescing-off configuration, not the hot path). The
+                # task awaits send_activation_to_invoker (which runs
+                # prepare_dispatch itself), so the documented dispatch
+                # hook keeps covering this path for subclasses/tests.
+                task = asyncio.get_event_loop().create_task(
+                    self._send_then_resolve(invoker, msg, out, promise))
+                self._publish_finishers.add(task)
+                task.add_done_callback(self._publish_finishers.discard)
         except Exception as e:  # noqa: BLE001 — a raising done-callback
             # would strand the caller: fail the row instead
             if not out.done():
@@ -1218,11 +1293,31 @@ class TpuBalancer(CommonLoadBalancer):
         # the columns were written at publish time; without rate admission
         # the ring's ns_slot row is dropped
         self._req_ring.pop_into(req_np, b)
+        # flight-recorder input digest, captured host-side before the step
+        # (batch is FIFO: batch[0] carries the oldest enqueue time)
+        rec = None
+        if self.flight_recorder.enabled:
+            rec = BatchRecord(digest={
+                "kernel": self.placement_kernel_resolved,
+                "healthy_invokers": sum(self._healthy),
+                "queue_depth": b + len(self._pending),
+                "oldest_age_ms": round((t0 - batch[0][3]) * 1e3, 3),
+            })
+            tid = next((e[6] for e in batch if e[6]), None)
+            if tid is not None:
+                # the record carries a trace: the phase histogram's bucket
+                # line gets an exemplar pointing at it (OpenMetrics only)
+                rec.digest["trace_id"] = tid
         rel_np = self._release_packed(pad_to=bp)
         health_np = pack_health(self._health_updates, self.HEALTH_BATCH)
         buf = np.concatenate([rel_np.ravel(), health_np.ravel(),
                               req_np.ravel()])
+        t_assembled = time.monotonic()
         r, h = rel_np.shape[1], health_np.shape[1]
+        # host-observatory bracket: a GC pause landing inside this window
+        # stalls the device dispatch — counting it here turns a mysterious
+        # dispatch-stage outlier in the waterfall into an attributed cause
+        GLOBAL_HOST_OBSERVATORY.begin_dispatch()
         try:
             dbuf = self._to_device(buf)
             if rate_on:
@@ -1237,7 +1332,7 @@ class TpuBalancer(CommonLoadBalancer):
             self._set_inflight(-1)
             self._capacity_free.set()
             self._recover_failed_step()
-            for req, fut, slot_key in batch:
+            for req, fut, slot_key, *_ in batch:
                 self._slots.release(slot_key, req[self.R_CONC_SLOT])
                 if not fut.done():
                     fut.set_exception(
@@ -1246,10 +1341,17 @@ class TpuBalancer(CommonLoadBalancer):
                 self.logger.error(None, f"device dispatch failed: {e!r}",
                                   "TpuBalancer")
             return
+        finally:
+            GLOBAL_HOST_OBSERVATORY.end_dispatch()
+        t_dispatched = time.monotonic()
+        if rec is not None:
+            rec.timings["assembly_ms"] = round((t_assembled - t0) * 1e3, 3)
+            rec.timings["dispatch_ms"] = round(
+                (t_dispatched - t_assembled) * 1e3, 3)
         self.counters["steps"] += 1
         task = asyncio.get_event_loop().create_task(
             self._readback_step(batch, b, out, rb, t0, req_np,
-                                self._next_books_seq()))
+                                self._next_books_seq(), rec))
         self._readbacks.add(task)
         task.add_done_callback(self._readbacks.discard)
 
@@ -1268,14 +1370,26 @@ class TpuBalancer(CommonLoadBalancer):
         task.add_done_callback(self._readbacks.discard)
 
     async def _readback_step(self, batch, b, out, rb: _Readback, t0,
-                             req_np, books_seq: int) -> None:
+                             req_np, books_seq: int, rec=None) -> None:
         def _read():
             t_r0 = time.monotonic()
             arrs, books_np = self._read_back(rb)
             t_r1 = time.monotonic()
+            rb_ms = (t_r1 - t_r0) * 1e3
             # benign cross-thread write: a float EWMA steering a heuristic
-            self._rtt_ewma_ms = (0.8 * self._rtt_ewma_ms
-                                 + 0.2 * (t_r1 - t_r0) * 1e3)
+            self._rtt_ewma_ms = 0.8 * self._rtt_ewma_ms + 0.2 * rb_ms
+            # the digest's fleet view from the POST-step books this
+            # readback already copied: no device read of its own
+            if rec is not None:
+                caps = self._caps_mb
+                n_reg = min(len(caps), len(books_np))
+                cap_total = int(caps[:n_reg].sum())
+                used = cap_total - int(books_np[:n_reg].sum())
+                rec.digest["free_slot_hist"] = free_slot_histogram(
+                    books_np[:n_reg], MIN_SLOT_MB)
+                rec.digest["occupancy"] = (
+                    round(used / cap_total, 4) if cap_total else 0.0)
+                rec.timings["readback_ms"] = round(rb_ms, 3)
             return arrs, t_r1, books_np
 
         try:
@@ -1298,7 +1412,7 @@ class TpuBalancer(CommonLoadBalancer):
                 # to another action with phantom concurrency
                 compensated = False
                 self._recover_failed_step()
-            for req, fut, slot_key in batch:
+            for req, fut, slot_key, *_ in batch:
                 if compensated:
                     self._slots.release(slot_key, req[self.R_CONC_SLOT])
                 if not fut.done():
@@ -1313,12 +1427,16 @@ class TpuBalancer(CommonLoadBalancer):
             return
         self._set_inflight(-1)
         self._capacity_free.set()
-        self.step_ms.append((t_done - t0) * 1e3)
+        dt_ms = (t_done - t0) * 1e3
+        self.step_ms.append(dt_ms)
         self.counters["scheduled"] += b
         if rounds > 0:
             self.counters["repair_steps"] += 1
             self.counters["repair_rounds"] += rounds
-        for (req, fut, slot_key), inv_idx, f, thr in zip(
+            if rec is not None:
+                rec.digest["repair_rounds"] = rounds
+        t_f0 = time.monotonic()
+        for (req, fut, slot_key, *_), inv_idx, f, thr in zip(
                 batch, chosen_np, forced_np, throttled_np):
             if fut.cancelled():
                 # abandoned publisher: nobody will ever ack this activation
@@ -1326,6 +1444,60 @@ class TpuBalancer(CommonLoadBalancer):
                 self._abandon_placement(int(inv_idx), req, slot_key)
             elif not fut.done():
                 fut.set_result((-2 if thr else int(inv_idx), bool(f)))
+        fanout_ms = (time.monotonic() - t_f0) * 1e3
+        if rec is not None:
+            self._record_batch(rec, batch, chosen_np, forced_np, throttled_np,
+                               fanout_ms)
+            # after the record files: the device span's batch_seq tag is
+            # the assigned ring seq (the join key /admin/trace ships)
+            self._trace_batch_hooks(rec, batch, forced_np, dt_ms, b)
+
+    def _trace_batch_hooks(self, rec, batch, forced_np, dt_ms: float,
+                           b: int) -> None:
+        """Trace-observatory riders for one placed micro-batch,
+        all from stamps already taken (rec.ts, dt_ms — no new clock
+        reads): the per-batch `device_dispatch` span under the digest's
+        trace id (the flight-recorder link the assembled tree joins on)
+        and the `forced` mark per force-placed row."""
+        from ...utils.tracestore import GLOBAL_TRACE_STORE, synthetic_span
+        store = GLOBAL_TRACE_STORE
+        if not store.active:
+            return
+        tid = rec.digest.get("trace_id")
+        if tid:
+            store.emit(synthetic_span(
+                tid, "device_dispatch", rec.ts, rec.ts + dt_ms / 1e3,
+                tags={"proc": f"controller{self.controller.name}",
+                      "batch_seq": str(rec.seq),
+                      "kernel": str(rec.digest.get("kernel")),
+                      "batch_size": str(b)}))
+        for e, f in zip(batch, forced_np):
+            if f and e[6]:
+                store.mark(e[6], "forced")
+
+    def _record_batch(self, rec, batch, chosen_np, forced_np, throttled_np,
+                      fanout_ms: float) -> None:
+        """Finish and file the flight-recorder record for one micro-batch,
+        and refresh the introspection gauges."""
+        rec.timings["fanout_ms"] = round(fanout_ms, 3)
+        fr = self.flight_recorder
+        n_reg = len(self._registry)
+        decisions = rec.decisions
+        for (req, fut, slot_key, t_enq, aid, act, _tid, *_), ci, f, thr \
+                in zip(batch, chosen_np, forced_np, throttled_np):
+            ci = int(ci)
+            name = (self._registry[ci].as_string
+                    if 0 <= ci < n_reg else None)
+            decisions.append((aid, act, ci, name, bool(f), bool(thr),
+                              req[self.R_NEED_MB]))
+        fr.record(rec)
+        m = self.metrics
+        d = rec.digest
+        m.gauge("loadbalancer_placement_queue_depth", d["queue_depth"])
+        m.gauge("loadbalancer_placement_batch_age_ms", d["oldest_age_ms"])
+        m.gauge("loadbalancer_healthy_invokers", d["healthy_invokers"])
+        m.gauge("loadbalancer_fleet_occupancy_ratio", d.get("occupancy", 0.0))
+        m.gauge("loadbalancer_flight_recorder_dropped", fr.dropped)
 
 
 class TpuBalancerProvider:

@@ -49,6 +49,21 @@
 //    (csrc/cluster_barrier.cu).
 //  * The request matrix is staged in shared memory, SCAN_CHUNK rows at a
 //    time plus the D rows the prefetch looks ahead.
+//  * Fleets above 2^17 padded invokers (the wide instance): the same
+//    ownership, t + j * C * 1,024 for every j, in three tiers. The first
+//    WIDE_K columns a thread sit in registers with the prefetch ring as
+//    above; the next E keep their free memory in dynamic shared memory
+//    (E as many as the block's 227 KB hold after the request chunk, about
+//    53 at 1,024 threads: some 870k columns over 16 blocks) with their
+//    health bits packed in a 64-bit register mask; the rest are streamed
+//    from global memory (L2) on each probe. Only registers are prefetched:
+//    a shared-memory or streamed column reads its conc cell when it is
+//    probed and again at its commit, and free of a streamed column is
+//    read and written in place. One thread owns each column in every
+//    tier, so its own stores are all the ordering it needs. The padded
+//    fleet is bounded only by int32 indexing (n + 2, the no-key
+//    sentinel, must be an int32); the _mulmod contract bounds the
+//    partition m, not n, and rows past it take the exact division path.
 #include <cooperative_groups.h>
 
 #include "cluster_exchange.cuh"
@@ -57,11 +72,25 @@
 namespace cg = cooperative_groups;
 
 constexpr int SCAN_THREADS = 1024;
-// the _mulmod contract's largest fleet (ops/placement_cuda.py SCAN_MAX_N):
-// 8 columns a thread at C = 16, 16 at C = 8
-constexpr int SCAN_MAX_N = 1 << 17;
+// the _mulmod contract's largest partition: rows with m at or below it
+// take the division-free key path
+constexpr int MULMOD_MAX_M = 1 << 17;
+// the largest padded fleet the register-only instances serve (8 columns
+// a thread at C = 16, 16 at C = 8); the wide instance serves the rest
+constexpr int REGISTER_MAX_N = 1 << 17;
+// the largest padded fleet at all (ops/placement_cuda.py SCAN_MAX_N):
+// n + 2, the sentinel key, must be an int32
+constexpr int SCAN_MAX_N = 0x7fffffff - 2;
 // request rows staged in shared memory at a time
 constexpr int SCAN_CHUNK = 1024;
+// the wide instance: register columns a thread, their prefetch depth, and
+// its smaller request chunk (the rest of shared memory holds free)
+constexpr int WIDE_K = 2;
+constexpr int WIDE_D = 4;
+constexpr int WIDE_CHUNK = 256;
+// shared-memory columns a thread at most: their health bits fit one
+// 64-bit mask
+constexpr int WIDE_MAX_E = 64;
 constexpr int MAX_DEVICES = 64;
 
 // Prefetch depth at K columns a thread: the ring's D * K values share the
@@ -80,6 +109,7 @@ struct ScanArgs {
   const int* penalty;
   int* chosen;
   int* forced;
+  int e_cols;  // the wide instance's shared-memory columns a thread
 };
 
 // the request's window [offset, offset + size) inside [0, n)
@@ -99,6 +129,40 @@ __device__ __forceinline__ int clamp_slot(int slot, int a) {
 __device__ __forceinline__ int barrett_mod(uint64_t x, int m, uint64_t inv) {
   uint64_t r = x - __umul64hi(x, inv) * (uint64_t)m;
   return (int)(r >= (uint64_t)m ? r - m : r);
+}
+
+// The probe of one usable column c (in the window, healthy): its forced-
+// rotation key into fbest and, when it is eligible (a permit or enough
+// free memory), its rank key (plus pen * m on the penalized variant) into
+// best. Every tier of columns probes through it.
+__device__ __forceinline__ void probe_column(int c, int off, int m, int rnd,
+                                             int home, int step_inv,
+                                             bool fast, uint64_t inv,
+                                             bool eligible, bool penalized,
+                                             int pen, uint64_t& best,
+                                             uint64_t& fbest) {
+  const int local = c - off;  // in [0, m)
+  int fkey;
+  if (fast) {
+    fkey = local - rnd;
+    fkey += fkey < 0 ? m : 0;
+  } else {
+    fkey = floormod(local - rnd, m);
+  }
+  const uint64_t f = pack_key(fkey, c);
+  fbest = f < fbest ? f : fbest;
+  if (!eligible) return;
+  int key;
+  if (fast) {
+    int a0 = local - home;
+    a0 += a0 < 0 ? m : 0;
+    key = barrett_mod((uint64_t)a0 * (unsigned)step_inv, m, inv);
+  } else {
+    key = mulmod(local - home, step_inv, m);
+  }
+  if (penalized) key = wadd(key, wmul(pen, m));
+  const uint64_t e = pack_key(key, c);
+  best = e < best ? e : best;
 }
 
 // conc[slot_j, c] of staged request row lj for each owned column c that
@@ -121,11 +185,14 @@ __device__ __forceinline__ void fetch(int (&dst)[K], int (*rq)[ROWS],
   }
 }
 
-template <int K, int D>
+template <int K, int D, int CHUNK, bool WIDE>
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
 placement_scan_kernel(const ScanArgs p) {
-  constexpr int ROWS = SCAN_CHUNK + D;
+  constexpr int ROWS = CHUNK + D;
   __shared__ int rq[R_ROWS][ROWS];
+  // the wide instance's shared-memory columns: free of column
+  // g + (K + e) * nthreads at sfree[e * SCAN_THREADS + tid]
+  extern __shared__ int sfree[];
   __shared__ uint64_t rinv[ROWS];  // floor((2^64 - 1) / m) of each row
   __shared__ ExchangeSmem xs;
   cg::cluster_group cluster = cg::this_cluster();
@@ -153,12 +220,24 @@ placement_scan_kernel(const ScanArgs p) {
 #pragma unroll
     for (int d = 0; d < D; ++d) buf[d][k] = 0;
   }
+  uint64_t hm2 = 0, dirty2 = 0;  // the shared-memory tier's health, writes
+  if (WIDE) {
+    for (int e = 0; e < p.e_cols; ++e) {
+      const long long c = g + (long long)(K + e) * nthreads;
+      int f = 0;
+      if (c < n) {
+        f = p.free_mb[c];
+        if (p.health[c]) hm2 |= 1ull << e;
+      }
+      sfree[e * SCAN_THREADS + tid] = f;
+    }
+  }
   exchange_init(xs);
   // every block runs, its mbarriers set, before any block writes to it
   cluster.sync();
 
   int probes = 0;  // cluster exchanges so far
-  for (int base = 0; base < b; base += SCAN_CHUNK) {
+  for (int base = 0; base < b; base += CHUNK) {
     if (base) __syncthreads();  // every warp is done with the last chunk
     const int rows = min(b - base, ROWS);
     for (int t = tid; t < R_ROWS * rows; t += SCAN_THREADS) {
@@ -175,7 +254,7 @@ placement_scan_kernel(const ScanArgs p) {
       for (int d = 0; d < D; ++d)
         if (d < b) fetch<K, ROWS>(buf[d], rq, d, p, g, nthreads, hmask);
     }
-    const int end = min(b, base + SCAN_CHUNK);
+    const int end = min(b, base + CHUNK);
     // request i holds ring entry i % D == d: base is a multiple of D
     for (int i0 = base; i0 < end; i0 += D) {
 #pragma unroll
@@ -203,37 +282,43 @@ placement_scan_kernel(const ScanArgs p) {
           const int m = max(size, 1);
           // inside the _mulmod contract: every key without a division
           const bool fast =
-              m <= SCAN_MAX_N && (unsigned)home < (unsigned)m &&
+              m <= MULMOD_MAX_M && (unsigned)home < (unsigned)m &&
               (unsigned)rnd < (unsigned)m && (unsigned)step_inv < (unsigned)m;
           const uint64_t inv = rinv[li];
           uint64_t best = ~0ull, fbest = ~0ull;
 #pragma unroll
           for (int k = 0; k < K; ++k) {
             const int c = g + k * nthreads;
-            if (c >= lo && c < hi && ((hmask >> k) & 1u)) {
-              const int local = c - off;  // in [0, m)
-              int fkey, key;
-              if (fast) {
-                fkey = local - rnd;
-                fkey += fkey < 0 ? m : 0;
-              } else {
-                fkey = floormod(local - rnd, m);
-              }
-              const uint64_t f = pack_key(fkey, c);
-              fbest = f < fbest ? f : fbest;
-              if (buf[d][k] > 0 || fr[k] >= need) {
-                if (fast) {
-                  int a0 = local - home;
-                  a0 += a0 < 0 ? m : 0;
-                  key = barrett_mod((uint64_t)a0 * (unsigned)step_inv, m,
-                                    inv);
-                } else {
-                  key = mulmod(local - home, step_inv, m);
-                }
-                if (p.penalty) key = wadd(key, wmul(pen[k], m));
-                const uint64_t e = pack_key(key, c);
-                best = e < best ? e : best;
-              }
+            if (c >= lo && c < hi && ((hmask >> k) & 1u))
+              probe_column(c, off, m, rnd, home, step_inv, fast, inv,
+                           buf[d][k] > 0 || fr[k] >= need,
+                           p.penalty != nullptr, pen[k], best, fbest);
+          }
+          if (WIDE) {
+            const int* crow = p.conc + (long long)slot * p.sa;
+            // the shared-memory tier
+            for (int e = 0; e < p.e_cols; ++e) {
+              const long long c = g + (long long)(K + e) * nthreads;
+              if (c >= hi) break;
+              if (c < lo || !((hm2 >> e) & 1ull)) continue;
+              const bool elig =
+                  sfree[e * SCAN_THREADS + tid] >= need ||
+                  load_book(crow + c * p.sn) > 0;
+              probe_column((int)c, off, m, rnd, home, step_inv, fast, inv,
+                           elig, p.penalty != nullptr,
+                           p.penalty ? p.penalty[c] : 0, best, fbest);
+            }
+            // the streamed tier, from the first of its columns in the window
+            long long j = K + p.e_cols;
+            if (g + j * nthreads < lo)
+              j = ((long long)lo - g + nthreads - 1) / nthreads;
+            for (long long c = g + j * nthreads; c < hi; c += nthreads) {
+              if (!p.health[c]) continue;
+              const bool elig = load_book(p.free_mb + c) >= need ||
+                                load_book(crow + c * p.sn) > 0;
+              probe_column((int)c, off, m, rnd, home, step_inv, fast, inv,
+                           elig, p.penalty != nullptr,
+                           p.penalty ? p.penalty[c] : 0, best, fbest);
             }
           }
           cluster_min(xs, best, fbest, probes, rank, nblocks);
@@ -268,6 +353,25 @@ placement_scan_kernel(const ScanArgs p) {
             }
           }
         }
+        if (WIDE && placed && sel >= g && (sel - g) % nthreads == 0 &&
+            (sel - g) / nthreads >= K) {  // the owner of sel, past registers
+          const int e = (sel - g) / nthreads - K;
+          int* cp = p.conc + (long long)slot * p.sa + (long long)sel * p.sn;
+          const int cell = load_book(cp);  // what the probe read
+          const bool use_conc = cell > 0;
+          if (!use_conc) {
+            if (e < p.e_cols) {
+              int& f = sfree[e * SCAN_THREADS + tid];
+              f = wsub(f, need);
+              dirty2 |= 1ull << e;
+            } else {
+              p.free_mb[sel] = wsub(load_book(p.free_mb + sel), need);
+            }
+          }
+          const int maxc = rq[R_MAX_CONC][li];
+          const int delta = use_conc ? -1 : (maxc > 1 ? maxc - 1 : 0);
+          if (slot_ok && delta != 0) *cp = wadd(cell, delta);
+        }
         if (g == 0) {
           p.chosen[i] = placed ? sel : -1;
           p.forced[i] = (!found && have_usable) ? 1 : 0;
@@ -281,20 +385,29 @@ placement_scan_kernel(const ScanArgs p) {
 #pragma unroll
   for (int k = 0; k < K; ++k)
     if ((dirty >> k) & 1u) p.free_mb[g + k * nthreads] = fr[k];
+  if (WIDE) {
+    for (int e = 0; e < p.e_cols; ++e)
+      if ((dirty2 >> e) & 1ull)
+        p.free_mb[g + (long long)(K + e) * nthreads] =
+            sfree[e * SCAN_THREADS + tid];
+  }
   // no block exits while another may still write its shared memory
   cluster.sync();
 }
 
-// per device, per log2 K and per cluster size (8, 16): 0 not asked yet,
-// 1 the card places the cluster, -1 it cannot
-static int g_fit[MAX_DEVICES][5][2];
+// per device, per instance (log2 K of the register-only ones, then the
+// wide one) and per cluster size (8, 16): 0 not asked yet, 1 the card
+// places the cluster, -1 it cannot
+static int g_fit[MAX_DEVICES][6][2];
+// per device: 1 + the wide instance's shared-memory columns a thread (0 not
+// asked yet)
+static int g_wide_e[MAX_DEVICES];
 
-template <int K>
-static cudaError_t launch_k(const ScanArgs& p, int dev, int c,
-                            cudaStream_t stream, bool* launched) {
-  constexpr int D = scan_depth(K);
-  constexpr int LOG_K = K == 1 ? 0 : K == 2 ? 1 : K == 4 ? 2 : K == 8 ? 3 : 4;
-  void (*kernel)(ScanArgs) = placement_scan_kernel<K, D>;
+template <int K, int D, int CHUNK, bool WIDE>
+static cudaError_t launch_cfg(const ScanArgs& p, int& fit, int c,
+                              size_t smem, cudaStream_t stream,
+                              bool* launched) {
+  void (*kernel)(ScanArgs) = placement_scan_kernel<K, D, CHUNK, WIDE>;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = c;
@@ -303,11 +416,10 @@ static cudaError_t launch_k(const ScanArgs& p, int dev, int c,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c);
   cfg.blockDim = dim3(SCAN_THREADS);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int& fit = g_fit[dev][LOG_K][c > 8];
   if (!fit) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -320,6 +432,14 @@ static cudaError_t launch_k(const ScanArgs& p, int dev, int c,
   *launched = fit > 0;
   if (!*launched) return cudaSuccess;
   return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+template <int K>
+static cudaError_t launch_k(const ScanArgs& p, int dev, int c,
+                            cudaStream_t stream, bool* launched) {
+  constexpr int LOG_K = K == 1 ? 0 : K == 2 ? 1 : K == 4 ? 2 : K == 8 ? 3 : 4;
+  return launch_cfg<K, scan_depth(K), SCAN_CHUNK, false>(
+      p, g_fit[dev][LOG_K][c > 8], c, 0, stream, launched);
 }
 
 static cudaError_t launch(const ScanArgs& p, int dev, int c, int k,
@@ -335,8 +455,37 @@ static cudaError_t launch(const ScanArgs& p, int dev, int c, int k,
   return cudaSuccess;
 }
 
+// The wide instance's shared-memory columns a thread on this device: as
+// many as the opt-in shared memory holds beside its static arrays (at most
+// WIDE_MAX_E). Sets the kernel's dynamic shared memory limit to match.
+static cudaError_t wide_columns(int dev, int* e_max) {
+  int& known = g_wide_e[dev];
+  if (!known) {
+    void (*kernel)(ScanArgs) =
+        placement_scan_kernel<WIDE_K, WIDE_D, WIDE_CHUNK, true>;
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    const long long room = (long long)optin - (long long)fa.sharedSizeBytes;
+    const long long per_col = (long long)SCAN_THREADS * sizeof(int);
+    const int e = (int)max(0ll, min((long long)WIDE_MAX_E, room / per_col));
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(e * per_col));
+    if (err != cudaSuccess) return err;
+    known = e + 1;
+  }
+  *e_max = known - 1;
+  return cudaSuccess;
+}
+
 // Launches the scan on one cluster (16 blocks, else 8) and writes its
-// shape to shape[0..2]: blocks, columns a thread (K), prefetch depth (D).
+// shape to shape[0..5]: blocks, invoker columns a thread, of them in
+// registers (K), the prefetch depth (D), in shared memory, streamed.
 extern "C" int placement_scan_launch(const int* reqs, int b,
                                      const unsigned char* health,
                                      int* free_mb, int* conc, long long sa,
@@ -349,18 +498,39 @@ extern "C" int placement_scan_launch(const int* reqs, int b,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  const ScanArgs p = {reqs, b, health, free_mb, conc, sa, sn,
-                      n,    a, penalty, chosen, forced};
+  ScanArgs p = {reqs, b, health, free_mb, conc, sa, sn,
+                n,    a, penalty, chosen, forced, 0};
+  int e_max = 0;
+  if (n > REGISTER_MAX_N) {
+    err = wide_columns(dev, &e_max);
+    if (err != cudaSuccess) return (int)err;
+  }
   for (int c = 16; c >= 8; c /= 2) {
-    int k = 1;
-    while (k * c * SCAN_THREADS < n) k *= 2;
+    const int total = (int)(((long long)n + c * SCAN_THREADS - 1) /
+                            (c * SCAN_THREADS));
     bool launched = false;
-    err = launch(p, dev, c, k, (cudaStream_t)stream, &launched);
+    int k = 1, d, e = 0;
+    if (n <= REGISTER_MAX_N) {
+      while (k * c * SCAN_THREADS < n) k *= 2;
+      d = scan_depth(k);
+      err = launch(p, dev, c, k, (cudaStream_t)stream, &launched);
+    } else {
+      k = WIDE_K;
+      d = WIDE_D;
+      e = min(max(total - WIDE_K, 0), e_max);
+      p.e_cols = e;
+      err = launch_cfg<WIDE_K, WIDE_D, WIDE_CHUNK, true>(
+          p, g_fit[dev][5][c > 8], c, (size_t)e_max * SCAN_THREADS *
+          sizeof(int), (cudaStream_t)stream, &launched);
+    }
     if (err != cudaSuccess) return (int)err;
     if (launched) {
       shape[0] = c;
-      shape[1] = k;
-      shape[2] = scan_depth(k);
+      shape[1] = n <= REGISTER_MAX_N ? k : total;
+      shape[2] = k;
+      shape[3] = d;
+      shape[4] = e;
+      shape[5] = max(total - k - e, 0);
       return 0;
     }
   }

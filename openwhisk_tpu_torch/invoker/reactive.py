@@ -1,4 +1,5 @@
 """InvokerReactive: the invoker's event loop.
+A copy of `openwhisk_tpu/invoker/reactive.py`.
 
 Rebuild of core/invoker/.../invoker/InvokerReactive.scala:105-342 — consume
 the `invoker<N>` topic through a MessageFeed whose capacity equals the pool's
@@ -6,11 +7,6 @@ slot count (maxPeek = user-memory / min-memory scaled by the concurrency peek
 factor, :172-173), fetch the action (revision-keyed cache), hand a Run to the
 ContainerPool, publish active-acks + 1 Hz health pings, and synthesize error
 activations when the action can't even be fetched (:280-307).
-
-A copy of `openwhisk_tpu/invoker/reactive.py` on the plain per-message
-path: its producer is the raw bus producer (the coalescing producer and
-the columnar batch frames are not ported yet, and the port's balancer
-sends plain messages), and it emits no container spans to a trace store.
 """
 from __future__ import annotations
 
@@ -25,8 +21,10 @@ from ..core.entity import (ActivationResponse, EntityName, EntityPath,
                            ExecManifest, InvokerInstanceId, MemoryLimit,
                            WhiskActivation)
 from ..database import EntityStore, NoDocumentException
+from ..messaging.columnar import KIND_ACTIVATION, is_batch_payload
 from ..messaging.connector import (MessageFeed, HEALTH_RETENTION_BYTES,
-                                   HEALTH_TOPIC, decode_message)
+                                   HEALTH_TOPIC, decode_batch,
+                                   decode_message)
 from ..messaging.message import (ActivationMessage,
                                  CombinedCompletionAndResultMessage,
                                  CompletionMessage, PingMessage, ResultMessage)
@@ -60,9 +58,12 @@ class InvokerReactive:
         #: None (the default, and whenever the observatory is disabled)
         #: keeps ping payloads byte-exact with pre-16 builds.
         self.admin_url = admin_url
-        # completion acks, activation events and health pings: one send
-        # each on the raw producer
-        self.producer = messaging_provider.get_producer()
+        # completion acks, activation events and health pings all ride the
+        # coalescing wrapper: under load the ack fan-in ships one frame per
+        # micro-batch instead of one bus round trip per completion
+        # (CONFIG_whisk_bus_coalesce_enabled=false restores serial sends)
+        from ..messaging.coalesce import maybe_coalesce
+        self.producer = maybe_coalesce(messaging_provider.get_producer())
 
         prewarm = []
         for manifest, cell in ExecManifest.runtimes().stem_cells():
@@ -148,6 +149,7 @@ class InvokerReactive:
         if self._feed:
             await self._feed.stop()
         await self.pool.shutdown()
+        # drain any coalescing window still holding queued acks/events and
         # release the producer transport
         await self.producer.close()
         await self.factory.cleanup()
@@ -167,6 +169,9 @@ class InvokerReactive:
         return release
 
     async def _process(self, payload: bytes, feed: MessageFeed) -> None:
+        if is_batch_payload(payload):
+            await self._process_batch(payload, feed)
+            return
         release = self._make_release(feed)
         try:
             # decode_message: the per-activation JSON parse cost on the
@@ -184,9 +189,58 @@ class InvokerReactive:
                                STAGE_INVOKER_PICKUP)
         await self._handle_msg(msg, release)
 
+    async def _process_batch(self, payload: bytes, feed: MessageFeed) -> None:
+        """The batch-shaped pickup: one frame off the topic is
+        a whole dispatch micro-batch — ONE columnar decode (shared
+        identity/action parses), one waterfall stamp_many, one feed
+        capacity adjustment, then the per-activation body per message.
+        One frame = one handler task, so the per-activation task churn of
+        the serial pickup collapses into the batch."""
+        try:
+            kind, msgs = decode_batch(payload)
+            if kind != KIND_ACTIVATION:
+                raise ValueError(f"unexpected batch kind {kind!r} on the "
+                                 "activation topic")
+        except (ValueError, KeyError, IndexError, TypeError,
+                AssertionError) as e:
+            # IndexError/TypeError included: malformed batch COLUMNS (a
+            # dedup index past its table) parse as JSON but blow up in
+            # from_json — same corrupt-frame posture as a bad parse
+            if self.logger:
+                self.logger.error(TransactionId.SYSTEM,
+                                  f"corrupt activation batch: {e!r}",
+                                  "InvokerReactive")
+            feed.processed()
+            return
+        if not msgs:
+            # zero-row frame (no producer ships one, but a frame that
+            # decodes empty must still return its capacity unit)
+            feed.processed()
+            return
+        # the feed booked ONE capacity unit for this frame; a frame is N
+        # logical activations, each releasing independently
+        feed.consume_extra(len(msgs) - 1)
+        GLOBAL_WATERFALL.stamp_many(
+            [m.activation_id.asString for m in msgs], STAGE_INVOKER_PICKUP)
+        for msg in msgs:
+            release = self._make_release(feed)
+            try:
+                await self._handle_msg(msg, release)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — per-message isolation:
+                # in the serial path each payload ran in its own task, so
+                # one activation's failure never starved its batch-mates
+                # of processing or feed capacity
+                if self.logger:
+                    self.logger.error(TransactionId.SYSTEM,
+                                      f"batch activation failed: {e!r}",
+                                      "InvokerReactive")
+                release()
+
     async def _handle_msg(self, msg: ActivationMessage, release) -> None:
-        """The per-activation body (the pickup stage is already stamped by
-        the caller)."""
+        """The per-activation body shared by the serial and batch pickup
+        paths (the pickup stage is already stamped by the caller)."""
         if msg.fence_epoch is not None:
             if msg.fence_part is not None:
                 # active/active: one max epoch PER PARTITION
@@ -219,8 +273,9 @@ class InvokerReactive:
             else:
                 self._max_fence_epoch = msg.fence_epoch
         from ..utils.tracing import GLOBAL_TRACER
-        # (the waterfall invoker_pickup stamp happened at decode time; in
-        # single-process deployments it shares the controller's stage
+        # (the waterfall invoker_pickup stamp happened at decode time —
+        # single frames stamp one id, batch frames stamp_many; in
+        # single-process deployments they share the controller's stage
         # map, separate processes no-op on the unknown id)
         # stack-free span: concurrent activations may SHARE a transid (all
         # rules of one trigger fire), so the span is keyed by activation id
@@ -276,9 +331,10 @@ class InvokerReactive:
         else:
             message = CombinedCompletionAndResultMessage(transid, activation,
                                                          self.instance)
-        # trace continuity: the ack carries this activation's span context
-        # back over the bus, so the controller's completion processing
-        # parents into the same trace
+        # trace continuity: the ack carries this activation's
+        # span context back over the bus, so the controller's completion
+        # processing parents into the same trace in BOTH wire formats
+        # (the columnar ack frames ship it as a sparse column)
         span = self._active_spans.get(activation.activation_id.asString)
         if span is not None:
             message.trace_context = {
@@ -313,9 +369,33 @@ class InvokerReactive:
             from ..utils.tracing import GLOBAL_TRACER
             span = self._active_spans.pop(activation.activation_id.asString, None)
             if span is not None:
+                self._emit_container_spans(span, activation)
                 GLOBAL_TRACER.finish(span, {
                     "activationId": activation.activation_id.asString,
                     "proc": f"invoker{self.instance.instance}"})
+
+    def _emit_container_spans(self, parent, activation) -> None:
+        """The container_acquire/run span pair, synthesized
+        from timestamps the activation record ALREADY carries (start/end
+        wall clocks, the waitTime annotation) — no new clock reads, and
+        nothing at all when no tail-sampling trace store collects them."""
+        from ..utils.tracestore import GLOBAL_TRACE_STORE, synthetic_span
+        if not GLOBAL_TRACE_STORE.active:
+            return
+        proc = f"invoker{self.instance.instance}"
+        ann = activation.annotations or {}
+        wait_s = (ann.get("waitTime") or 0) / 1000.0
+        start, end = activation.start, activation.end or activation.start
+        if wait_s > 0:
+            GLOBAL_TRACE_STORE.emit(synthetic_span(
+                parent.trace_id, "container_acquire",
+                start - wait_s, start,
+                tags={"proc": proc}, parent_id=parent.span_id))
+        GLOBAL_TRACE_STORE.emit(synthetic_span(
+            parent.trace_id, "run", start, end,
+            tags={"proc": proc,
+                  "initTime_ms": ann.get("initTime") or 0},
+            parent_id=parent.span_id))
 
     async def _store_activation(self, transid, activation, user) -> None:
         try:

@@ -1,9 +1,10 @@
 """In-memory message bus.
+A copy of `openwhisk_tpu/messaging/memory.py`.
 
-A copy of `openwhisk_tpu/messaging/memory.py` without its waterfall produce
-stamp (rebuild of the reference's lean connector,
-common/scala/.../connector/lean/: a queue per topic), used for
-single-process deployments and as the test bus.
+Rebuild of the reference's lean connector (common/scala/.../connector/lean/:
+LeanMessagingProvider/LeanProducer/LeanConsumer — a BlockingQueue per topic),
+used for single-process deployments and as the test bus (the reference's
+TestConnector pattern, tests/.../connector/test/TestConnector.scala:36-109).
 
 Competing consumers in the same group share a queue (each message is
 delivered once per group); distinct groups each get every message — the same
@@ -17,7 +18,7 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from .connector import (MessageConsumer, MessageProducer, MessagingProvider,
-                        encode_message)
+                        stamp_produce)
 
 
 #: backstop per-group retention — bounds queues of groups nobody drains
@@ -86,11 +87,31 @@ class MemoryProducer(MessageProducer):
         self._sent += 1
 
     async def send(self, topic: str, msg) -> None:
-        payload = encode_message(msg)
+        payload = msg if isinstance(msg, (bytes, bytearray)) else msg.serialize()
         t = self.bus.topic(topic)
         async with t.cond:
             self._append_locked(t, payload)
             t.cond.notify_all()
+        stamp_produce(msg)  # waterfall produce edge
+
+    async def send_many(self, items) -> None:
+        """Coalesced produce: one condition acquire + one notify per TOPIC
+        per micro-batch instead of per message (the controller's readback
+        fan-out spreads one batch over N invoker topics; the ack path is a
+        single topic). Order within a topic is arrival order, exactly like
+        serial sends."""
+        by_topic: dict = {}
+        for topic, payload, msg in items:
+            by_topic.setdefault(topic, []).append((payload, msg))
+        for topic, group in by_topic.items():
+            t = self.bus.topic(topic)
+            async with t.cond:
+                for payload, _m in group:
+                    self._append_locked(t, payload)
+                t.cond.notify_all()
+            for _p, m in group:
+                if m is not None:
+                    stamp_produce(m)  # waterfall produce edge (per message)
 
 
 class MemoryConsumer(MessageConsumer):
@@ -110,7 +131,9 @@ class MemoryConsumer(MessageConsumer):
             pass
         elif from_latest:
             # New group starts empty; the pre-subscription backlog in
-            # __default__ stays retained for a later queue-semantics group.
+            # __default__ stays retained for a later queue-semantics group
+            # (it is bounded by the topic's retention cap, so an
+            # ephemeral-stream topic like health keeps only a small tail).
             t.queue_for(group)
         elif "__default__" in t.groups:
             t.groups[group] = t.groups.pop("__default__")
@@ -145,10 +168,23 @@ class MemoryConsumer(MessageConsumer):
 
 
 class MemoryMessagingProvider(MessagingProvider):
-    """One bus per instance: its producers and consumers share it."""
+    """One bus per instance; `shared()` returns a process-wide bus for
+    lean/standalone mode where controller and invoker live in one process."""
+
+    _shared: Optional["MemoryMessagingProvider"] = None
 
     def __init__(self):
         self.bus = MemoryBus()
+
+    @classmethod
+    def shared(cls) -> "MemoryMessagingProvider":
+        if cls._shared is None:
+            cls._shared = cls()
+        return cls._shared
+
+    @classmethod
+    def reset_shared(cls) -> None:
+        cls._shared = None
 
     def get_producer(self) -> MemoryProducer:
         return MemoryProducer(self.bus)

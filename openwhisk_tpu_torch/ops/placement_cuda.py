@@ -40,10 +40,13 @@ from .placement import (I32, PlacementState, RequestBatch, schedule_batch,
 REPAIR_ROW_BYTES = (22 + 2) * 4
 REPAIR_SCRATCH_ROW_BYTES = 28
 REPAIR_MAX_BATCH = REPAIR_THREADS = 1024
-#: the scan's largest fleet (SCAN_MAX_N in csrc/placement_scan.cu): the
-#: `_mulmod` contract's 2^17 invokers, 8 columns a thread on a cluster of
-#: 16 blocks x 1,024 threads
-SCAN_MAX_N = 1 << 17
+#: the scan's largest padded fleet (SCAN_MAX_N in csrc/placement_scan.cu):
+#: int32 indexing, with n + 2 (the no-key sentinel) still an int32. The
+#: `_mulmod` contract bounds the partition (2^17), not the fleet; above
+#: REGISTER_MAX_N the kernel's wide instance keeps each thread's further
+#: columns in shared memory and streams the rest
+SCAN_MAX_N = (1 << 31) - 3
+REGISTER_MAX_N = 1 << 17
 SCAN_THREADS = 1024
 #: shared memory one block may opt into on sm_90 (227 KB), less the
 #: kernel's static shared memory and the list's one extra int
@@ -66,8 +69,9 @@ SOURCES = tuple(sig[0] for sig in _SIGNATURES.values())
 
 
 def fits_scan(n: int) -> bool:
-    """Can the scan kernel take a fleet of `n` invokers? Any batch width
-    B >= 1 fits: the kernel stages the request matrix in chunks."""
+    """Can the scan kernel take a padded fleet of `n` invokers? Any `n`
+    that int32 indexing addresses, and any batch width B >= 1: the kernel
+    stages the request matrix in chunks."""
     return 0 < n <= SCAN_MAX_N
 
 
@@ -135,19 +139,21 @@ def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
     place. Returns (state, chosen int32[B], forced bool[B]). Raises for a
     fleet the kernel cannot take (`fits_scan`) and for a launch the card
     refuses. `.cluster` holds the last launch's shape: blocks, threads a
-    block, invoker columns a thread and prefetch depth."""
+    block, invoker columns a thread (of them in registers, in shared
+    memory and streamed from global memory) and prefetch depth."""
     if not state.free_mb.is_cuda:
         ts, chosen, forced = schedule_batch(to_transposed(state), batch,
                                             penalty)
         return to_transposed(ts), chosen, forced
     n, a, b, reqs = _check(state, batch, penalty)
     if not fits_scan(n):
-        raise ValueError(f"scan kernel takes 1..{SCAN_MAX_N} invokers "
-                         f"(SCAN_MAX_N, the _mulmod contract), got N={n}")
+        raise ValueError(f"scan kernel takes 1..{SCAN_MAX_N} padded "
+                         f"invokers (int32 indexing with the sentinel "
+                         f"N + 2), got N={n}")
     chosen = torch.empty((b,), dtype=I32, device=reqs.device)
     forced = torch.empty((b,), dtype=I32, device=reqs.device)
     if b:
-        shape = (_INT * 3)()
+        shape = (_INT * 6)()
         rc = _launcher("scan")(
             reqs.data_ptr(), b, state.health.data_ptr(),
             state.free_mb.data_ptr(), state.conc_free.data_ptr(),
@@ -160,7 +166,9 @@ def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
         schedule_batch_cuda.launches += 1
         schedule_batch_cuda.cluster = {
             "blocks": shape[0], "threads": SCAN_THREADS,
-            "columns_per_thread": shape[1], "prefetch_depth": shape[2]}
+            "columns_per_thread": shape[1], "register_columns": shape[2],
+            "prefetch_depth": shape[3], "smem_columns": shape[4],
+            "streamed_columns": shape[5]}
     return state, chosen, forced.bool()
 
 

@@ -42,6 +42,8 @@ from openwhisk_tpu_torch.core.entity.ids import DocRevision  # noqa: E402
 from openwhisk_tpu_torch.messaging import (  # noqa: E402
     ActivationMessage, CombinedCompletionAndResultMessage, CompletionMessage,
     MemoryMessagingProvider, MessageFeed, PingMessage)
+from openwhisk_tpu_torch.messaging.columnar import (  # noqa: E402
+    is_batch_payload, parse_batch)
 from openwhisk_tpu_torch.utils.transaction import TransactionId  # noqa: E402
 
 CTRL = E.ControllerInstanceId("0")
@@ -101,11 +103,19 @@ class SimInvoker:
             box["feed"].processed()
 
         async def handle(payload: bytes):
-            msg = ActivationMessage.parse(payload)
-            self.handled.append(msg)
-            task = asyncio.get_event_loop().create_task(finish(msg))
-            self._tasks.add(task)
-            task.add_done_callback(self._tasks.discard)
+            # the batch wire ships one columnar frame per coalesced
+            # micro-batch (messaging/columnar.py); lone messages arrive in
+            # the plain per-message format
+            if is_batch_payload(payload):
+                _kind, msgs = parse_batch(payload)
+                box["feed"].consume_extra(len(msgs) - 1)
+            else:
+                msgs = [ActivationMessage.parse(payload)]
+            for msg in msgs:
+                self.handled.append(msg)
+                task = asyncio.get_event_loop().create_task(finish(msg))
+                self._tasks.add(task)
+                task.add_done_callback(self._tasks.discard)
 
         self._feed = box["feed"] = MessageFeed(topic, consumer, 64, handle,
                                                long_poll_timeout=0.05)
@@ -954,9 +964,12 @@ def _identity_json(k):
             "rights": ["ACTIVATE"], "limits": {}}
 
 
-async def _scenario(pkg, rate, grow, seed):
+async def _scenario(pkg, rate, grow, seed, ack_producer=None):
     """One seeded run through one package's TpuBalancer; returns the
-    decision of every activation, the books, and the run's counts."""
+    decision of every activation, the books, the run's counts and the
+    flight recorder's records. `ack_producer(provider)`, when given, makes
+    the producer the acks go out on, one `send_batch` a round (a
+    coalescing producer ships each round as one frame)."""
     ent, msgs = pkg.E, pkg.Msg
     provider = pkg.Mem.MemoryMessagingProvider()
     bal = pkg.make(provider, managed_fraction=0.75, blackbox_fraction=0.25,
@@ -997,10 +1010,17 @@ async def _scenario(pkg, rate, grow, seed):
             await asyncio.sleep(0.002)
         raise RuntimeError("balancer did not drain")
 
+    acker = None if ack_producer is None else ack_producer(provider)
+
     async def ack(items):
-        for msg, inv in items:
-            await producer.send(ack_topic, msgs.CompletionMessage(
-                msg.transid, msg.activation_id, False, inv))
+        acks = [msgs.CompletionMessage(msg.transid, msg.activation_id, False,
+                                       inv) for msg, inv in items]
+        if acker is not None:
+            if acks:
+                await acker.send_batch(ack_topic, acks)
+        else:
+            for a in acks:
+                await producer.send(ack_topic, a)
         for _ in range(2000):
             if not any(m.activation_id.asString in bal.activation_slots
                        for m, _ in items):
@@ -1084,8 +1104,13 @@ async def _scenario(pkg, rate, grow, seed):
         slots=int(bal.state.conc_free.shape[1]),
         free=np.asarray(bal.state.free_mb).copy(),
         conc=np.asarray(bal.state.conc_free).copy(),
-        health=np.asarray(bal.state.health).copy())
+        health=np.asarray(bal.state.health).copy(),
+        records=bal.flight_recorder.recent(1024, with_decisions=True),
+        explain={a: (bal.flight_recorder.explain(a) or {}).get("decision")
+                 for a in decisions})
     await bal.close()
+    if acker is not None:
+        await acker.close()
     return out
 
 

@@ -21,6 +21,7 @@ thread of their own.
 """
 import asyncio
 import base64
+import importlib
 import socket
 import threading
 
@@ -69,6 +70,7 @@ class Fleet:
 
     def __init__(self, pkg, provider):
         self.E, self.M = pkg.core.entity, pkg.messaging.message
+        self.C = importlib.import_module(pkg.__name__ + ".messaging.columnar")
         self.provider = provider
         self.producer = provider.get_producer()
         self.instances = [self.E.InvokerInstanceId(
@@ -104,8 +106,15 @@ class Fleet:
         while True:
             got = await consumer.peek(64, timeout=0.05)
             consumer.commit()
+            msgs = []
             for _, _, _, payload in got:
-                msg = M.ActivationMessage.parse(payload)
+                # one columnar frame per coalesced micro-batch, lone
+                # messages in the plain format
+                if self.C.is_batch_payload(payload):
+                    msgs.extend(self.C.parse_batch(payload)[1])
+                else:
+                    msgs.append(M.ActivationMessage.parse(payload))
+            for msg in msgs:
                 action = str(msg.action)
                 probe = action == HEALTH_ACTION
                 if probe:

@@ -18,7 +18,7 @@ from openwhisk_tpu_torch.controller.loadbalancer import \
 from openwhisk_tpu_torch.ops import placement as T  # noqa: E402
 from openwhisk_tpu_torch.ops import placement_cuda as K  # noqa: E402
 from torch_placement_cases import (  # noqa: E402
-    FAMILIES, container_case, random_batch, random_books)
+    FAMILIES, container_case, random_batch, random_books, wide_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -256,17 +256,63 @@ def test_scan_launch_is_deterministic_and_reports_its_cluster():
 
 
 def test_scan_fleet_limit_raises():
-    rng = np.random.RandomState(0)
+    """The scan refuses only a padded fleet that int32 indexing cannot
+    address (N + 2, the sentinel key, must be an int32): the wrapper's
+    `fits_scan` and the kernel's own launch check, which returns
+    cudaErrorInvalidValue before it touches memory."""
     n = K.SCAN_MAX_N + 1
     assert K.fits_scan(K.SCAN_MAX_N) and not K.fits_scan(n)
-    st = T.placement_state_from_numpy(*random_books(n, rng, slots=2),
+    assert K.fits_scan(1 << 20) and K.fits_scan((1 << 17) + 1)
+    rng = np.random.RandomState(0)
+    st = T.placement_state_from_numpy(*random_books(64, rng, slots=2),
                                       device="cuda")
-    batch = T.request_batch_from_numpy(*random_batch(n, 4, rng, slots=2),
+    batch = T.request_batch_from_numpy(*random_batch(64, 4, rng, slots=2),
                                        device="cuda")
+    kst = K.to_transposed(st)
+    _, _, b, reqs = K._check(kst, batch, None)
+    out = torch.empty((2, b), dtype=torch.int32, device="cuda")
+    shape = (K._INT * 6)()
     launches = K.schedule_batch_cuda.launches
-    with pytest.raises(ValueError, match="SCAN_MAX_N"):
-        K.schedule_batch_cuda(K.to_transposed(st), batch)
+    rc = K._launcher("scan")(
+        reqs.data_ptr(), b, kst.health.data_ptr(), kst.free_mb.data_ptr(),
+        kst.conc_free.data_ptr(), kst.conc_free.stride(0),
+        kst.conc_free.stride(1), n, kst.conc_free.shape[0], 0,
+        out[0].data_ptr(), out[1].data_ptr(),
+        torch.cuda.current_stream().cuda_stream, shape)
+    assert rc == 1  # cudaErrorInvalidValue
     assert K.schedule_batch_cuda.launches == launches
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+@pytest.mark.parametrize("n", [262144, 1048576])
+def test_scan_wide_fleets_match_plain(n, use_penalty):
+    """Fleets padded past 2^17 (the wide instance: register, shared-memory
+    and streamed columns) with partitions within 2^17: windows across the
+    tiers' edges, the 126,000-invoker managed partition of a 140,000
+    fleet, a dead window, tied ranks, forced rotations and out-of-range
+    slots, bit-exact."""
+    books, cols, pen = wide_case(n, use_penalty)
+    kr, pr = _both("scan", books, cols, pen)
+    _assert_exact(kr, pr)
+    chosen, forced = kr[1][1].cpu().numpy(), kr[1][2].cpu().numpy()
+    assert chosen[6] == -1 and not forced[6]
+    assert forced[10:13].all()
+    shape = K.schedule_batch_cuda.cluster
+    per = -(-n // (shape["blocks"] * 1024))
+    assert shape["columns_per_thread"] == per
+    assert shape["register_columns"] == 2 and shape["smem_columns"] > 0
+    assert (shape["register_columns"] + shape["smem_columns"]
+            + shape["streamed_columns"]) == per
+
+
+def test_scan_wide_batch_with_chunks_matches_plain():
+    """Past the wide instance's 256-row request chunk at N = 2^18."""
+    rng = np.random.RandomState(5)
+    n = 1 << 18
+    books = random_books(n, rng, slots=4, unhealthy_p=0.1)
+    cols = random_batch(1 << 17, 600, rng, slots=4, oob_p=0.1)
+    cols[0] += rng.randint(0, n - (1 << 17) + 1, 600).astype(cols[0].dtype)
+    _assert_exact(*_both("scan", books, cols, None))
 
 
 def test_balancer_core_card_equals_cpu():

@@ -15,6 +15,13 @@ Inputs: the families of torch_placement_cases, fleets of 64 to 65,536
 invokers with windows that straddle block edges, one-column and dead
 windows, same-slot runs longer than the prefetch depth, and out-of-range
 slots, with and without the penalty, at C in {1, 8, 16} and D in {1, 4}.
+
+Fleets padded past 2^17 run the kernel's wide instance: the same owners,
+but only each thread's first `reg_cols` columns sit in registers with the
+prefetch ring; the next `smem_cols` keep free in shared memory and read
+their conc cells when probed, and the rest are streamed (free read and
+written in place). `emulate_scan(..., reg_cols=, smem_cols=)` models that
+at N = 2^18 and 2^20 with partitions within 2^17.
 """
 import math
 from functools import lru_cache
@@ -27,7 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from openwhisk_tpu.ops import placement as J  # noqa: E402
 from torch_placement_cases import (  # noqa: E402
-    FAMILIES, random_batch, random_books)
+    FAMILIES, random_batch, random_books, wide_case)
 
 THREADS = 1024
 CLUSTERS = (1, 8, 16)
@@ -71,10 +78,14 @@ def _cluster_min(per_thread, clusters):
     return blocks.min()
 
 
-def emulate_scan(books, cols, penalty, clusters, depth, seed=0):
+def emulate_scan(books, cols, penalty, clusters, depth, seed=0,
+                 reg_cols=None, smem_cols=0):
     """The kernel's decomposition of the scan in numpy. books = (free
     int32[N], conc int32[N, A], health bool[N]); returns (free, conc [N, A],
-    chosen, forced)."""
+    chosen, forced). `reg_cols` None: every column a thread owns is in
+    registers (the register-only instances); else the wide instance's
+    tiers: `reg_cols` register columns, `smem_cols` shared-memory ones,
+    the rest streamed."""
     free, conc_na, health = books
     n, a = conc_na.shape
     conc = np.ascontiguousarray(conc_na.T).astype(np.int64)  # device [A, N]
@@ -92,17 +103,22 @@ def emulate_scan(books, cols, penalty, clusters, depth, seed=0):
     pen = (None if penalty is None
            else np.where(live, np.asarray(penalty)[at], 0).astype(np.int64))
     dirty = np.zeros_like(live)
+    kr = kk if reg_cols is None else min(reg_cols, kk)
+    ks = min(kr + smem_cols, kk) if reg_cols is not None else kk
+    gfree = np.array(free, np.int64)  # the streamed tier's free, in place
     big = (1 << 30) if penalty is not None else n + 2
     rng = np.random.RandomState(seed)
     ring = [None] * depth
 
     def fetch(j):
         # anything a request cannot use is poison: it must never be read
+        # (only register columns are prefetched)
         vals = rng.randint(-5, 1 << 20, col.shape).astype(np.int64)
         if valid[j]:
             lo, hi = _window(off[j], size[j], n)
             s = min(max(int(slot_raw[j]), 0), a - 1)
             mask = hl & (col >= lo) & (col < hi)
+            mask[kr:] = False
             vals[mask] = conc[s, col[mask]]
         ring[j % depth] = vals
 
@@ -120,6 +136,14 @@ def emulate_scan(books, cols, penalty, clusters, depth, seed=0):
         if valid[i] and lo < hi:
             m = max(int(size[i]), 1)
             usable = hl & (col >= lo) & (col < hi)
+            if kr < kk:
+                # past the registers: conc read when probed, and the
+                # streamed tier's free from memory
+                buf = buf.copy()
+                far = usable.copy()
+                far[:kr] = False
+                buf[far] = conc[slot, col[far]]
+                fr[ks:][live[ks:]] = gfree[col[ks:][live[ks:]]]
             local = col - off[i]
             fkey = np.mod(local - rnd[i], m)
             eligible = usable & ((buf > 0) | (fr >= need[i]))
@@ -136,16 +160,18 @@ def emulate_scan(books, cols, penalty, clusters, depth, seed=0):
         placed = found or have_usable
         if placed:
             k, t = divmod(sel, nthreads)  # the owner of sel
-            cell = int(buf[k, t])
+            cell = int(buf[k, t]) if k < kr else int(conc[slot, sel])
             use_conc = cell > 0
-            if not use_conc:
+            if not use_conc and k < ks:
                 fr[k, t] -= need[i]
                 dirty[k, t] = True
+            elif not use_conc:
+                gfree[sel] -= need[i]
             delta = -1 if use_conc else (int(maxc[i]) - 1 if maxc[i] > 1
                                          else 0)
             if slot_ok and delta:
                 conc[slot, sel] = cell + delta
-                for e in range(1, depth):
+                for e in range(1, depth if k < kr else 1):
                     j = i + e
                     if j < b and min(max(int(slot_raw[j]), 0), a - 1) == slot:
                         ring[j % depth][k, t] += delta
@@ -153,7 +179,7 @@ def emulate_scan(books, cols, penalty, clusters, depth, seed=0):
         forced[i] = (not found) and have_usable
         if i + depth < b:
             fetch(i + depth)
-    out_free = np.array(free, np.int64)
+    out_free = gfree
     out_free[col[dirty]] = fr[dirty]
     return (out_free.astype(np.int32), conc.T.astype(np.int32), chosen,
             forced)
@@ -345,3 +371,37 @@ def test_out_of_range_slots_read_clamped_write_dropped(clusters, depth,
     # only the last slot's row at the one invoker ever changed
     changed = np.argwhere(got[1] != books[1])
     assert changed.size and (changed == [1024, 3]).all(axis=1).all()
+
+
+# ------------------------------------------ fleets padded past 2^17
+#: (padded fleet, cluster size, shared-memory columns a thread): at
+#: C = 16 the wide instance holds about 53 columns a thread in shared
+#: memory (all of 2^18, most of 2^20); fewer exercise the streamed tier
+WIDE_SHAPES = [(1 << 18, 16, 14), (1 << 18, 8, 5), (1 << 20, 16, 53),
+               (1 << 20, 8, 9)]
+
+
+@lru_cache(maxsize=None)
+def _wide(n, use_penalty):
+    books, cols, pen = wide_case(n, use_penalty)
+    return books, cols, pen, _jax_scan(books, cols, pen)
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+@pytest.mark.parametrize("n,clusters,smem", WIDE_SHAPES)
+def test_wide_fleets_match_jax(n, clusters, smem, use_penalty):
+    books, cols, pen, want = _wide(n, use_penalty)
+    got = emulate_scan(books, cols, pen, clusters, 4, reg_cols=2,
+                       smem_cols=smem)
+    for name, w, g in zip(("free", "conc", "chosen", "forced"), want, got):
+        np.testing.assert_array_equal(g, w, name)
+    assert got[2][6] == -1 and not got[3][6]
+    assert got[3][10:13].all()
+
+
+def test_fits_scan_takes_fleets_past_2_17():
+    from openwhisk_tpu_torch.ops import placement_cuda as K
+    for n in (1 << 17, (1 << 17) + 1, 1 << 18, 140_000, 1 << 20, 1 << 30):
+        assert K.fits_scan(n)
+    assert K.fits_scan(K.SCAN_MAX_N) and not K.fits_scan(K.SCAN_MAX_N + 1)
+    assert K.SCAN_MAX_N + 2 == (1 << 31) - 1 and not K.fits_scan(0)

@@ -402,8 +402,8 @@ def test_unported_admin_planes_answer_404_naming_the_plane(servers):
     async def drive(url):
         out = {}
         async with aiohttp.ClientSession() as s:
-            for path in ("/admin/slo", "/admin/traces",
-                         "/admin/profile/host", "/admin/fleet/metrics"):
+            for path in ("/admin/slo", "/admin/alerts",
+                         "/admin/profile/kernel", "/admin/fleet/metrics"):
                 async with s.get(url + path, headers=HDRS) as r:
                     out[path] = (r.status, (await r.json())["error"])
             async with s.get(url + "/admin", headers=HDRS) as r:
@@ -416,9 +416,9 @@ def test_unported_admin_planes_answer_404_naming_the_plane(servers):
     out = servers.run(drive(servers.urls["port"]))
     assert out["/admin/slo"] == (
         404, "the telemetry plane is not ported to openwhisk_tpu_torch yet")
-    assert out["/admin/traces"][0] == 404 and "trace store" in \
-        out["/admin/traces"][1]
-    assert out["/admin/profile/host"][0] == 404
+    assert out["/admin/alerts"][0] == 404 and "anomaly plane" in \
+        out["/admin/alerts"][1]
+    assert out["/admin/profile/kernel"][0] == 404
     assert out["/admin/fleet/metrics"][0] == 404
     rows = {r["path"]: r for r in out["index"]["routes"]}
     assert rows["/admin/slo"]["enabled"] is False
@@ -427,6 +427,72 @@ def test_unported_admin_planes_answer_404_naming_the_plane(servers):
     status, occ = out["occupancy"]
     assert status == 200 and occ["invokers"][0]["invoker"] == "invoker0"
     assert occ["kernel"] == "repair"
+
+
+def shape(v):
+    """A JSON value's shape: dict keys with their values' shapes; lists
+    and scalars by kind (their contents depend on the run)."""
+    if isinstance(v, dict):
+        return {k: shape(x) for k, x in sorted(v.items())}
+    return "list" if isinstance(v, list) else "scalar"
+
+
+def test_restored_admin_routes_answer_as_the_jax_standalone(servers):
+    """The flight recorder, host observatory, trace store and incident
+    routes: the same status codes and, after masking, the same shapes as
+    the JAX standalone's, after one blocking invoke."""
+    async def drive(url):
+        out = {}
+        async with aiohttp.ClientSession() as s:
+            base = f"{url}/api/v1/namespaces/_/actions/adminprobe"
+            async with s.put(base + "?overwrite=true", headers=HDRS, json={
+                    "exec": {"kind": "python:3", "code": OK_CODE}}) as r:
+                assert r.status == 200
+            async with s.post(base + "?blocking=true", headers=HDRS,
+                              json={}) as r:
+                assert r.status == 200
+                aid = (await r.json())["activationId"]
+            for path in ("/admin/placement/recent?limit=4",
+                         f"/admin/placement/explain/{aid}",
+                         "/admin/placement/explain/" + "0" * 32,
+                         "/admin/profile/host", "/admin/traces",
+                         "/admin/trace/local/" + "f" * 32,
+                         "/admin/trace/" + "f" * 32,
+                         "/admin/incidents",
+                         "/admin/incident/local/inc-zzz"):
+                async with s.get(url + path, headers=HDRS) as r:
+                    out[path.replace(aid, "<aid>")] = (
+                        r.status, mask(await r.json()))
+            async with s.get(url + "/admin/traces") as r:
+                out["anonymous"] = r.status
+            async with s.post(url + "/admin/profile/host/capture",
+                              headers=HDRS, json={"seconds": 0.05}) as r:
+                out["capture"] = (r.status, sorted(await r.json()))
+        return out
+
+    port = servers.run(drive(servers.urls["port"]))
+    jax = servers.run(drive(servers.urls["jax"]))
+    for out in (port, jax):  # dicts keyed by what the run saw
+        out["/admin/profile/host"][1]["gc"].pop("p99_ms")
+        out["/admin/traces"][1]["stats"].pop("kept_total")
+    assert {k: v[0] if isinstance(v, tuple) else v for k, v in port.items()} \
+        == {k: v[0] if isinstance(v, tuple) else v for k, v in jax.items()}
+    for key in port:
+        if isinstance(port[key], tuple) and key != "capture":
+            assert shape(port[key][1]) == shape(jax[key][1]), key
+    assert port["capture"] == jax["capture"]
+    recent = port["/admin/placement/recent?limit=4"][1]
+    assert recent["enabled"] and recent["records"]
+    jrecent = jax["/admin/placement/recent?limit=4"][1]
+    assert shape(recent["records"][-1]) == shape(jrecent["records"][-1])
+    assert shape(recent["records"][-1]["decisions"][0]) == \
+        shape(jrecent["records"][-1]["decisions"][0])
+    status, explained = port["/admin/placement/explain/<aid>"]
+    assert status == 200 and explained["decision"]["invoker"] == "invoker0"
+    host = port["/admin/profile/host"][1]
+    assert host["enabled"] and host["installed"] and host["loop_lag"]["ticks"]
+    assert port["/admin/incidents"][0] == 404
+    assert port["anonymous"] == 401
 
 
 # -- the CLI ---------------------------------------------------------------

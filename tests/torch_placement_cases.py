@@ -90,3 +90,51 @@ def container_case(n, b, rng, slots=8):
     cols = random_batch(n, b, rng, slots=slots,
                         maxc_choices=(1, 1, 1, 2, 4, 4, 8, 8, 16, 16))
     return books, cols
+
+
+def _window_row(cols, i, off, size, rng):
+    """Row i of the nine batch columns gets the window [off, off + size),
+    with a home, a coprime step and a rand inside it."""
+    cols[0][i], cols[1][i] = off, size
+    cols[2][i] = rng.randint(0, size)
+    st = int(rng.randint(1, size + 1))
+    while math.gcd(st, size) != 1:
+        st = int(rng.randint(1, size + 1))
+    cols[3][i] = pow(st, -1, size) if size > 1 else 0
+    cols[7][i] = rng.randint(0, size)
+    cols[8][i] = True
+
+
+def wide_case(n, use_penalty, b=36):
+    """A fleet padded past 2^17 (the scan kernel's wide instance) with
+    partitions within 2^17 placed anywhere in it: windows across the
+    register, shared-memory and streamed tiers' edges, the managed
+    partition of a 140,000-invoker fleet (126,000), a dead window (row 6),
+    the last invoker alone, rows whose ranks all tie (step_inv 0: the
+    lowest index wins), rows that only a forced rotation places (rows
+    10-12) and out-of-range slots. Returns (books, cols, penalty)."""
+    rng = np.random.RandomState(n % 9973 + use_penalty)
+    free, conc, health = random_books(n, rng, slots=4, unhealthy_p=0.1,
+                                      conc_p=0.05)
+    cols = random_batch(1 << 17, b, rng, slots=4, maxc_choices=(1, 1, 4),
+                        oob_p=0.15)
+    cols[0] += rng.randint(0, n - (1 << 17) + 1, b).astype(cols[0].dtype)
+    edges = [2 * 16384, 16 * 8192, 16 * 16384, 55 * 16384, n - 16]
+    for r, e in enumerate(edges):
+        _window_row(cols, r, min(e - 9, n - 20), 20, rng)
+    _window_row(cols, 5, 0, 126000, rng)
+    _window_row(cols, 6, n // 3, 5, rng)
+    _window_row(cols, 7, n - 1, 1, rng)
+    for r in (8, 9):
+        _window_row(cols, r, int(rng.randint(0, n - 4096)), 4096, rng)
+        cols[3][r] = 0
+    conc = conc.copy()
+    for r in (10, 11, 12):
+        _window_row(cols, r, int(rng.randint(0, n - 8)), 8, rng)
+        cols[4][r] = 1 << 24
+        conc[cols[0][r]:cols[0][r] + 8] = 0
+    health = health.copy()
+    health[[0, n - 1]] = True
+    health[n // 3:n // 3 + 5] = False
+    pen = rng.randint(0, 4, n).astype(np.int32) if use_penalty else None
+    return (free, conc, health), cols, pen
