@@ -56,6 +56,22 @@ Phases, each reported on its own line:
      256-row steps of the same traffic (step p50, scan launches, each
      launch timed with CUDA events); its first 10 steps are replayed on
      the CPU and must agree in decisions and books.
+  6b. planes  the device planes at the full fleet (N = 16,384, 24 latency
+              buckets, 256 namespace rows): the telemetry fold
+              (`record_packed`) on the card against the NumPy twin at
+              E in {8, 64, 4096} with duplicate indices, padding rows and
+              overflow latencies (integers exact, float sums within
+              rtol 1e-5); 30 anomaly ticks on the card (three slow
+              invokers, an error burst) against `anomaly_step_np` (flags
+              exact except where the twin's score lies within the stated
+              tolerance of its threshold, counted; scores within rtol and
+              atol 1e-5) and bit-exact against the same torch step on the
+              CPU; the planes' fold and `AnomalyPlane.tick` under
+              `torch.cuda.set_sync_debug_mode("error")`; each program
+              timed with CUDA events beside its byte bound (for the fold,
+              the cells its events touch; the out-of-place copy of the
+              whole state is a separate reading), and its kernels' device
+              time from `torch.profiler`.
   7. front    the load balancer front, `TpuBalancer()` on the card, over
               the in-memory bus: 10,000 simulated invokers register by
               pings through its supervision pool (the books grow from
@@ -83,12 +99,30 @@ Phases, each reported on its own line:
               acks ("wire"), the observatory's loop lag, GC pauses, tasks
               an invoke, serde by hop and the loop thread's samples by
               host layer ("host_observatory"), and the records filed.
+              The device planes run at the JAX package's defaults too
+              (telemetry folds on the dispatch cadence, the anomaly step
+              and the HBM watermarks on the supervision tick, the
+              profiler around the step entry points): "device_planes"
+              carries the events observed, the folds and events still
+              pending (must be 0), anomaly ticks run and harvested (at
+              least one), the SLO count (every activation), the
+              signature census (no churn), the kernel builds, HBM in use
+              (above 0) and the fold's and the anomaly step's device time
+              inside the profile window. A failure a plane logs and
+              swallows (a failed fold or step) fails the phase through
+              those counters. Then the planes A/B ("planes_ab" lines):
+              phase 7's traffic at 24 waves with the three planes off,
+              on, on, off (step p50, activations/s, placement p50).
   8. http     8a the standalone with real sandboxes; 8b the same assembly
               over the simulated fleet at 10,000 invokers, 8,000 blocking
               invokes at 256 in flight from a client process then 200 one
               at a time, with the planes at their defaults
               (`Controller.start` installs the observatory) and the same
-              readings as phase 7; 8c four runs of 8b's configuration at
+              readings as phase 7; once drained, `/admin/slo`,
+              `/admin/alerts`, `/admin/anomalies` and
+              `/admin/profile/kernel` over HTTP must answer 200, the SLO
+              count must equal the invokes and the kernel profile show no
+              churn and the kernel builds; 8c four runs of 8b's configuration at
               2,000 invokes, the coalescing producer on, off, off, on
               ("http_ab" lines: invokes/s, HTTP p50/p99, server CPU an
               invoke).
@@ -1418,6 +1452,7 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         blackbox_fraction=0.1, max_batch=MAX_BATCH, action_slots=A,
         initial_pad=64, rate_limit_per_minute=rate_limit,
         device=None if DEVICE == "cuda" else DEVICE)
+    _annotate_planes(bal)
     await bal.start()
     t0 = time.perf_counter()
     await fleet.ping(bal.supervision, list(range(N_INV)))
@@ -1544,7 +1579,13 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         else:
             promises.append(o.result())
     results = await asyncio.gather(*promises, return_exceptions=True)
-    torch.cuda.synchronize()
+    # the supervision's own tick twice: it folds the last events, and the
+    # anomaly step it enqueues harvests on the next
+    ticks_in_run = bal.anomaly.device_ticks
+    for _ in range(2):
+        bal._telemetry_tick()
+        torch.cuda.synchronize()
+    planes_rep = dict(_plane_report(bal), ticks_in_run=ticks_in_run)
     books = _books_np(bal.state)
     summary = dict(
         rate_limit=rate_limit, register_s=register_s, waves=waves,
@@ -1566,7 +1607,8 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         host_s=dict(host, wall=t_last - t_first,
                     other=t_last - t_first - sum(host.values())),
         planes=planes, wire=fleet.wire_report(),
-        host_observatory=host_obs, flight_recorder_records=fr_filed)
+        host_observatory=host_obs, flight_recorder_records=fr_filed,
+        device_planes=planes_rep)
     if flap:
         summary["flap"] = dict(invokers=len(flapped), **flap_status)
     if rate_waves is not None:
@@ -1586,7 +1628,8 @@ def _window_idle_share(prof, window="front_window"):
            if e.name == window and e.device_type == cpu_t]
     t0, t1 = win[0]
     dev = [(e.time_range.start, e.time_range.end) for e in evs
-           if e.device_type == cuda_t and e.name != window]
+           if e.device_type == cuda_t and e.name != window
+           and e.name not in PLANE_RANGES]
     busy = _union_ms(dev, t0, t1)
     return dict(window_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
                 device_idle_share=1.0 - busy / (t1 - t0))
@@ -1595,6 +1638,51 @@ def _window_idle_share(prof, window="front_window"):
 #: the profiler's activities (the CPU rehearsal drops CUDA)
 PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
+
+
+def planes_ab(TB, K):
+    """The front at phase 7's traffic (PLANES_AB_WAVES waves a run, no
+    trickle, flap or profile) with the three device planes off, on, on,
+    off, each run a fresh balancer and fleet: step p50, activations/s and
+    placement p50 of each. Records the planes' cost on the card inside one
+    call; it claims nothing."""
+    import os
+    prior = {k: os.environ.get(k) for k in PLANES_OFF}
+    runs = []
+    try:
+        for on in (False, True, True, False):
+            for k, v in PLANES_OFF.items():
+                if on:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            out, _rec, _books, _prof = asyncio.run(_front_run(
+                TB, K, None, "0", PLANES_AB_WAVES, 0, profile=False,
+                flap=False))
+            dp = out["device_planes"]
+            row = dict(planes_on=on, activations=out["activations"],
+                       activations_per_s=out["activations_per_s"],
+                       step_ms_p50=out["step_ms_p50_p99"][0],
+                       placement_ms_p50=out["placement_ms_p50_p99"][0],
+                       steps=out["steps"], folds=dp.get("folds", 0),
+                       anomaly_ticks=dp.get("anomaly_ticks", 0))
+            say("planes_ab", **row)
+            require(not out["failed"] and not out["unresolved"]
+                    and out["active_at_end"] == 0 and out["books_full"],
+                    f"planes A/B (on={on}): every activation resolved, "
+                    f"books full")
+            require(dp["enabled"] == on,
+                    f"the A/B leg runs with the planes on={on}: {dp}")
+            if on:
+                _require_planes(dp, out["activations"], "planes A/B")
+            runs.append(row)
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return runs
 
 
 def front_phase(torch, P, K, TB):
@@ -1610,6 +1698,8 @@ def front_phase(torch, P, K, TB):
             profile=profile, flap=profile))
         if prof is not None:
             out["profile"] = _window_idle_share(prof)
+            out["device_planes"]["profile_window"] = _device_ms(
+                prof, PLANE_RANGES)
         t1 = time.perf_counter()
         bad, steps, st = rec.replay(books0, buckets0, P, TB, TT)
         replay_books = _books_np(st)
@@ -1636,6 +1726,8 @@ def front_phase(torch, P, K, TB):
                 and out["host_observatory"]["lag_ticks"] > 0,
                 f"front {label}: acks went out in batch frames, the flight "
                 f"recorder filed, the observatory ticked")
+        _require_planes(out["device_planes"], out["activations"],
+                        f"front {label}")
         if rate is None:
             require(out["launches"]["scan"] > 0
                     and out["launches"]["repair"] > 0,
@@ -1649,6 +1741,351 @@ def front_phase(torch, P, K, TB):
                     f"the repair kernel ran: {out['launches']}")
         res[label] = out
     return res
+
+
+# ------------------------------------------------------- the device planes
+#: the planes phase at the full fleet: 10,000 invokers padded to N, the
+#: JAX package's default 24 latency buckets and 256 namespace rows
+PLANE_BUCKETS, PLANE_NS = 24, 256
+PLANE_E = (8, 64, 4096)
+PLANE_TICKS, PLANE_TICK_E = 30, 4096
+
+
+def _plane_subjects():
+    """The three slow invokers and the bursting one, spread over the
+    fleet."""
+    return (3, N_INV * 47 // 100, N_INV * 9 // 10), 77 % N_INV
+
+
+#: the stated tolerances: float sums and scores against the NumPy twin
+PLANE_RTOL, PLANE_ATOL = 1e-5, 1e-5
+#: the smoke's ranges around the plane programs (torch.profiler windows)
+PLANE_RANGES = ("telemetry_fold", "anomaly_step")
+#: the A/B's off switches (the JAX package's knobs)
+PLANES_OFF = {"CONFIG_whisk_telemetry_enabled": "false",
+              "CONFIG_whisk_anomaly_enabled": "false",
+              "CONFIG_whisk_profiling_enabled": "false"}
+PLANES_AB_WAVES = 24
+
+
+def _plane_events(rng, e, tick=None):
+    """A seeded int32[5, e] event matrix over the fleet: duplicate invoker
+    and namespace indices, a quarter of the rows padding, a tenth of the
+    latencies on the bounds or past int32; with `tick`, three slow
+    invokers and an error burst on one (ticks 10-12)."""
+    from openwhisk_tpu_torch.ops import telemetry as T
+    ev = np.zeros((5, e), np.int32)
+    k = max(1, 3 * e // 4)
+    slow, burst = _plane_subjects()
+    ev[0, :k] = rng.randint(0, N_INV, k)
+    if tick is not None:  # the slow and bursting invokers take traffic
+        ev[0, :k:7] = rng.choice(slow + (burst,), len(ev[0, :k:7]))
+    else:
+        ev[0, :k:3] = rng.randint(0, 8, len(ev[0, :k:3]))  # duplicates
+    ev[1, :k] = rng.randint(0, PLANE_NS, k)
+    lat = rng.lognormal(3.0, 0.3, k) * 1000
+    if tick is None:
+        edge = rng.rand(k) < 0.1
+        lat[edge] = rng.choice([1000, 1001, 2 ** 21 * 1000, 10 ** 9,
+                                T.LAT_US_MAX], int(edge.sum()))
+    else:
+        lat[np.isin(ev[0, :k], slow)] *= 8
+    ev[2, :k] = np.minimum(lat, T.LAT_US_MAX).astype(np.int64)
+    ev[3, :k] = 0 if tick is not None else rng.randint(0, 3, k)
+    if tick is not None and 10 <= tick < 13:
+        ev[3, :k][ev[0, :k] == burst] = T.OUTCOME_ERROR
+    ev[4, :k] = 1
+    ev[0, k:] = rng.randint(0, N_INV, e - k)  # padding rows add nothing
+    ev[2, k:] = rng.randint(0, 10 ** 6, e - k)
+    return ev
+
+
+def _state_bytes(state):
+    return sum(t.numel() * t.element_size() for t in state)
+
+
+def _fold_need_bytes(ev, n_buckets):
+    """The bytes a scatter-add of `ev` needs: the event matrix read once,
+    and each accumulator cell its valid rows touch (distinct (invoker,
+    bucket), (namespace, bucket), invoker, namespace, (invoker, outcome)
+    and (namespace, outcome) cells, 4 bytes each) read and written once.
+    This run's data decides the count: duplicates touch a cell once and
+    padding rows touch none."""
+    from openwhisk_tpu_torch.ops import telemetry as T
+    v = ev[:, ev[4] == 1].astype(np.int64)
+    inv = np.clip(v[0], 0, N_PAD - 1)
+    ns = np.clip(v[1], 0, PLANE_NS - 1)
+    b = T.bucket_of_us(v[2], n_buckets)
+    k = np.clip(v[3], 0, T.N_OUTCOMES - 1)
+    cells = sum(len(np.unique(x)) for x in (
+        inv * n_buckets + b, ns * n_buckets + b, inv, ns,
+        inv * T.N_OUTCOMES + k, ns * T.N_OUTCOMES + k))
+    return ev.nbytes + 2 * 4 * cells
+
+
+def _counts_agree(dev, twin):
+    """(max abs int error, max rel float error) of device counts against
+    the twin's; ints must be exact, floats within PLANE_RTOL."""
+    int_err, rel = 0, 0.0
+    for f, v in twin.items():
+        d = np.asarray(dev[f])
+        if v.dtype.kind == "f":
+            rel = max(rel, float(np.max(np.abs(d - v) / np.maximum(
+                np.abs(v), 1e-30), initial=0.0)))
+        else:
+            int_err = max(int_err, int(np.max(np.abs(d.astype(np.int64) - v),
+                                              initial=0)))
+    return int_err, rel
+
+
+def _sync_debug(torch, fn):
+    """fn() with any synchronizing CUDA call raising."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _device_ms(prof, names):
+    """Kernel time launched under each host range of `names` (the
+    profiler's recursive device time of the range's CPU event): calls and
+    ms per call."""
+    cpu_t = torch.autograd.DeviceType.CPU
+    out = {}
+    for name in names:
+        evs = [e for e in prof.events()
+               if e.name == name and e.device_type == cpu_t]
+        tot = sum(e.device_time_total if hasattr(e, "device_time_total")
+                  else e.cuda_time_total for e in evs) / 1e3
+        out[name] = dict(calls=len(evs), device_ms=tot,
+                         device_ms_per_call=(tot / len(evs) if evs
+                                             else None))
+    return out
+
+
+def planes_phase(torch):
+    """The device planes at the full fleet on the card: the telemetry fold
+    against the NumPy twin, 30 anomaly ticks against the twin and against
+    the plain torch step on the CPU, the fold and the tick under
+    sync-debug "error", and both programs timed with CUDA events beside
+    their byte bounds."""
+    from openwhisk_tpu_torch.controller.loadbalancer import anomaly as AP
+    from openwhisk_tpu_torch.controller.loadbalancer import telemetry as TP
+    from openwhisk_tpu_torch.ops import anomaly as AN
+    from openwhisk_tpu_torch.ops import telemetry as T
+    rng = np.random.RandomState(23)
+    out = {"N": N_PAD, "buckets": PLANE_BUCKETS, "namespaces": PLANE_NS}
+    # (a) record_packed on the card against the twin, at each fold size
+    fold = {}
+    for e in PLANE_E:
+        dev = T.DeviceLatencyAccumulator(N_PAD, PLANE_NS, PLANE_BUCKETS,
+                                         device=DEVICE)
+        twin = T.NumpyLatencyAccumulator(N_PAD, PLANE_NS, PLANE_BUCKETS)
+        for _ in range(3):
+            ev = _plane_events(rng, e)
+            dev.fold(ev)
+            twin.fold(ev)
+        int_err, rel = _counts_agree(dev.counts(), twin.counts())
+        fold[e] = dict(int_err=int_err, float_rel_err=rel)
+        require(int_err == 0 and rel <= PLANE_RTOL,
+                f"telemetry fold E={e} on the card equals the twin: "
+                f"{fold[e]}")
+    out["fold_vs_twin"] = fold
+    # (b) 30 anomaly ticks on the card against the twin and the plain
+    # torch step on the CPU
+    c = AP.AnomalyConfig()
+    cfg = (c.alpha, c.z_threshold, c.spike_threshold, c.min_samples,
+           c.mad_floor_ms)
+    acc = T.DeviceLatencyAccumulator(N_PAD, PLANE_NS, PLANE_BUCKETS,
+                                     device=DEVICE)
+    step = AN.make_anomaly_step(*cfg)
+    st_dev = AN.init_anomaly(N_PAD, PLANE_BUCKETS, device=DEVICE)
+    st_cpu = AN.init_anomaly(N_PAD, PLANE_BUCKETS, device="cpu")
+    st_np = AN.init_anomaly_np(N_PAD, PLANE_BUCKETS)
+    score_err, cpu_mismatch, flag_diff, borderline = 0.0, 0, 0, 0
+    flagged = set()
+    for tick in range(PLANE_TICKS):
+        acc.fold(_plane_events(rng, PLANE_TICK_E, tick))
+        s = acc.state
+        st_dev, sc_dev = step(st_dev, s.inv_buckets, s.inv_lat_ms,
+                              s.inv_outcomes)
+        cnt = acc.counts()
+        st_cpu, sc_cpu = step(st_cpu, *(torch.from_numpy(cnt[f]) for f in (
+            "inv_buckets", "inv_lat_ms", "inv_outcomes")))
+        st_np, sc_np = AN.anomaly_step_np(
+            st_np, cnt["inv_buckets"], cnt["inv_lat_ms"],
+            cnt["inv_outcomes"], *cfg)
+        sc = sc_dev.cpu().numpy()
+        cpu_mismatch += int(not np.array_equal(sc, sc_cpu.numpy()))
+        score_err = max(score_err, float(np.max(
+            np.abs(sc - sc_np) - PLANE_RTOL * np.abs(sc_np))))
+        # a flag may differ from the float64 twin's only where the twin's
+        # score lies within the stated tolerance of its threshold
+        near = {row: np.abs(sc_np[row] - thr) <= PLANE_ATOL
+                + PLANE_RTOL * thr for row, thr in (
+                    (AN.S_STRAGGLER, c.z_threshold),
+                    (AN.S_ERR_SPIKE, c.spike_threshold),
+                    (AN.S_TM_SPIKE, c.spike_threshold))}
+        for row, excused in (
+                (AN.S_STRAGGLER_FLAG, near[AN.S_STRAGGLER]),
+                (AN.S_ANOMALY_FLAG, near[AN.S_STRAGGLER]
+                 | near[AN.S_ERR_SPIKE] | near[AN.S_TM_SPIKE])):
+            diff = sc[row] != sc_np[row]
+            borderline += int((diff & excused).sum())
+            flag_diff += int((diff & ~excused).sum())
+        flagged |= {(tick, int(i))
+                    for i in np.nonzero(sc[AN.S_ANOMALY_FLAG])[0]}
+    out["anomaly_vs_twin"] = dict(
+        ticks=PLANE_TICKS, score_err_past_tolerance=score_err,
+        flag_mismatches=flag_diff, borderline_flags=borderline,
+        ticks_differing_from_cpu_torch=cpu_mismatch,
+        flagged_invokers=sorted({i for _, i in flagged})[:16],
+        burst_flagged=(10, _plane_subjects()[1]) in flagged)
+    require(score_err <= PLANE_ATOL and flag_diff == 0,
+            f"anomaly scores and flags on the card equal the twin's: "
+            f"{out['anomaly_vs_twin']}")
+    require(cpu_mismatch == 0,
+            "the card's anomaly step is bit-exact with the CPU torch step")
+    slow, burst = _plane_subjects()
+    require(set(slow) <= {i for _, i in flagged} and (10, burst) in flagged,
+            "the slow invokers and the error burst flagged")
+    # (c) the fold and the tick under sync-debug "error", through the
+    # planes as the balancer runs them
+    tp = TP.TelemetryPlane(TP.TelemetryConfig(buckets=PLANE_BUCKETS,
+                                              namespaces=PLANE_NS))
+    tp.use_device(N_PAD, DEVICE)
+    plane = AP.AnomalyPlane(AP.AnomalyConfig(), AP.AlertsConfig())
+    names = [f"invoker{i}" for i in range(N_INV)]
+    plane.attach(telemetry=tp, invoker_names=lambda: names)
+
+    def observe_tick(tick):
+        ev = _plane_events(rng, PLANE_TICK_E, tick)
+        for col in ev[:, ev[4] == 1].T:
+            tp.observe(int(col[0]), f"ns{col[1]}", col[2] / 1e3, int(col[3]))
+
+    observe_tick(0)
+    tp.device_fold()
+    plane.tick(now=1.0)  # warm: the carry and the step are built
+    torch.cuda.synchronize()
+    for tick in range(1, 6):
+        observe_tick(tick)
+        _sync_debug(torch, tp.device_fold)
+        _sync_debug(torch, lambda: plane.tick(now=1.0 + tick))
+        torch.cuda.synchronize()
+    out["sync_debug"] = dict(folds=tp.accumulator.folds,
+                             device_ticks=plane.device_ticks,
+                             harvested=plane.harvested,
+                             step_failures=plane.step_failures)
+    require(plane.step_failures == 0 and plane.harvested >= 1
+            and tp.pending == 0,
+            f"fold and tick ran under sync-debug error: {out['sync_debug']}")
+    # (d) times from CUDA events beside the byte bounds
+    times = {}
+    for e in (64, 4096):
+        dev = T.DeviceLatencyAccumulator(N_PAD, PLANE_NS, PLANE_BUCKETS,
+                                         device=DEVICE)
+        ev = _plane_events(rng, e)
+        ms = time_ms(lambda: dev.fold(ev), lambda: None, torch, reps=50)
+        nbytes = _fold_need_bytes(ev, PLANE_BUCKETS)
+        b_ms, b_by = bound(nbytes, 0)
+        # what this design moves besides: each fold writes a NEW state
+        # (out of place, so a scrape's snapshot stays whole), reading and
+        # writing all six tensors whatever E is
+        copy_bytes = 2 * _state_bytes(dev.state) + ev.nbytes
+        times[f"fold_E{e}"] = dict(
+            ms=ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            out_of_place_bytes=copy_bytes,
+            out_of_place_ms=bound(copy_bytes, 0)[0])
+    s = acc.state
+    st = st_dev
+    ms = time_ms(lambda: step(st, s.inv_buckets, s.inv_lat_ms,
+                              s.inv_outcomes), lambda: None, torch, reps=50)
+    n = N_PAD
+    nbytes = (2 * (_state_bytes((s.inv_buckets, s.inv_lat_ms,
+                                 s.inv_outcomes)))
+              + 5 * n * 4            # carry EWMAs and ticks read
+              + 5 * n * 4            # and written
+              + AN.N_SCORE_ROWS * n * 4)
+    b_ms, b_by = bound(nbytes, 0)
+    times["anomaly_step"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                 bytes=nbytes)
+    # the kernels' own time over the same calls (device busy, no host)
+    prof = torch.profiler.profile(activities=PROFILE_ACTIVITIES)
+    dev = T.DeviceLatencyAccumulator(N_PAD, PLANE_NS, PLANE_BUCKETS,
+                                     device=DEVICE)
+    ev = _plane_events(rng, 4096)
+    torch.cuda.synchronize()
+    prof.start()
+    for _ in range(10):
+        with torch.profiler.record_function("telemetry_fold"):
+            dev.fold(ev)
+        with torch.profiler.record_function("anomaly_step"):
+            step(st, s.inv_buckets, s.inv_lat_ms, s.inv_outcomes)
+    torch.cuda.synchronize()
+    prof.stop()
+    out["device_busy"] = _device_ms(prof, PLANE_RANGES)
+    out["times"] = times
+    return out
+
+
+def _annotate_planes(bal):
+    """Route the balancer's telemetry fold and anomaly step through
+    torch.profiler ranges (the smoke's instrumentation), so a profile
+    window attributes their kernels."""
+    tp, an = bal.telemetry, bal.anomaly
+    fold, tick = tp.device_fold, an._tick_device
+
+    def fold_ranged(*a, **k):
+        with torch.profiler.record_function("telemetry_fold"):
+            return fold(*a, **k)
+
+    def tick_ranged(*a, **k):
+        with torch.profiler.record_function("anomaly_step"):
+            return tick(*a, **k)
+    tp.device_fold, an._tick_device = fold_ranged, tick_ranged
+
+
+def _plane_report(bal):
+    """The device planes' counters after a run (the balancer's own)."""
+    tp, an = bal.telemetry, bal.anomaly
+    if not tp.enabled:
+        return dict(enabled=False, anomaly=an.enabled,
+                    profiler=bal.profiler.enabled)
+    slo = tp.slo_report(bal._telemetry_invoker_names())
+    kp = bal.kernel_profile()
+    return dict(
+        enabled=True,
+        events_observed=tp._events_total, folds=tp.accumulator.folds,
+        pending=tp.pending, dropped=tp.dropped_events,
+        fold_failures=bal.counters["telemetry_fold_failures"],
+        anomaly_ticks=an.device_ticks, harvested=an.harvested,
+        step_failures=an.step_failures,
+        slo_count=slo["global"]["count"],
+        slo_compliant=slo["global"]["compliant"],
+        compiles={k: kp["compiles"][k] for k in ("expected", "unexpected")},
+        kernel_builds=[(b["source"], b["how"], b["seconds"])
+                       for b in kp["kernel_builds"]],
+        hbm_bytes_in_use=bal.metrics.gauge_value(
+            "loadbalancer_hbm_bytes_in_use"),
+        firing=sum(an.engine.firing_counts().values()))
+
+
+def _require_planes(rep, completed, what):
+    require(rep["pending"] == 0 and rep["dropped"] == 0
+            and rep["fold_failures"] == 0 and rep["step_failures"] == 0,
+            f"{what}: every event folded, no plane failure: {rep}")
+    require(rep["events_observed"] == rep["slo_count"] == completed,
+            f"{what}: the telemetry counted every completed activation "
+            f"({completed}): {rep}")
+    require(rep["anomaly_ticks"] >= 1 and rep["harvested"] >= 1,
+            f"{what}: anomaly ticks ran and harvested: {rep}")
+    require(rep["compiles"]["unexpected"] == 0
+            and {s for s, *_ in rep["kernel_builds"]} >= {
+                "placement_scan", "placement_repair"},
+            f"{what}: no signature churn, the kernel builds censused")
+    require((rep["hbm_bytes_in_use"] or 0) > 0,
+            f"{what}: loadbalancer_hbm_bytes_in_use above 0")
 
 
 # ------------------------------------------------------------- phase 5b
@@ -2044,6 +2481,7 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
         port=port, balancer="tpu", ui=False, invoker=False,
         messaging_provider=fleet.provider, **UNTHROTTLED, **_standalone_kw())
     bal = ctrl.load_balancer
+    _annotate_planes(bal)
     out = {"device": str(bal.device)}
     stop_pinging, pinger = asyncio.Event(), None
     try:
@@ -2107,6 +2545,8 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
         require(client.returncode == 0, f"http client exit {client.returncode}")
         res = json.loads(stdout.decode().strip().splitlines()[-1])
         await _drain_front(bal)
+        if full:
+            out["device_planes"] = await _admin_planes(bal, port)
         stop_pinging.set()
         await pinger
         server_cpu = time.process_time() - cpu0
@@ -2148,7 +2588,9 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
                             and not books[1].any()
                             and books[2][:N_INV].all()),
             profile=(dict(_window_idle_share(box["prof"], "http_window"),
-                          rows=box["rows"], stop_ms=box["stop_ms"])
+                          rows=box["rows"], stop_ms=box["stop_ms"],
+                          device_planes=_device_ms(box["prof"],
+                                                   PLANE_RANGES))
                      if box["prof"] is not None else None),
             host_s=dict(
                 client=res["cpu_s"], balancer=balancer_s, fleet=fleet_s,
@@ -2164,6 +2606,40 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
         await ctrl.stop()
         await fleet.stop()
     return out, rec, books0, books
+
+
+async def _admin_planes(bal, port):
+    """8b's device planes over HTTP once the run drained: the
+    supervision's tick twice (the last events fold; the anomaly step it
+    enqueues harvests on the next), then `/admin/slo`, `/admin/alerts`,
+    `/admin/anomalies` and `/admin/profile/kernel` with the guest key, and
+    the balancer's own counters."""
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    ticks_in_run = bal.anomaly.device_ticks
+    for _ in range(2):
+        bal._telemetry_tick()
+        torch.cuda.synchronize()
+    url = f"http://127.0.0.1:{port}"
+    got = {}
+    async with aiohttp.ClientSession(
+            auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)) as s:
+        for path in ("/admin/slo", "/admin/alerts", "/admin/anomalies",
+                     "/admin/profile/kernel"):
+            async with s.get(url + path) as r:
+                got[path] = (r.status, await r.json())
+    rep = dict(_plane_report(bal), ticks_in_run=ticks_in_run)
+    slo, kp = got["/admin/slo"][1], got["/admin/profile/kernel"][1]
+    rep["http"] = dict(
+        status={p: st for p, (st, _) in got.items()},
+        slo_count=slo["global"]["count"], slo_kernel=slo["kernel"],
+        compiles_unexpected=kp["compiles"]["unexpected"],
+        kernel_builds=len(kp["kernel_builds"]),
+        hbm_bytes_in_use=kp["memory"].get("bytes_in_use"),
+        alerts_active=len(got["/admin/alerts"][1]["active"]),
+        anomalous=sum(r["anomalous"] for r in
+                      got["/admin/anomalies"][1]["invokers"]))
+    return rep
 
 
 async def _keep_pinging(fleet, pool, stop):
@@ -2238,6 +2714,15 @@ def http_phase(torch, P, K, TB):
             and out["flight_recorder_records"] > 0,
             "http: Controller.start installed the observatory, the flight "
             "recorder filed")
+    dp = out["device_planes"]
+    _require_planes(dp, out["invokes"], "http")
+    require(set(dp["http"]["status"].values()) == {200}
+            and dp["http"]["slo_count"] == out["invokes"]
+            and dp["http"]["compiles_unexpected"] == 0
+            and dp["http"]["kernel_builds"] > 0
+            and (dp["http"]["hbm_bytes_in_use"] or 0) > 0,
+            f"http: the device planes' routes answer, /admin/slo counts "
+            f"every invoke: {dp['http']}")
     out["ab"] = coalesce_ab(TB, K)
     return sa, out
 
@@ -2334,8 +2819,16 @@ def main():
     say("scan_pinned_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    planes = planes_phase(torch)
+    say("planes", **planes)
+    say("planes_phase", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     front = front_phase(torch, P, K, TB)
     say("front_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    planes_ab(TB, K)
+    say("planes_ab_phase", seconds=time.perf_counter() - t0)
     front_launches = {k: sum(seg["launches"][k] for seg in front.values())
                       for k in ("scan", "repair")}
 

@@ -2,10 +2,11 @@
 
 A copy of `openwhisk_tpu/controller/api.py` with every /api/v1 route,
 /ping, /invokers and /metrics. Of its /admin surface the port serves the
-flight recorder, the occupancy books, the host observatory, the latency
-waterfall, the trace store, the incident recorder, the readiness probe and
-the index; the routes of planes not ported yet answer 404 naming the
-plane.
+flight recorder, the occupancy books, the SLO report, the kernel profiler
+and its capture window, the host observatory, the alerts and anomaly
+scores, the latency waterfall, the trace store, the incident recorder,
+the readiness probe and the index; the routes of planes not ported yet
+(placement quality, fleet federation) answer 404 naming the plane.
 
 Rebuild of core/controller/.../controller/RestAPIs.scala:160-228 (versioned
 route tree + auth directive) with the per-collection APIs:
@@ -124,11 +125,22 @@ class ControllerApi:
         r.add_get("/admin/placement/explain/{activation_id}",
                   self.placement_explain)
         r.add_get("/admin/placement/occupancy", self.placement_occupancy)
+        # SLO plane: compliance / budget / burn rates from the balancer's
+        # telemetry accumulator, auth-gated like the placement endpoints
+        r.add_get("/admin/slo", self.slo_report)
+        # kernel profiling plane: compile log / phase percentiles / HBM
+        # stats, plus the on-demand capture window (auth-gated)
+        r.add_get("/admin/profile/kernel", self.profile_kernel)
+        r.add_post("/admin/profile/capture", self.profile_capture)
         # host hot-loop observatory: event-loop lag / GC pauses / task
         # churn / serde shares / sampler self-time census, plus the
         # bounded full-rate capture window (auth-gated)
         r.add_get("/admin/profile/host", self.profile_host)
         r.add_post("/admin/profile/host/capture", self.profile_host_capture)
+        # anomaly & alerting plane: active/recent alerts and per-invoker
+        # anomaly scores with bucket-movement evidence (auth-gated)
+        r.add_get("/admin/alerts", self.alerts_report)
+        r.add_get("/admin/anomalies", self.anomalies_report)
         # end-to-end latency waterfall: live per-stage percentiles, the
         # tail budget breakdown and slowest-activation exemplars joined to
         # flight-recorder trace ids (auth-gated; host-side reads only)
@@ -610,14 +622,6 @@ class ControllerApi:
     UNPORTED_ADMIN = (
         ("placement quality plane", (
             ("GET", "/admin/placement/quality"),)),
-        ("telemetry plane", (
-            ("GET", "/admin/slo"),)),
-        ("kernel profiler", (
-            ("GET", "/admin/profile/kernel"),
-            ("POST", "/admin/profile/capture"))),
-        ("anomaly plane", (
-            ("GET", "/admin/alerts"),
-            ("GET", "/admin/anomalies"))),
         ("fleet observatory", (
             ("GET", "/admin/metrics/raw"),
             ("GET", "/admin/fleet/metrics"),
@@ -637,6 +641,115 @@ class ControllerApi:
                               request.get("transid"))
             for method, path in routes:
                 router.add_route(method, path, not_ported)
+
+    async def slo_report(self, request):
+        """Is the fleet meeting its latency/error SLOs, and which invokers
+        or tenants are burning the budget: the telemetry plane's evaluation
+        of the `CONFIG_whisk_slo_*` targets against the accumulated
+        per-invoker / per-namespace latency buckets."""
+        tp = getattr(self.c.load_balancer, "telemetry", None)
+        if tp is None:
+            return _error(404, "this balancer has no telemetry plane",
+                          request.get("transid"))
+        names = []
+        lb = self.c.load_balancer
+        if hasattr(lb, "_telemetry_invoker_names"):
+            names = lb._telemetry_invoker_names()
+        # ?raw=1: the label-keyed exact-merge export the fleet federation
+        # scrapes (integer bucket/outcome counts, no verdicts)
+        raw = request.query.get("raw", "").lower() in ("1", "true", "yes")
+        fn = tp.raw_counts if raw else tp.slo_report
+        if tp.SYNCS_DEVICE:
+            # reading device counts forces a device sync — worker thread,
+            # same policy as the occupancy endpoint
+            report = await asyncio.to_thread(fn, names)
+        else:
+            report = fn(names)
+        return web.json_response(report)
+
+    async def profile_kernel(self, request):
+        """The kernel profiling observatory: compile log + classification,
+        cache-key census, kernel builds, per-phase p50/p99 over the last N
+        batches, HBM / memory stats, and capture-window status. Reads are
+        host-side only (no device sync), so this runs inline."""
+        lb = self.c.load_balancer
+        if getattr(lb, "profiler", None) is None:
+            return _error(404, "this balancer has no kernel profiler",
+                          request.get("transid"))
+        if hasattr(lb, "kernel_profile"):
+            return web.json_response(lb.kernel_profile())
+        return web.json_response(lb.profiler.profile_json())
+
+    async def profile_capture(self, request):
+        """Arm a bounded capture window: `{"steps": N}` records the next N
+        dispatch steps at full detail (capped at the configured limit);
+        `"trace_dir"` additionally runs a server-side `torch.profiler`
+        session whose Chrome trace lands there; `"tail_threshold_ms"`
+        re-targets the tail sampler (0 disables it)."""
+        lb = self.c.load_balancer
+        prof = getattr(lb, "profiler", None)
+        if prof is None:
+            return _error(404, "this balancer has no kernel profiler",
+                          request.get("transid"))
+        if not prof.enabled:
+            return _error(409, "kernel profiling is disabled "
+                          "(CONFIG_whisk_profiling_enabled=false)",
+                          request.get("transid"))
+        body = (await request.json()) if request.can_read_body else {}
+        if not isinstance(body, dict):
+            return _error(400, "capture request body must be a JSON object",
+                          request.get("transid"))
+        try:
+            steps = int(body.get("steps", 16))
+            ttl = body.get("tail_threshold_ms")
+            ttl = float(ttl) if ttl is not None else None
+        except (TypeError, ValueError):
+            return _error(400, "steps must be an integer and "
+                          "tail_threshold_ms a number",
+                          request.get("transid"))
+        if steps < 1:
+            return _error(400, "steps must be >= 1", request.get("transid"))
+        trace_dir = body.get("trace_dir")
+        if trace_dir is not None and not isinstance(trace_dir, str):
+            return _error(400, "trace_dir must be a string",
+                          request.get("transid"))
+        return web.json_response(prof.arm_capture(
+            steps, trace_dir=trace_dir, tail_threshold_ms=ttl))
+
+    async def alerts_report(self, request):
+        """The alert plane: configured rules, active (pending + firing)
+        alerts, and the recent transition log from the alert ring.
+        `?limit=N` bounds the transition history (default 50)."""
+        plane = getattr(self.c.load_balancer, "anomaly", None)
+        if plane is None:
+            return _error(404, "this balancer has no anomaly plane",
+                          request.get("transid"))
+        try:
+            limit = max(0, int(request.query.get("limit", 50)))
+        except ValueError:
+            return _error(400, "limit must be an integer",
+                          request.get("transid"))
+        return web.json_response(plane.alerts_report(limit))
+
+    async def anomalies_report(self, request):
+        """Per-invoker anomaly scores (straggler / error-spike /
+        timeout-spike), flags, and evidence — which latency buckets moved
+        since the last detection tick. Device-path evidence forces a
+        device->host sync, so the report runs on a worker thread then
+        (same policy as /admin/slo)."""
+        lb = self.c.load_balancer
+        plane = getattr(lb, "anomaly", None)
+        if plane is None:
+            return _error(404, "this balancer has no anomaly plane",
+                          request.get("transid"))
+        names = None
+        if hasattr(lb, "_telemetry_invoker_names"):
+            names = lb._telemetry_invoker_names()
+        if plane.SYNCS_DEVICE:
+            report = await asyncio.to_thread(plane.anomalies_report, names)
+        else:
+            report = plane.anomalies_report(names)
+        return web.json_response(report)
 
     async def admin_ready(self, request):
         """Readiness probe: which placement role this controller holds.
@@ -679,6 +792,7 @@ class ControllerApi:
         lb = self.c.load_balancer
 
         fr = self._flight_recorder()
+        prof = getattr(lb, "profiler", None)
         from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
         traces_on = self._trace_store() is not None
         incidents_on = self._incidents() is not None
@@ -695,11 +809,24 @@ class ControllerApi:
                 fr is not None,
                 knob="CONFIG_whisk_loadBalancer_flightRecorder_enabled"),
             row("/admin/placement/occupancy", "GET", lb is not None),
+            row("/admin/slo", "GET",
+                getattr(lb, "telemetry", None) is not None),
+            row("/admin/profile/kernel", "GET", prof is not None,
+                knob="CONFIG_whisk_profiling_enabled"),
+            row("/admin/profile/capture", "POST",
+                prof is not None and prof.enabled,
+                knob="CONFIG_whisk_profiling_enabled"),
             row("/admin/profile/host", "GET", True,
                 knob="CONFIG_whisk_hostProfiling_enabled"),
             row("/admin/profile/host/capture", "POST",
                 obs.enabled and obs.sampler_running,
                 knob="CONFIG_whisk_hostProfiling_enabled"),
+            row("/admin/alerts", "GET",
+                getattr(lb, "anomaly", None) is not None,
+                knob="CONFIG_whisk_anomaly_enabled"),
+            row("/admin/anomalies", "GET",
+                getattr(lb, "anomaly", None) is not None,
+                knob="CONFIG_whisk_anomaly_enabled"),
             row("/admin/latency/waterfall", "GET",
                 getattr(lb, "waterfall", None) is not None),
             row("/admin/ready", "GET", True),

@@ -27,10 +27,14 @@ CommonLoadBalancer.scala), with the parts the TPU balancer's front needs:
     tail-sampled trace store and the incident recorder's arming (off by
     default), beside the process-wide latency waterfall.
 
-The telemetry, profiler, anomaly and quality planes and the HA / partition
-fencing are not here: none of them changes a decision. Events are counted
-in `counters`, rendered on the metric emitter's page as
-`openwhisk_loadbalancer_<event>` counters.
+  - the device planes the JAX package turns on by default: completion
+    telemetry and SLO burn rates (`TelemetryPlane`), the kernel profiler
+    (`KernelProfiler`) and anomaly scoring with its alert engine
+    (`AnomalyPlane`), constructed, attached and rendered as there.
+
+The quality plane and the HA / partition fencing are not here: neither
+changes a decision. Events are counted in `counters`, rendered on the
+metric emitter's page as `openwhisk_loadbalancer_<event>` counters.
 """
 from __future__ import annotations
 
@@ -54,7 +58,11 @@ from ...utils.tracing import trace_id_of
 from ...utils.transaction import TransactionId
 from ...utils.waterfall import (GLOBAL_WATERFALL, STAGE_COMPLETION_ACK,
                                 ActivationWaterfall)
+from ...ops.profiler import KernelProfiler
+from ...ops.telemetry import (OUTCOME_ERROR, OUTCOME_SUCCESS, OUTCOME_TIMEOUT)
+from .anomaly import AnomalyPlane
 from .flight_recorder import BatchRecord, FlightRecorder
+from .telemetry import TelemetryPlane
 
 # invoker states (ref InvokerState in InvokerSupervision.scala)
 HEALTHY = "up"
@@ -67,6 +75,20 @@ OFFLINE = "down"
 class InvokerHealth:
     id: InvokerInstanceId
     status: str = HEALTHY
+    #: advisory anomaly-plane hint (the name of a firing invoker-scoped
+    #: alert) — observability only, never part of usable/status decisions
+    hint: Optional[str] = None
+
+    @property
+    def usable(self) -> bool:
+        return self.status in (HEALTHY,)
+
+    def to_json(self):
+        out = {"invoker": self.id.as_string, "status": self.status,
+               "userMemory": self.id.user_memory.to_json()}
+        if self.hint is not None:
+            out["unhealthyHint"] = self.hint
+        return out
 
 
 @dataclass(frozen=True)
@@ -178,6 +200,9 @@ class CommonLoadBalancer(LoadBalancer):
     def __init__(self, messaging_provider, controller_instance, logger=None,
                  metrics: Optional[MetricEmitter] = None,
                  flight_recorder: Optional[FlightRecorder] = None,
+                 telemetry: Optional[TelemetryPlane] = None,
+                 profiler: Optional[KernelProfiler] = None,
+                 anomaly: Optional[AnomalyPlane] = None,
                  waterfall: Optional[ActivationWaterfall] = None):
         self.provider = messaging_provider
         self.controller = controller_instance
@@ -210,6 +235,36 @@ class CommonLoadBalancer(LoadBalancer):
         # /admin/placement/* endpoints are backend-agnostic
         self.flight_recorder = (flight_recorder if flight_recorder is not None
                                 else FlightRecorder.from_config())
+        # the shared telemetry plane (same hook pattern): completion
+        # latencies/outcomes accumulate per invoker x namespace — on device
+        # for the TPU balancer, in the NumPy twin for CPU balancers — and
+        # render as Prometheus histogram families on this emitter's page
+        self.telemetry = (telemetry if telemetry is not None
+                          else TelemetryPlane.from_config())
+        self._telemetry_renderer = self._telemetry_exposition
+        self.metrics.register_renderer(self._telemetry_renderer)
+        # the kernel profiling plane (same hook pattern): compile tracking,
+        # per-phase device timing, HBM watermarks and the capture window —
+        # device entry points for the TPU balancer, a `kernel: "cpu"`
+        # profile for the NumPy twins, one `/admin/profile/*` surface
+        self.profiler = (profiler if profiler is not None
+                         else KernelProfiler.from_config())
+        self.profiler.logger = logger
+        self.profiler.metrics = self.metrics
+        self._profiler_renderer = self.profiler.prometheus_text
+        self.metrics.register_renderer(self._profiler_renderer)
+        # the anomaly & alerting plane (same hook pattern): per-invoker
+        # straggler/spike scores from the telemetry deltas — on device for
+        # the TPU balancer, the NumPy twin for CPU balancers — plus the
+        # Prometheus-style alert FSM, evaluated on the supervision tick
+        # (lean rides maybe_tick off the completion stream)
+        self.anomaly = (anomaly if anomaly is not None
+                        else AnomalyPlane.from_config(logger=logger))
+        self.anomaly.attach(telemetry=self.telemetry,
+                            profiler=self.profiler,
+                            invoker_names=self._telemetry_invoker_names)
+        self._anomaly_renderer = self.anomaly.prometheus_text
+        self.metrics.register_renderer(self._anomaly_renderer)
         # the latency-waterfall plane, process-wide: its stages span layers
         # that never see a balancer (API handler, entitlement, invoker,
         # container pool, record batcher); this hook stamps the completion
@@ -231,6 +286,8 @@ class CommonLoadBalancer(LoadBalancer):
             wf_threshold = getattr(self.waterfall, "tail_threshold_ms", None)
             if wf_threshold is not None:
                 self.trace_store.threshold_source = wf_threshold
+            self.trace_store.default_threshold_ms = \
+                float(self.telemetry.slo.e2e_p99_ms)
             self.trace_store.placement_lookup = self._trace_placement_lookup
             self._trace_renderer = self.trace_store.prometheus_text
             self.metrics.register_renderer(self._trace_renderer)
@@ -253,6 +310,49 @@ class CommonLoadBalancer(LoadBalancer):
 
     def _waterfall_exposition(self, openmetrics: bool = False) -> str:
         return self.waterfall.prometheus_text(openmetrics=openmetrics)
+
+    # -- telemetry plane (shared hook, like the flight recorder) -----------
+    def _telemetry_observe(self, entry: ActivationEntry,
+                           invoker: Optional[InvokerInstanceId],
+                           forced: bool, is_system_error: bool) -> None:
+        """Feed one completion into the latency/outcome accumulator. The
+        e2e latency is setup->completion-ack; entries restored without a
+        stamp (pre-upgrade snapshots) are skipped rather than polluting the
+        +Inf bucket."""
+        tp = self.telemetry
+        if not tp.enabled or entry.t_start <= 0.0:
+            return
+        inv = invoker or entry.invoker
+        if inv is None:
+            return
+        outcome = (OUTCOME_ERROR if is_system_error
+                   else OUTCOME_TIMEOUT if forced else OUTCOME_SUCCESS)
+        tp.observe(inv.instance, entry.namespace_id,
+                   (time.monotonic() - entry.t_start) * 1e3, outcome)
+        # balancers without a supervision scheduler (lean) refresh the burn
+        # gauges off the completion stream; tick() is internally 1 Hz-capped
+        tp.maybe_tick(self.metrics)
+        # the anomaly plane rides the same cadence (no-op within 1 s of a
+        # supervision-tick evaluation, so TPU/sharding never double-tick)
+        self.anomaly.maybe_tick(self.metrics)
+
+    def _telemetry_invoker_names(self) -> List[str]:
+        """Invoker labels for the exposition/SLO surfaces, index-aligned
+        with the accumulator's invoker axis."""
+        registry = getattr(self, "_registry", None)
+        return [inv.as_string for inv in registry] if registry else []
+
+    def _telemetry_exposition(self, openmetrics: bool = False) -> str:
+        return self.telemetry.prometheus_text(
+            self._telemetry_invoker_names(), openmetrics=openmetrics)
+
+    # -- kernel profiling plane (shared hook, like the flight recorder) ----
+    def kernel_profile(self) -> dict:
+        """The `GET /admin/profile/kernel` payload. CPU balancers report a
+        `kernel: "cpu"` profile (schedule-phase timings, empty compile
+        log); the TPU balancer overrides the kernel label with what it
+        actually resolved."""
+        return self.profiler.profile_json(kernel="cpu")
 
     # -- health test actions (ref InvokerPool.prepare + healthAction) ------
     HEALTH_ACTION_NAMESPACE = "whisk.system"
@@ -452,14 +552,16 @@ class CommonLoadBalancer(LoadBalancer):
         """The batch-shaped completion pipeline: N decoded acks in ONE
         pass — each ack's result resolves first, then its slot release
         updates the entry books directly, the completion_ack stamps share
-        one clock, the waterfall folds under one lock (finish_many) and the
-        regular-ack counter moves once with the batch count. Decision-for-
-        decision identical to `process_completion`; acks off the wire are
-        never `forced` (only the timeout timer forces). One ack's failure
-        does not strand the rest."""
+        one clock, the waterfall folds under one lock (finish_many), the
+        regular-ack counter moves once with the batch count, and the
+        telemetry / anomaly burn-gauge tick runs once per batch instead of
+        per ack. Decision-for-decision identical to `process_completion`;
+        acks off the wire are never `forced` (only the timeout timer
+        forces). One ack's failure does not strand the rest."""
         wf = self.waterfall
         now_ns = time.monotonic_ns() if wf.enabled else 0
         now_mono = time.monotonic()
+        tp = self.telemetry
         finish_aids: List[str] = []
         # (aid, trace_id, e2e_ms, is_error) per released slot, consumed by
         # the trace store's completion verdict after the waterfall fold
@@ -471,7 +573,7 @@ class CommonLoadBalancer(LoadBalancer):
         for ack in acks:
             try:
                 regular += self._process_ack_batched(
-                    ack, now_ns, now_mono, wf, finish_aids, trace_done)
+                    ack, now_ns, now_mono, tp, wf, finish_aids, trace_done)
             except Exception as e:  # noqa: BLE001 — per-ack isolation
                 if self.logger:
                     self.logger.error(TransactionId.LOADBALANCER,
@@ -491,9 +593,13 @@ class CommonLoadBalancer(LoadBalancer):
             for aid_s, tid, e2e_ms, err in trace_done:
                 store.complete(aid_s, tid, e2e_ms, error=err,
                                row=rowmap.get(aid_s))
+        if tp.enabled:
+            tp.maybe_tick(self.metrics)
+            self.anomaly.maybe_tick(self.metrics)
 
     def _process_ack_batched(self, ack: AcknowledgementMessage, now_ns: int,
-                             now_mono: float, wf: ActivationWaterfall,
+                             now_mono: float, tp: TelemetryPlane,
+                             wf: ActivationWaterfall,
                              finish_aids: List[str],
                              trace_done: Optional[List[tuple]] = None
                              ) -> int:
@@ -522,13 +628,22 @@ class CommonLoadBalancer(LoadBalancer):
         self._decr(entry)
         if entry.invoker is not None:
             self.release_invoker(entry.invoker, entry)
+        inv = ack.invoker or entry.invoker
+        # telemetry observe per completion, burn-gauge tick ONCE at the
+        # end of the pass (the serial path ticks per ack; tick() is
+        # 1 Hz-capped so the observable cadence is unchanged)
+        if tp.enabled and entry.t_start > 0.0 and inv is not None:
+            outcome = (OUTCOME_ERROR if ack.is_system_error
+                       else OUTCOME_SUCCESS)
+            tp.observe(inv.instance, entry.namespace_id,
+                       (now_mono - entry.t_start) * 1e3, outcome)
         if wf.enabled:
             self._stamp_completion(entry, aid.asString, now_ns)
             finish_aids.append(aid.asString)
         if trace_done is not None:
             # the verdict inputs are all already in hand — trace id off
             # the ack (the invoker's active-ack rider), e2e off the
-            # pass's clock read: no new clock, no I/O
+            # telemetry observation's clock read: no new clock, no I/O
             tc = getattr(ack, "trace_context", None)
             trace_done.append((
                 aid.asString,
@@ -536,7 +651,7 @@ class CommonLoadBalancer(LoadBalancer):
                 ((now_mono - entry.t_start) * 1e3
                  if entry.t_start > 0.0 else None),
                 bool(ack.is_system_error)))
-        self.on_invocation_finished(ack.invoker or entry.invoker,
+        self.on_invocation_finished(inv,
                                     is_system_error=ack.is_system_error,
                                     forced=False)
         return 1
@@ -565,6 +680,7 @@ class CommonLoadBalancer(LoadBalancer):
                     entry.promise.set_exception(ActiveAckTimeout(aid))
             else:
                 self.counters["completion_ack_regular"] += 1
+            self._telemetry_observe(entry, invoker, forced, is_system_error)
             # waterfall: the completion ack is the last causally-ordered
             # stage — stamp it and fold the activation's stage vector
             # (forced timeouts fold too: their partial vectors are the
@@ -679,6 +795,9 @@ class CommonLoadBalancer(LoadBalancer):
         # a shared (process-wide) emitter outlives the balancer: stop
         # contributing families once closed
         self.metrics.unregister_renderer(self._counters_exposition)
+        self.metrics.unregister_renderer(self._telemetry_renderer)
+        self.metrics.unregister_renderer(self._profiler_renderer)
+        self.metrics.unregister_renderer(self._anomaly_renderer)
         self.metrics.unregister_renderer(self._waterfall_exposition)
         if self._trace_renderer is not None:
             self.metrics.unregister_renderer(self._trace_renderer)

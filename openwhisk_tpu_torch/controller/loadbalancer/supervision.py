@@ -1,7 +1,7 @@
 """Invoker supervision: the health protocol.
 
 A copy of `openwhisk_tpu/controller/loadbalancer/supervision.py` without
-its anomaly hints and fleet-observatory addresses (rebuild of
+its fleet-observatory addresses (rebuild of
 core/controller/.../loadBalancer/InvokerSupervision.scala):
   - invokers ping the `health` topic at 1 Hz (InvokerReactive.scala:337-342);
   - one FSM per invoker with states Healthy('up') / Unhealthy / Unresponsive
@@ -76,9 +76,14 @@ class InvokerPool:
         self.on_status_change = on_status_change or (lambda inv, status: None)
         self.send_test_action = send_test_action
         #: optional 1 Hz callback riding the watchdog — the balancer hangs
-        #: its bus gauge refresh here so dashboards stay fresh without a
-        #: scheduler of their own
+        #: its telemetry burn-rate gauge refresh here so dashboards stay
+        #: fresh without a scheduler of their own
         self.on_tick = on_tick
+        #: advisory hints from the anomaly plane (invoker index -> firing
+        #: alert name). Observability only: the FSM's status derivation
+        #: never reads them — a flagged invoker still takes traffic until
+        #: real outcome evidence (the ring buffer) demotes it.
+        self.unhealthy_hints: Dict[int, str] = {}
         self.logger = logger
         self.ping_timeout = ping_timeout
         self.group = group
@@ -177,6 +182,13 @@ class InvokerPool:
             self.on_status_change(st.id, new_status)
 
     # -- views -------------------------------------------------------------
+    def set_unhealthy_hints(self, hints: Dict[int, str]) -> None:
+        """Replace the advisory hint set (the anomaly plane pushes the full
+        current dict every tick when CONFIG_whisk_anomaly_hintUnhealthy is
+        on, so recovered invokers shed their hint automatically)."""
+        self.unhealthy_hints = dict(hints)
+
     def health(self) -> List[InvokerHealth]:
-        return [InvokerHealth(st.id, st.status)
-                for _idx, st in sorted(self.invokers.items())]
+        return [InvokerHealth(st.id, st.status,
+                              hint=self.unhealthy_hints.get(idx))
+                for idx, st in sorted(self.invokers.items())]

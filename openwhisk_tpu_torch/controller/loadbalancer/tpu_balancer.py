@@ -25,6 +25,12 @@ through the coalescing producer without a task a row (`_row_placed`'s
 `send_nowait`), each step's input digest and decisions file into the
 flight recorder, the device dispatch sits inside the host observatory's
 GC bracket, and the trace store gets each batch's `device_dispatch` span.
+So do the device planes: completion events fold into the telemetry
+accumulator on the card on the dispatch cadence (at least
+`TELEMETRY_FOLD_MIN` events a fold, the rest on the idle fold and the
+supervision tick), the 1 Hz supervision tick runs the telemetry burn
+rates, the anomaly step and the HBM watermarks, and the kernel profiler
+wraps the step entry points and times each dispatch phase.
 
 The device half: each step packs releases, health flips and requests into
 ONE int32 host buffer, copies it to the device once, runs ONE fused step
@@ -60,10 +66,11 @@ from ...ops.placement import (PlacementState, init_state,
 from ...ops.placement_cuda import (schedule_batch_cuda,
                                    schedule_batch_repair_cuda,
                                    to_transposed)
+from ...ops.profiler import pow2_statics
 from ...ops.throttle import init_buckets
 from ...utils.hostprof import GLOBAL_HOST_OBSERVATORY
 from ...utils.ring_buffer import ColumnRing
-from ...utils.tracing import trace_id_of
+from ...utils.tracing import export_tracing_gauges, trace_id_of
 from .base import (HEALTHY, CommonLoadBalancer, InvokerHealth,
                    LoadBalancerException, LoadBalancerThrottleException)
 from .flight_recorder import BatchRecord, free_slot_histogram, occupancy_json
@@ -500,6 +507,10 @@ class TpuBalancer(CommonLoadBalancer):
     #: below this readback round trip the device counts as fast: eager
     #: dispatch of an idle balancer wins; above it, windowed batching
     RTT_FAST_MS = 5.0
+    #: don't pay a telemetry-fold dispatch on the hot path for fewer than
+    #: this many buffered completion events; the supervision tick and the
+    #: scrape-time drain pick up the tail within a second
+    TELEMETRY_FOLD_MIN = 64
 
     _bucket = staticmethod(bucket)
 
@@ -512,10 +523,13 @@ class TpuBalancer(CommonLoadBalancer):
                  rate_limit_per_minute: Optional[int] = None,
                  placement_kernel: str = "auto",
                  adaptive_window: bool = True, batch_publish: bool = True,
-                 device=None, metrics=None):
+                 device=None, metrics=None, profiler=None, anomaly=None):
         self.device = resolve_device(device)
         super().__init__(messaging_provider, controller_instance, logger,
-                         metrics=metrics)
+                         metrics=metrics, profiler=profiler, anomaly=anomaly)
+        # the profiler's HBM watermarks and capture traces read this
+        # balancer's device
+        self.profiler.device = self.device
         self._cluster_size = cluster_size
         self.managed_fraction = managed_fraction
         self.blackbox_fraction = blackbox_fraction
@@ -552,16 +566,27 @@ class TpuBalancer(CommonLoadBalancer):
 
         sched, release, self.placement_kernel_resolved = device_pair(
             self.device, placement_kernel)
-        self._release_packed_fn = make_release_packed(release)
+        # the profiler interposes on every device entry point: first-seen
+        # signatures classify by first-call / expect-window / pow2-bucketed
+        # statics (the only shapes _bucket may produce) — anything else is
+        # shape churn and trips the recompile watchdog
+        self._release_packed_fn = self.profiler.wrap(
+            "release_packed", make_release_packed(release),
+            expected=lambda st, rel: _next_pow2(rel.shape[1]) == rel.shape[1])
         self._bucket_state = None
         if rate_limit_per_minute is not None:
-            self._packed_fn = make_fused_admit_step_packed(release, sched)
+            self._packed_fn = self.profiler.wrap(
+                "fused_admit_step",
+                make_fused_admit_step_packed(release, sched),
+                expected=pow2_statics)
             # soft state: a rolling rate window, kept across book rebuilds
             self._bucket_state = init_buckets(
                 self.RATE_NS_BUCKETS, rate_limit_per_minute,
                 device=self.device)
         else:
-            self._packed_fn = make_fused_step_packed(release, sched)
+            self._packed_fn = self.profiler.wrap(
+                "fused_step", make_fused_step_packed(release, sched),
+                expected=pow2_statics)
 
         #: host copy of free_mb from the last readback or state install;
         #: occupancy() serves from it. Installs are sequence-guarded:
@@ -600,6 +625,14 @@ class TpuBalancer(CommonLoadBalancer):
             messaging_provider, on_status_change=self._status_change,
             logger=logger, group=f"health-{controller_instance.as_string}",
             on_tick=self._telemetry_tick)
+        # advisory unhealthy hints from the anomaly plane land on the
+        # supervision pool (pushed only when hintUnhealthy is configured)
+        self.anomaly.hint_sink = self.supervision.set_unhealthy_hints
+        # completion telemetry accumulates ON DEVICE for this balancer: the
+        # buffered event rows fold into the accumulator as one scatter-add
+        # per dispatch cycle (_dispatch_batch / idle _device_step)
+        if self.telemetry.enabled:
+            self.telemetry.use_device(self._n_pad, self.device)
 
     # -- device state ------------------------------------------------------
     def _slot_mb(self, user_memory_mb: int) -> int:
@@ -663,6 +696,7 @@ class TpuBalancer(CommonLoadBalancer):
         copies are stream-ordered after every dispatched step."""
         st = self.state
         n_old = st.free_mb.shape[0]
+        self.profiler.expect("fleet_growth")
         free = torch.zeros((new_pad,), dtype=st.free_mb.dtype,
                            device=self.device)
         free[:n_old] = st.free_mb
@@ -678,6 +712,7 @@ class TpuBalancer(CommonLoadBalancer):
     def _grow_slots(self, new_slots: int) -> None:
         """Widen the books' action axis on the device, preserving every
         live permit."""
+        self.profiler.expect("slot_growth")
         st = self.state
         conc = torch.zeros((new_slots, self._n_pad), dtype=st.free_mb.dtype,
                            device=self.device)
@@ -751,8 +786,21 @@ class TpuBalancer(CommonLoadBalancer):
         return steps
 
     def _telemetry_tick(self) -> None:
-        # bus-client health rides the supervision's 1 Hz cadence:
-        # coalescing batch sizes (messaging/coalesce.py)
+        # the supervision watchdog also drains completion events that
+        # arrived while no placement traffic was flowing (idle fleets must
+        # still converge their device counts)
+        self._telemetry_fold(True)
+        self.telemetry.tick(self.metrics)
+        # anomaly detection rides the same tick: the device step enqueues
+        # now and its scores harvest NEXT tick (no device sync on the
+        # event loop, same rule as the burn-rate math)
+        self.anomaly.tick(self.metrics)
+        # HBM watermark gauges ride the same 1 Hz tick (guarded no-op on
+        # the CPU)
+        self.profiler.refresh_memory(self.metrics)
+        export_tracing_gauges(self.metrics)
+        # bus-client health rides the same cadence: coalescing batch sizes
+        # (messaging/coalesce.py)
         export_coalesce_gauges(self.metrics)
 
     def update_cluster(self, cluster_size: int) -> None:
@@ -760,6 +808,7 @@ class TpuBalancer(CommonLoadBalancer):
         updateCluster :561-584); the books restart at full capacity."""
         if cluster_size != self._cluster_size:
             self._cluster_size = cluster_size
+            self.profiler.expect("cluster_resize")
             self._init_device_state()
             self._partitions_stale = True
 
@@ -1115,6 +1164,17 @@ class TpuBalancer(CommonLoadBalancer):
     async def invoker_health(self) -> List[InvokerHealth]:
         return self.supervision.health()
 
+    def kernel_profile(self) -> dict:
+        """The profiling-plane payload, labeled with the kernels actually
+        running ("cuda" on the card, "torch" for the plain versions on the
+        CPU) — host-side reads only, no device sync (the allocator
+        statistics are host counters)."""
+        out = self.profiler.profile_json(
+            kernel="cuda" if self.device.type == "cuda" else "torch")
+        out["placement_kernel"] = self.placement_kernel_resolved
+        out["kernel_chosen_by"] = "static"
+        return out
+
     def occupancy(self) -> dict:
         """Per-invoker memory in use from the last readback's cached books
         (refreshed on every readback and state install): no device sync on
@@ -1267,6 +1327,7 @@ class TpuBalancer(CommonLoadBalancer):
                 return
             if folded:
                 self._refresh_books_async()
+            self._telemetry_fold(self.telemetry.pending > 0)
             return
         # bound dispatched-but-unread steps BEFORE popping the batch: a
         # cancellation while waiting here (close() cancels the flush task)
@@ -1343,7 +1404,20 @@ class TpuBalancer(CommonLoadBalancer):
             return
         finally:
             GLOBAL_HOST_OBSERVATORY.end_dispatch()
+        # completion telemetry rides the SAME dispatch cycle: at most one
+        # extra scatter-add per batch over event rows already packed
+        # host-side — asynchronous like the step itself, no readback
+        # (counts stay on the device until a scrape). Small tails are left
+        # for the 1 Hz supervision tick / scrape-time drain instead of
+        # paying a launch for a near-empty fold on every micro-batch.
+        self._telemetry_fold(
+            self.telemetry.pending >= self.TELEMETRY_FOLD_MIN)
+        # phase breakdown: assembly is host numpy packing, dispatch the
+        # enqueue (transfers + launches)
         t_dispatched = time.monotonic()
+        self.profiler.observe_phase("assembly", (t_assembled - t0) * 1e3)
+        self.profiler.observe_phase("dispatch",
+                                    (t_dispatched - t_assembled) * 1e3)
         if rec is not None:
             rec.timings["assembly_ms"] = round((t_assembled - t0) * 1e3, 3)
             rec.timings["dispatch_ms"] = round(
@@ -1354,6 +1428,20 @@ class TpuBalancer(CommonLoadBalancer):
                                 self._next_books_seq(), rec))
         self._readbacks.add(task)
         task.add_done_callback(self._readbacks.discard)
+
+    def _telemetry_fold(self, due: bool) -> None:
+        """Fold the buffered completion events into the device accumulator
+        when `due`; a telemetry failure never takes the placement path
+        down with it (it is counted and logged)."""
+        if not due:
+            return
+        try:
+            self.telemetry.device_fold()
+        except Exception as e:  # noqa: BLE001
+            self.counters["telemetry_fold_failures"] += 1
+            if self.logger:
+                self.logger.warn(None, f"telemetry fold failed: {e!r}",
+                                 "TpuBalancer")
 
     def _refresh_books_async(self) -> None:
         """Refresh occupancy()'s cached books after a fold that has no
@@ -1376,6 +1464,7 @@ class TpuBalancer(CommonLoadBalancer):
             arrs, books_np = self._read_back(rb)
             t_r1 = time.monotonic()
             rb_ms = (t_r1 - t_r0) * 1e3
+            self.profiler.observe_phase("readback", rb_ms)
             # benign cross-thread write: a float EWMA steering a heuristic
             self._rtt_ewma_ms = 0.8 * self._rtt_ewma_ms + 0.2 * rb_ms
             # the digest's fleet view from the POST-step books this
@@ -1445,20 +1534,38 @@ class TpuBalancer(CommonLoadBalancer):
             elif not fut.done():
                 fut.set_result((-2 if thr else int(inv_idx), bool(f)))
         fanout_ms = (time.monotonic() - t_f0) * 1e3
+        prof = self.profiler
+        prof.observe_phase("fanout", fanout_ms)
+        prof.observe_phase("total", dt_ms,
+                           trace_id=(rec.digest.get("trace_id")
+                                     if rec is not None else None))
         if rec is not None:
+            # tail sampling: with a threshold armed, full per-decision rows
+            # are filed only for slow batches (a live capture window takes
+            # everything); skipped batches still refresh the gauges
             self._record_batch(rec, batch, chosen_np, forced_np, throttled_np,
-                               fanout_ms)
+                               fanout_ms, file=prof.admit_batch(dt_ms))
             # after the record files: the device span's batch_seq tag is
             # the assigned ring seq (the join key /admin/trace ships)
             self._trace_batch_hooks(rec, batch, forced_np, dt_ms, b)
+            if prof.capture_armed:
+                row = rec.to_json()
+                row["total_ms"] = round(dt_ms, 3)
+                prof.capture_step(row)
+        elif prof.capture_armed:
+            # flight recorder off: the capture window still gets timings
+            prof.capture_step({"ts": time.time(), "batch_size": b,
+                               "total_ms": round(dt_ms, 3)})
 
     def _trace_batch_hooks(self, rec, batch, forced_np, dt_ms: float,
                            b: int) -> None:
         """Trace-observatory riders for one placed micro-batch,
         all from stamps already taken (rec.ts, dt_ms — no new clock
         reads): the per-batch `device_dispatch` span under the digest's
-        trace id (the flight-recorder link the assembled tree joins on)
-        and the `forced` mark per force-placed row."""
+        trace id (the flight-recorder link the assembled tree joins on),
+        the `exemplar` force-keep (the phase histogram just pinned this
+        trace id onto a bucket line — every rendered exemplar must
+        resolve), and the `forced` mark per force-placed row."""
         from ...utils.tracestore import GLOBAL_TRACE_STORE, synthetic_span
         store = GLOBAL_TRACE_STORE
         if not store.active:
@@ -1471,26 +1578,30 @@ class TpuBalancer(CommonLoadBalancer):
                       "batch_seq": str(rec.seq),
                       "kernel": str(rec.digest.get("kernel")),
                       "batch_size": str(b)}))
+            if self.profiler.enabled:
+                store.force(tid, "exemplar")
         for e, f in zip(batch, forced_np):
             if f and e[6]:
                 store.mark(e[6], "forced")
 
     def _record_batch(self, rec, batch, chosen_np, forced_np, throttled_np,
-                      fanout_ms: float) -> None:
+                      fanout_ms: float, file: bool = True) -> None:
         """Finish and file the flight-recorder record for one micro-batch,
-        and refresh the introspection gauges."""
+        and refresh the introspection gauges. `file=False` (tail-sampled
+        fast batch) refreshes the gauges without ringing the record."""
         rec.timings["fanout_ms"] = round(fanout_ms, 3)
         fr = self.flight_recorder
-        n_reg = len(self._registry)
-        decisions = rec.decisions
-        for (req, fut, slot_key, t_enq, aid, act, _tid, *_), ci, f, thr \
-                in zip(batch, chosen_np, forced_np, throttled_np):
-            ci = int(ci)
-            name = (self._registry[ci].as_string
-                    if 0 <= ci < n_reg else None)
-            decisions.append((aid, act, ci, name, bool(f), bool(thr),
-                              req[self.R_NEED_MB]))
-        fr.record(rec)
+        if file:
+            n_reg = len(self._registry)
+            decisions = rec.decisions
+            for (req, fut, slot_key, t_enq, aid, act, _tid, *_), ci, f, thr \
+                    in zip(batch, chosen_np, forced_np, throttled_np):
+                ci = int(ci)
+                name = (self._registry[ci].as_string
+                        if 0 <= ci < n_reg else None)
+                decisions.append((aid, act, ci, name, bool(f), bool(thr),
+                                  req[self.R_NEED_MB]))
+            fr.record(rec)
         m = self.metrics
         d = rec.digest
         m.gauge("loadbalancer_placement_queue_depth", d["queue_depth"])

@@ -1,10 +1,11 @@
 """Prometheus exposition helpers for the controller's /metrics page.
 
 The part of `openwhisk_tpu/controller/monitoring.py` that the port's
-planes render through: counter, gauge and histogram families (the latency
-waterfall's families on /metrics use them). The user-events service, the
-fleet federation merges and the SLO report over the telemetry plane are
-not ported yet.
+planes render through: counter, gauge and histogram families (the
+telemetry plane's latency histograms and outcome counters, the anomaly
+plane's scores and alerts, the kernel profiler's phase histograms and the
+latency waterfall's families on /metrics use them). The user-events
+service and the fleet federation merges are not ported yet.
 """
 from __future__ import annotations
 

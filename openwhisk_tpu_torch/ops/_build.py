@@ -10,7 +10,9 @@ C interface (no PyTorch headers, so a build takes seconds):
 The build directory sits beside the package, at the root of the checkout
 (`build/` is git-ignored). The file name carries a hash of the sources and
 flags, so an edited kernel rebuilds and a stale library is never loaded.
-Nothing is compiled or loaded at import time.
+Nothing is compiled or loaded at import time. Every nvcc build and every
+load of a built library is reported, with its seconds, to the kernel
+profiler's census of builds (`ops/profiler.record_kernel_build`).
 """
 from __future__ import annotations
 
@@ -20,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from .profiler import record_kernel_build
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -70,6 +75,7 @@ def build(names: Iterable[str]) -> None:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.monotonic()
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -81,6 +87,7 @@ def build(names: Iterable[str]) -> None:
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         build_logs[name] = log
+        record_kernel_build(name, "nvcc", time.monotonic() - t0)
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
             continue
@@ -96,5 +103,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
+            t0 = time.monotonic()
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            record_kernel_build(name, "load", time.monotonic() - t0)
         return lib

@@ -964,12 +964,16 @@ def _identity_json(k):
             "rights": ["ACTIVATE"], "limits": {}}
 
 
-async def _scenario(pkg, rate, grow, seed, ack_producer=None):
+async def _scenario(pkg, rate, grow, seed, ack_producer=None, setup=None,
+                    inspect=None):
     """One seeded run through one package's TpuBalancer; returns the
     decision of every activation, the books, the run's counts and the
     flight recorder's records. `ack_producer(provider)`, when given, makes
     the producer the acks go out on, one `send_batch` a round (a
-    coalescing producer ships each round as one frame)."""
+    coalescing producer ships each round as one frame). `setup(bal)` runs
+    right after the balancer is built; `inspect(bal)` runs once every
+    activation is acked, before the balancer closes, and its result is
+    the run's `inspect`."""
     ent, msgs = pkg.E, pkg.Msg
     provider = pkg.Mem.MemoryMessagingProvider()
     bal = pkg.make(provider, managed_fraction=0.75, blackbox_fraction=0.25,
@@ -986,6 +990,8 @@ async def _scenario(pkg, rate, grow, seed, ack_producer=None):
         return real_map(inv_idx, forced, *rest)
 
     bal._map_placement = record
+    if setup is not None:
+        setup(bal)
     await bal.start()
     producer = provider.get_producer()
     ack_topic = f"completed{ent.ControllerInstanceId('0').as_string}"
@@ -1107,7 +1113,8 @@ async def _scenario(pkg, rate, grow, seed, ack_producer=None):
         health=np.asarray(bal.state.health).copy(),
         records=bal.flight_recorder.recent(1024, with_decisions=True),
         explain={a: (bal.flight_recorder.explain(a) or {}).get("decision")
-                 for a in decisions})
+                 for a in decisions},
+        inspect=None if inspect is None else inspect(bal))
     await bal.close()
     if acker is not None:
         await acker.close()

@@ -399,13 +399,38 @@ def test_throttle_message_text(servers):
 
 
 def test_unported_admin_planes_answer_404_naming_the_plane(servers):
+    """The device planes' routes (`/admin/slo`, `/admin/alerts`,
+    `/admin/anomalies`, `/admin/profile/kernel`, `POST
+    /admin/profile/capture`) answer as the JAX standalone's: the same
+    status codes and, with the port's added `kernel_builds` census and
+    capture `trace_files` set aside, the same JSON shapes; 401 without
+    auth. The fleet and quality routes still answer 404 naming their
+    plane, and `GET /admin` lists them so."""
+    planes = ("/admin/slo", "/admin/alerts", "/admin/anomalies",
+              "/admin/profile/kernel")
+
     async def drive(url):
         out = {}
         async with aiohttp.ClientSession() as s:
-            for path in ("/admin/slo", "/admin/alerts",
-                         "/admin/profile/kernel", "/admin/fleet/metrics"):
+            base = f"{url}/api/v1/namespaces/_/actions/planeprobe"
+            async with s.put(base + "?overwrite=true", headers=HDRS, json={
+                    "exec": {"kind": "python:3", "code": OK_CODE}}) as r:
+                assert r.status == 200
+            async with s.post(base + "?blocking=true", headers=HDRS,
+                              json={}) as r:
+                assert r.status == 200
+            for path in planes + ("/admin/fleet/metrics",
+                                  "/admin/placement/quality"):
                 async with s.get(url + path, headers=HDRS) as r:
-                    out[path] = (r.status, (await r.json())["error"])
+                    out[path] = (r.status, await r.json())
+                async with s.get(url + path) as r:
+                    out["anonymous " + path] = r.status
+            async with s.post(url + "/admin/profile/capture", headers=HDRS,
+                              json={"steps": 2}) as r:
+                out["capture"] = (r.status, await r.json())
+            async with s.post(url + "/admin/profile/capture",
+                              json={"steps": 2}) as r:
+                out["anonymous capture"] = r.status
             async with s.get(url + "/admin", headers=HDRS) as r:
                 out["index"] = await r.json()
             async with s.get(url + "/admin/placement/occupancy",
@@ -413,18 +438,38 @@ def test_unported_admin_planes_answer_404_naming_the_plane(servers):
                 out["occupancy"] = (r.status, await r.json())
         return out
 
-    out = servers.run(drive(servers.urls["port"]))
-    assert out["/admin/slo"] == (
-        404, "the telemetry plane is not ported to openwhisk_tpu_torch yet")
-    assert out["/admin/alerts"][0] == 404 and "anomaly plane" in \
-        out["/admin/alerts"][1]
-    assert out["/admin/profile/kernel"][0] == 404
-    assert out["/admin/fleet/metrics"][0] == 404
-    rows = {r["path"]: r for r in out["index"]["routes"]}
-    assert rows["/admin/slo"]["enabled"] is False
-    assert rows["/admin/slo"]["plane"] == "telemetry plane"
+    port = servers.run(drive(servers.urls["port"]))
+    jax = servers.run(drive(servers.urls["jax"]))
+    prof = port["/admin/profile/kernel"][1]
+    assert prof.pop("kernel_builds") == []  # no nvcc on the CPU path
+    assert prof["capture"].pop("trace_files") == []
+    assert prof["kernel"] == "torch" and jax[
+        "/admin/profile/kernel"][1]["kernel"] == "xla"
+    for path in planes + ("capture",):
+        assert port[path][0] == jax[path][0] == 200, path
+        assert shape(port[path][1]) == shape(jax[path][1]), path
+    for path in planes:
+        assert port["anonymous " + path] == jax["anonymous " + path] == 401
+    assert port["anonymous capture"] == jax["anonymous capture"] == 401
+    slo = port["/admin/slo"][1]
+    assert slo["enabled"] and slo["kernel"] == "device"
+    assert slo["global"]["count"] >= 1
+    assert port["/admin/alerts"][1]["rules"] == \
+        jax["/admin/alerts"][1]["rules"]
+    assert port["/admin/profile/kernel"][1]["compiles"]["unexpected"] == 0
+    assert port["capture"][1] == jax["capture"][1]
+    status, body = port["/admin/fleet/metrics"]
+    assert status == 404 and body["error"] == (
+        "the fleet observatory is not ported to openwhisk_tpu_torch yet")
+    status, body = port["/admin/placement/quality"]
+    assert status == 404 and "placement quality plane" in body["error"]
+    rows = {r["path"]: r for r in port["index"]["routes"]}
+    for path in planes + ("/admin/profile/capture",):
+        assert rows[path]["enabled"] is True and rows[path]["plane"] is None
+    assert rows["/admin/fleet/metrics"]["enabled"] is False
+    assert rows["/admin/fleet/metrics"]["plane"] == "fleet observatory"
     assert rows["/admin/placement/occupancy"]["enabled"] is True
-    status, occ = out["occupancy"]
+    status, occ = port["occupancy"]
     assert status == 200 and occ["invokers"][0]["invoker"] == "invoker0"
     assert occ["kernel"] == "repair"
 
