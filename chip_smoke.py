@@ -113,6 +113,30 @@ Phases, each reported on its own line:
               those counters. Then the planes A/B ("planes_ab" lines):
               phase 7's traffic at 24 waves with the three planes off,
               on, on, off (step p50, activations/s, placement p50).
+  7b. journal the placement journal, snapshot and replay at phase 7's
+              geometry: `TpuBalancer()` on the card with a
+              `PlacementJournal` attached before the fleet registers, 24
+              waves of phase 7's traffic (acks 1-8 waves later, the 1%
+              flap, the trickle), a snapshot dumped through
+              `BalancerSnapshotter._dump()` at wave 12 (captured on the
+              loop, written on a worker thread), then a rate-limited
+              balancer's 8 waves with a journal of its own. Replays: (a) a
+              cold card balancer restores the snapshot and replays the
+              tail, (b) another replays the full history with no
+              snapshot, each bit-exact with the live books, no parity
+              mismatch, both kernels launched in the replay (each launch
+              bracketed by CUDA events, host syncs counted under torch's
+              sync debug mode); (c) the same history through the plain
+              versions on the CPU (`make_offline_balancer(device="cpu")`)
+              to the same books; (d) the rate-limited journal on the card;
+              (e) `JournalDebugger` on the card stops at the snapshot's
+              seq with `diff_books` matching and at a wave-20 activation
+              with its decisions derived as recorded. One "journal" line:
+              records and bytes by type, `_journal_append` µs a record,
+              fsync p99, the largest lag, the snapshot's capture and write
+              ms and bytes, restore ms, replay rates, syncs, launches and
+              kernel ms, and activations/s and step p50 with the journal
+              on beside phase 7's run with it off.
   8. http     8a the standalone with real sandboxes; 8b the same assembly
               over the simulated fleet at 10,000 invokers, 8,000 blocking
               invokes at 256 in flight from a client process then 200 one
@@ -125,8 +149,16 @@ Phases, each reported on its own line:
               churn and the kernel builds; 8c four runs of 8b's configuration at
               2,000 invokes, the coalescing producer on, off, off, on
               ("http_ab" lines: invokes/s, HTTP p50/p99, server CPU an
-              invoke).
-  9. a `{"kernels": [...]}` JSON line, then the card line, then the last
+              invoke); 8d the restart: 8b's assembly over the simulated
+              fleet with `snapshot_path`, `snapshot_interval` and
+              `journal_dir` and a sqlite store, 1,000 blocking invokes,
+              `stop()` (the final dump), a second standalone from the same
+              files (`/admin/ready` 200 with the journal attached and not
+              stalled, 10,000 invokers restored, the books the final
+              dump's), 200 more invokes; each boot's restore and replay
+              seconds ("restart" line).
+  9. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
+     journal replays of 7b beside the rest), then the card line, then the last
      line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
@@ -147,6 +179,7 @@ cells that changed.
 """
 import asyncio
 import ctypes
+import gc
 import json
 import math
 import subprocess
@@ -1423,12 +1456,14 @@ async def _drain_front(bal, timeout=120.0):
 
 
 async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
-                     flap):
+                     flap, setup=None, on_wave=None):
     """One balancer's run: register the fleet, drive `waves` publish_many
     waves (acks 1-8 waves later; the 1% flap with `flap`; the profiled
-    window with `profile`), ack everything, the trickle. Returns the run's
-    numbers, its recorder, (books at the start, bucket state at the start,
-    books at the end) and the profiler."""
+    window with `profile`), ack everything, the trickle. `setup(bal)` runs
+    before the balancer starts, `await on_wave(bal, w)` at the start of
+    each wave. Returns the run's numbers, its recorder, (books at the
+    start, bucket state at the start, books at the end) and the
+    profiler."""
     from openwhisk_tpu_torch.core import entity as E
     from openwhisk_tpu_torch.controller.loadbalancer.base import (
         HEALTHY, LoadBalancerThrottleException)
@@ -1453,6 +1488,8 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         initial_pad=64, rate_limit_per_minute=rate_limit,
         device=None if DEVICE == "cuda" else DEVICE)
     _annotate_planes(bal)
+    if setup is not None:
+        setup(bal)
     await bal.start()
     t0 = time.perf_counter()
     await fleet.ping(bal.supervision, list(range(N_INV)))
@@ -1513,6 +1550,8 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
     for w in range(waves):
         await fleet.ack_due(w)
         await fleet.keep_alive(bal.supervision)
+        if on_wave is not None:
+            await on_wave(bal, w)
         if flap and w == FLAP_AT:
             for i in flapped:
                 for _ in range(4):
@@ -1741,6 +1780,368 @@ def front_phase(torch, P, K, TB):
                     f"the repair kernel ran: {out['launches']}")
         res[label] = out
     return res
+
+
+# --------------------------------------------------------------- phase 7b
+#: the journal phase: phase 7's traffic at JOURNAL_WAVES waves with a
+#: journal attached before the fleet registers, the snapshot dumped at the
+#: start of wave JOURNAL_SNAP_WAVE, the debugger's activation taken from
+#: wave JOURNAL_AID_WAVE, and the rate-limited balancer's waves
+JOURNAL_WAVES, JOURNAL_SNAP_WAVE, JOURNAL_AID_WAVE = 24, 12, 20
+JOURNAL_RATE_WAVES = 8
+
+
+def _cold_balancer(TB, ctrl_id):
+    """A traffic-free balancer of phase 7's configuration on the card to
+    restore and replay onto (built inside a running loop, closed by the
+    caller)."""
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.messaging import MemoryMessagingProvider
+    return TB.TpuBalancer(
+        MemoryMessagingProvider(), E.ControllerInstanceId(ctrl_id),
+        managed_fraction=0.9, blackbox_fraction=0.1, max_batch=MAX_BATCH,
+        action_slots=A, initial_pad=64,
+        device=None if DEVICE == "cuda" else DEVICE)
+
+
+def _count_syncs(fn):
+    """fn() with torch's sync debug mode on "warn": (result, the host-device
+    synchronisations it made). On the CPU there is nothing to count."""
+    import warnings
+    if not torch.cuda.is_available():
+        return fn(), None
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in got)
+
+
+def _measured_replay(TB, K, bal, fn):
+    """Run the replay `fn()` on `bal` with its kernel launches bracketed by
+    CUDA events and its synchronisations counted: (fn's result, the
+    replay's numbers)."""
+    timed = [time_launches(TB, k) for k in ("schedule_batch_cuda",
+                                            "schedule_batch_repair_cuda")]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out, syncs = _count_syncs(fn)
+        torch.cuda.synchronize()
+    finally:
+        for _, undo in timed:
+            undo()
+    wall = time.perf_counter() - t0
+    (scan_ms, _), (rep_ms, _) = (launch_ms(p) for p, _ in timed)
+    return out, dict(
+        s=wall, host_syncs=syncs,
+        launches={"scan": K.schedule_batch_cuda.launches,
+                  "repair": K.schedule_batch_repair_cuda.launches},
+        kernel_ms_p50={"scan": scan_ms, "repair": rep_ms},
+        kernel_ms_total={k: float(sum(s.elapsed_time(e) for s, e in p))
+                         for k, (p, _) in zip(("scan", "repair"), timed)})
+
+
+def _same_books(bal, books):
+    """The balancer's books equal phase 7's host copy (free, conc [A, N],
+    health) bit for bit; rows and slots past the live books' shape (a
+    larger pad or slot axis) must be empty."""
+    mine = _books_np(bal.state)
+    a, n = books[1].shape
+    return (np.array_equal(mine[0][:n], books[0])
+            and np.array_equal(mine[1][:a, :n], books[1])
+            and np.array_equal(mine[2][:n], books[2])
+            and not mine[0][n:].any() and not mine[1][a:].any()
+            and not mine[1][:, n:].any())
+
+
+def journal_phase(torch, P, K, TB, front):
+    """Phase 7b: the journal, snapshot and replay at phase 7's geometry."""
+    import shutil
+    import tempfile
+    from openwhisk_tpu_torch.controller.loadbalancer import checkpoint as CK
+    from openwhisk_tpu_torch.controller.loadbalancer import journal as JN
+    from openwhisk_tpu_torch.controller.loadbalancer import timetravel as TT
+    work = tempfile.mkdtemp(prefix="chip-smoke-journal-")
+    try:
+        return _journal_phase(P, K, TB, front, CK, JN, TT, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _journal_phase(P, K, TB, front, CK, JN, TT, work):
+    import os
+    jdir, snap = os.path.join(work, "wal"), os.path.join(work, "bal.snap")
+    journal = JN.PlacementJournal(jdir)
+    append_us, lag, box = {}, [0], {}
+    real_write = CK.write_snapshot
+
+    def setup(bal):
+        bal.attach_journal(journal)
+        append = bal._journal_append
+
+        def timed(rec):
+            t = time.perf_counter()
+            seq = append(rec)
+            append_us.setdefault(rec["t"], []).append(
+                (time.perf_counter() - t) * 1e6)
+            return seq
+        bal._journal_append = timed
+
+    async def on_wave(bal, w):
+        lag[0] = max(lag[0], journal.lag_batches)
+        if w == JOURNAL_AID_WAVE:
+            box["aid_after_seq"] = bal._journal_seq
+        if w != JOURNAL_SNAP_WAVE:
+            return
+        # the periodic snapshotter's own tick: capture on the loop, write
+        # on a worker thread, prune what the dump covers
+        snapper = CK.BalancerSnapshotter(bal, snap, 3600.0, journal=journal)
+        parts_fn = bal.snapshot_parts
+        # the capture's pieces, timed apart once before it: the registry's
+        # serialization and the three clones' enqueue
+        t = time.perf_counter()
+        [inv.to_json() for inv in bal._registry]
+        t1 = time.perf_counter()
+        st = bal.state
+        (st.free_mb.clone(), st.conc_free.T.clone(), st.health.clone())
+        box["parts_split_ms"] = dict(registry=(t1 - t) * 1e3,
+                                     clones=(time.perf_counter() - t1) * 1e3)
+
+        def parts():
+            gc_ms, starts = [], []
+
+            def on_gc(phase, info):
+                if phase == "start":
+                    starts.append(time.perf_counter())
+                elif starts:
+                    gc_ms.append((time.perf_counter() - starts.pop()) * 1e3)
+            gc.callbacks.append(on_gc)
+            t = time.perf_counter()
+            try:
+                out = parts_fn()
+            finally:
+                gc.callbacks.remove(on_gc)
+            box["parts_ms"] = (time.perf_counter() - t) * 1e3
+            box["parts_split_ms"]["gc_during_capture"] = sum(gc_ms)
+            return out
+
+        def write(*a, **k):
+            t = time.perf_counter()
+            real_write(*a, **k)
+            box["write_ms"] = (time.perf_counter() - t) * 1e3
+
+        bal.snapshot_parts, CK.write_snapshot = parts, write
+        try:
+            await snapper._dump()
+        finally:
+            bal.snapshot_parts, CK.write_snapshot = parts_fn, real_write
+        box["snap_bytes"] = os.path.getsize(snap)
+
+    t0 = time.perf_counter()
+    out, _rec, (_b0, _bk0, books), _prof = asyncio.run(_front_run(
+        TB, K, None, "0", JOURNAL_WAVES, FRONT_TRICKLE, profile=False,
+        flap=True, setup=setup, on_wave=on_wave))
+    live_s = time.perf_counter() - t0
+    journal.close()
+    require(not out["failed"] and not out["unresolved"] and not out["errors"]
+            and out["active_at_end"] == 0 and out["books_full"],
+            f"journal: every activation resolved, books full: "
+            f"{out['failed_first']} {out['errors']}")
+    records = list(JN.PlacementJournal(jdir).records(0))
+    require(records and records[0]["seq"] == 1,
+            "journal: the log holds the full history")
+    kinds = {}
+    for r in records:
+        n = len(json.dumps(r, separators=(",", ":"))) + 10  # + frame header
+        row = kinds.setdefault(r["t"], {"records": 0, "bytes": 0})
+        row["records"] += 1
+        row["bytes"] += n
+    require({"reg", "grow", "batch", "ack", "fold"} <= set(kinds),
+            f"journal: the log holds every kind of record: {sorted(kinds)}")
+    full = [r for r in records if r["t"] == "batch" and r["b"] == MAX_BATCH]
+    doc = json.load(open(snap))
+    require(doc["version"] == 2 and len(doc["registry"]) == N_INV,
+            "journal: the snapshot holds the fleet")
+
+    # (a) snapshot + tail, (b) full history with no snapshot: on the card
+    async def card_replay(snapshot_path):
+        bal = _cold_balancer(TB, "2")
+        got = {}
+        restore, replay = bal.restore, bal.replay_journal
+
+        def timed_restore(s):
+            t = time.perf_counter()
+            restore(s)
+            got["restore_ms"] = (time.perf_counter() - t) * 1e3
+
+        def measured(*a, **k):
+            got["stats"], got["replay"] = _measured_replay(
+                TB, K, bal, lambda: replay(*a, **k))
+            return got["stats"]
+
+        bal.restore, bal.replay_journal = timed_restore, measured
+        got["loaded"] = CK.load_snapshot(
+            bal, snapshot_path, journal=JN.PlacementJournal(jdir))
+        got["equal"] = _same_books(bal, books)
+        await bal.close()
+        return got
+
+    res = {"snapshot_tail": asyncio.run(card_replay(snap)),
+           "full_history": asyncio.run(card_replay(
+               os.path.join(work, "missing.snap")))}
+    for label, got in res.items():
+        st, rp = got["stats"], got["replay"]
+        say("journal_replay", replay=label, loaded=got["loaded"],
+            books_equal=got["equal"], restore_ms=got.get("restore_ms"),
+            stats={k: v for k, v in st.items()}, **rp)
+        require(got["equal"] and st["parity_mismatches"] == 0
+                and st["batches"] >= 1,
+                f"journal {label}: the card replay is bit-exact: {st}")
+        require(rp["launches"]["scan"] > 0 and rp["launches"]["repair"] > 0,
+                f"journal {label}: both kernels ran in the replay: "
+                f"{rp['launches']}")
+    require(res["snapshot_tail"]["loaded"] is True
+            and res["full_history"]["loaded"] is False,
+            "journal: (a) restored the snapshot, (b) had none")
+
+    # (c) the same full history through the plain versions on the CPU
+    async def cpu_replay():
+        bal = TT.make_offline_balancer(device="cpu")
+        t = time.perf_counter()
+        st = bal.replay_journal(JN.PlacementJournal(jdir).records(0))
+        dt = time.perf_counter() - t
+        eq = _same_books(bal, books)
+        await bal.close()
+        return st, dt, eq
+
+    cst, cpu_s, cpu_equal = asyncio.run(cpu_replay())
+    require(cpu_equal and cst["parity_mismatches"] == 0,
+            f"journal: the card's journal replays on the CPU to the same "
+            f"books: {cst}")
+
+    # (d) a rate-limited balancer's journal: acks carry throttled bits
+    rdir = os.path.join(work, "wal-rate")
+    rjournal = JN.PlacementJournal(rdir)
+    rout, _r, (_rb0, _rbk, rbooks), _p = asyncio.run(_front_run(
+        TB, K, RATE_LIMIT, "1", JOURNAL_RATE_WAVES, 0, profile=False,
+        flap=False, setup=lambda bal: bal.attach_journal(rjournal)))
+    rjournal.close()
+    rrecs = list(JN.PlacementJournal(rdir).records(0))
+    throttled_acks = sum(any((v >> 1) & 1 for v in r["out"])
+                         for r in rrecs if r["t"] == "ack")
+    require(rout["throttled"] > 0 and throttled_acks > 0,
+            "journal: the rate-limited run journaled throttled rows")
+
+    async def rate_replay():
+        bal = _cold_balancer(TB, "3")
+        st, rp = _measured_replay(TB, K, bal, lambda: bal.replay_journal(
+            JN.PlacementJournal(rdir).records(0)))
+        eq = _same_books(bal, rbooks)
+        await bal.close()
+        return st, rp, eq
+
+    rst, rrp, requal = asyncio.run(rate_replay())
+    require(requal and rst["parity_mismatches"] == 0,
+            f"journal: the rate-limited journal replays bit-exact: {rst}")
+
+    # (e) the time-travel debugger on the card
+    aid_batch = next(r for r in records if r["t"] == "batch"
+                     and r["seq"] > box["aid_after_seq"])
+    aid = aid_batch["aids"][0]
+    # acks apply through their batch records and are not steps: stop at
+    # the last record that changed the books at or before the snapshot
+    at_snap = max(r["seq"] for r in records
+                  if r["seq"] <= doc["journal_seq"] and r["t"] != "ack")
+
+    async def debug():
+        dbg = TT.JournalDebugger(records,
+                                 device=None if DEVICE == "cuda" else DEVICE)
+        try:
+            stop = dbg.run_to_seq(at_snap)
+            diff = dbg.diff_books(doc)
+            hit = dbg.run_to_activation(aid)
+            dec = dbg.decisions()
+            keep = [not t for t in dec["throttled"]]
+            agree = ([d for d, k in zip(dec["derived"], keep) if k]
+                     == [r for r, k in zip(dec["recorded"], keep) if k])
+            return stop, diff, hit, agree
+        finally:
+            await dbg.aclose()
+
+    stop, diff, hit, agree = asyncio.run(debug())
+    require(stop["seq"] == at_snap and diff["match"]
+            and diff["captured_seq"] == doc["journal_seq"],
+            f"journal: the debugger's books match the snapshot at its seq: "
+            f"{ {k: diff[k] for k in diff if k != 'free_mb_mismatches'} }")
+    require(hit is not None and hit["seq"] == aid_batch["seq"] and agree,
+            "journal: the debugger stopped at the wave's batch, its "
+            "decisions derived as recorded")
+
+    n_rec = len(records)
+    n_batch = kinds["batch"]["records"]
+    card_replays = [res["snapshot_tail"]["replay"],
+                    res["full_history"]["replay"], rrp]
+    line = dict(
+        records=n_rec, by_type=kinds,
+        full_batch_record=dict(
+            rows=MAX_BATCH, bytes=(len(json.dumps(full[0],
+                                                  separators=(",", ":")))
+                                   + 10 if full else None)),
+        append_us_per_record={k: dict(mean=float(np.mean(v)),
+                                      p50=float(np.median(v)), n=len(v))
+                              for k, v in append_us.items()},
+        fsync_p99_ms=journal.fsync_p99_ms(), lag_batches_max=lag[0],
+        snapshot=dict(journal_seq=doc["journal_seq"],
+                      parts_ms_on_loop=box["parts_ms"],
+                      parts_split_ms=box["parts_split_ms"],
+                      write_ms_on_worker=box["write_ms"],
+                      file_bytes=box["snap_bytes"],
+                      conc_cells=len(doc["conc_nonzero"])),
+        restore_ms=res["snapshot_tail"]["restore_ms"],
+        replay_card={label: dict(
+            records=got["stats"]["replayed"],
+            batches=got["stats"]["batches"], s=got["replay"]["s"],
+            records_per_s=got["stats"]["replayed"] / got["replay"]["s"],
+            batches_per_s=got["stats"]["batches"] / got["replay"]["s"],
+            host_syncs=got["replay"]["host_syncs"],
+            launches=got["replay"]["launches"],
+            kernel_ms_p50=got["replay"]["kernel_ms_p50"],
+            kernel_ms_total=got["replay"]["kernel_ms_total"])
+            for label, got in res.items()},
+        replay_cpu=dict(backend="cpu", records=cst["replayed"],
+                        batches=cst["batches"], s=cpu_s,
+                        records_per_s=cst["replayed"] / cpu_s,
+                        batches_per_s=cst["batches"] / cpu_s),
+        replay_rate_limited=dict(records=rst["replayed"],
+                                 batches=rst["batches"],
+                                 throttled_acks=throttled_acks,
+                                 launches=rrp["launches"],
+                                 host_syncs=rrp["host_syncs"]),
+        debugger=dict(snapshot_seq=doc["journal_seq"], match=diff["match"],
+                      activation=aid, batch_seq=hit["seq"]),
+        front_pair=dict(
+            journal_on=dict(waves=JOURNAL_WAVES,
+                            activations_per_s=out["activations_per_s"],
+                            step_ms_p50=out["step_ms_p50_p99"][0],
+                            register_s=out["register_s"]),
+            journal_off_phase7=dict(
+                waves=FRONT_WAVES,
+                activations_per_s=front["main"]["activations_per_s"],
+                step_ms_p50=front["main"]["step_ms_p50_p99"][0],
+                register_s=front["main"]["register_s"])),
+        live_s=live_s, batches=n_batch)
+    say("journal", **line)
+    line["replay_launches"] = {
+        k: sum(r["launches"][k] for r in card_replays)
+        for k in ("scan", "repair")}
+    line["replay_ms"] = {
+        k: sum(r["kernel_ms_total"][k] for r in card_replays)
+        / max(1, line["replay_launches"][k]) for k in ("scan", "repair")}
+    return line
 
 
 # ------------------------------------------------------- the device planes
@@ -2767,9 +3168,201 @@ def coalesce_ab(TB, K):
     return runs
 
 
+#: 8d, the restart: phase 8b's assembly with the balancer's snapshot and
+#: journal, RESTART_INVOKES blocking invokes over RESTART_ACTIONS actions,
+#: stop (the final dump), a second boot from the same files, then
+#: RESTART_AFTER more invokes; the periodic snapshot every RESTART_SNAP_S
+RESTART_ACTIONS, RESTART_INVOKES, RESTART_AFTER = 50, 1_000, 200
+RESTART_SNAP_S = 2.0
+
+
+async def _restart_boot(TB, K, paths, invokes, create):
+    """One boot of 8d: the standalone over a fresh simulated fleet with the
+    snapshot, journal and sqlite store at `paths`; the fleet pings in,
+    `create` makes the actions over HTTP, `invokes` blocking invokes from
+    the client process, then stop (the final dump). Returns the boot's
+    numbers."""
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    from openwhisk_tpu_torch.database import open_store
+    from openwhisk_tpu_torch.core import entity as E
+    E.ConcurrencyLimit.MAX = 16
+    timing = {}
+    cls = TB.TpuBalancer
+    restore, replay = cls.restore, cls.replay_journal
+
+    def timed_restore(self, snap):
+        t = time.perf_counter()
+        restore(self, snap)
+        timing["restore_s"] = time.perf_counter() - t
+
+    def timed_replay(self, *a, **k):
+        t = time.perf_counter()
+        st = replay(self, *a, **k)
+        timing["replay_s"] = time.perf_counter() - t
+        timing["replay"] = {k: st[k] for k in ("replayed", "batches",
+                                               "parity_mismatches")}
+        return st
+
+    t_wall = time.perf_counter()
+    fleet = Fleet(seed=23, echo=True)
+    fleet.start()
+    port = _free_port()
+    cls.restore, cls.replay_journal = timed_restore, timed_replay
+    t0 = time.perf_counter()
+    try:
+        ctrl = await S.make_standalone(
+            port=port, balancer="tpu", ui=False, invoker=False,
+            messaging_provider=fleet.provider,
+            artifact_store=open_store(paths["db"]),
+            snapshot_path=paths["snap"], snapshot_interval=RESTART_SNAP_S,
+            journal_dir=paths["wal"], **UNTHROTTLED, **_standalone_kw())
+    finally:
+        cls.restore, cls.replay_journal = restore, replay
+    out = dict(boot_s=time.perf_counter() - t0, **timing)
+    bal = ctrl.load_balancer
+    out["registry_at_boot"] = len(bal._registry)
+    out["books_at_boot"] = _books_np(bal.state)
+    stop_pinging, pinger = asyncio.Event(), None
+    base = f"http://127.0.0.1:{port}/api/v1/namespaces/_"
+    try:
+        async with aiohttp.ClientSession(
+                auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)) as s:
+            async with s.get(f"http://127.0.0.1:{port}/admin/ready") as r:
+                out["ready"] = [r.status, await r.json()]
+            t0 = time.perf_counter()
+            await fleet.ping(bal.supervision, list(range(N_INV)))
+            out["ping_s"] = time.perf_counter() - t0
+            require(len(bal._registry) == N_INV and all(bal._healthy),
+                    "restart: the fleet is registered and healthy")
+            bal._arm_flush()
+            await _drain_front(bal)
+            pinger = asyncio.get_event_loop().create_task(
+                _keep_pinging(fleet, bal.supervision, stop_pinging))
+            names = [f"r{k}" for k in range(RESTART_ACTIONS)]
+            if create:
+                rng = np.random.RandomState(29)
+                for name in names:
+                    limits = {"memory": int(rng.choice(range(128, 513, 64)))}
+                    if rng.rand() < 0.2:
+                        limits["concurrency"] = int(rng.randint(2, 17))
+                    async with s.put(f"{base}/actions/{name}", json={
+                            "exec": {"kind": "python:3", "code": ECHO_CODE},
+                            "limits": limits}) as r:
+                        require(r.status == 200, f"PUT {name}: {r.status}")
+        K.reset_launch_counts()
+        cfg = dict(seed=31 + invokes, names=names, invokes=invokes,
+                   inflight=HTTP_INFLIGHT, trickle=0, base=base,
+                   auth=[S.GUEST_UUID, S.GUEST_KEY])
+        client = await asyncio.create_subprocess_exec(
+            sys.executable, __file__, "--http-client", json.dumps(cfg),
+            stdout=asyncio.subprocess.PIPE)
+        stdout, _ = await client.communicate()
+        require(client.returncode == 0,
+                f"restart client exit {client.returncode}")
+        res = json.loads(stdout.decode().strip().splitlines()[-1])
+        await _drain_front(bal)
+        out.update(invokes=invokes, n_bad=res["n_bad"],
+                   bad_first=res["bad"],
+                   invokes_per_s=invokes / (res["t_last"] - res["t_first"]),
+                   launches={"scan": K.schedule_batch_cuda.launches,
+                             "repair": K.schedule_batch_repair_cuda.launches},
+                   journal_seq=bal._journal_seq,
+                   fsync_p99_ms=bal.journal.fsync_p99_ms())
+        stop_pinging.set()
+        await pinger
+        pinger = None
+        out["books_at_stop"] = _books_np(bal.state)
+    finally:
+        stop_pinging.set()
+        if pinger is not None:
+            await pinger
+        t0 = time.perf_counter()
+        await ctrl.stop()
+        out["stop_s"] = time.perf_counter() - t0
+        await fleet.stop()
+        out["wall_s"] = time.perf_counter() - t_wall
+    return out
+
+
+def restart_phase(TB, K):
+    """Phase 8d: the standalone restarts from its own snapshot."""
+    import os
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-restart-")
+    paths = {"db": os.path.join(work, "whisks.db"),
+             "snap": os.path.join(work, "balancer.snap"),
+             "wal": os.path.join(work, "wal")}
+    try:
+        first = asyncio.run(_restart_boot(TB, K, paths, RESTART_INVOKES,
+                                          create=True))
+        doc = json.load(open(paths["snap"]))
+        second = asyncio.run(_restart_boot(TB, K, paths, RESTART_AFTER,
+                                           create=False))
+        snap_bytes = os.path.getsize(paths["snap"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free, conc, _health = second["books_at_boot"]
+    cells = [[int(i), int(j), int(conc[j, i])]
+             for i, j in zip(*np.nonzero(conc.T))]
+    books_equal = (free.tolist() == doc["free_mb"]
+                   and cells == doc["conc_nonzero"])
+    status, ready = second["ready"]
+    line = dict(
+        boots=[{k: v for k, v in b.items()
+                if not k.startswith("books")} for b in (first, second)],
+        final_dump=dict(journal_seq=doc["journal_seq"],
+                        registry=len(doc["registry"]),
+                        conc_cells=len(doc["conc_nonzero"])),
+        snapshot_bytes=snap_bytes, books_equal_final_dump=books_equal)
+    say("restart", **line)
+    require(first["n_bad"] == 0 and second["n_bad"] == 0,
+            f"restart: every invoke 200 with its echo: "
+            f"{first['bad_first']} {second['bad_first']}")
+    require(len(doc["registry"]) == N_INV
+            and doc["journal_seq"] == first["journal_seq"],
+            "restart: the final dump holds the fleet at the last seq")
+    require(second["registry_at_boot"] == N_INV and books_equal,
+            "restart: the second boot restored 10,000 invokers and the "
+            "final dump's books")
+    require(status == 200 and ready["journal"]["attached"]
+            and ready["journal"]["stall_firing"] is False,
+            f"restart: /admin/ready reports the journal: {ready}")
+    require(second["replay"]["parity_mismatches"] == 0,
+            f"restart: the tail replayed cleanly: {second['replay']}")
+    return line
+
+
+def leg():
+    """`--leg`: one leg of a parent/change comparison inside one call, run
+    from the root of each tree: phase 7's main run without the profile
+    window and an 8b run without the recorder, of the package beside this
+    script; one JSON line of their numbers."""
+    from openwhisk_tpu_torch.controller.loadbalancer import tpu_balancer as TB
+    from openwhisk_tpu_torch.ops import _build
+    from openwhisk_tpu_torch.ops import placement_cuda as K
+    _build.build(K.SOURCES)
+    front, *_ = asyncio.run(_front_run(TB, K, None, "0", FRONT_WAVES,
+                                       FRONT_TRICKLE, profile=False,
+                                       flap=True))
+    http, *_ = asyncio.run(_http_fleet_run(TB, K, full=False))
+    print(json.dumps({"leg": {
+        "front": {k: front[k] for k in ("activations_per_s", "step_ms_p50_p99",
+                                        "placement_ms_p50_p99", "register_s",
+                                        "failed", "books_full")},
+        "http": {k: http[k] for k in ("invokes_per_s",
+                                      "http_ms_p50_p99_concurrent",
+                                      "step_ms_p50_p99", "n_bad",
+                                      "server_cpu_ms_per_invoke")}}}))
+    return 0
+
+
 def main():
     if sys.argv[1:2] == ["--http-client"]:
         return http_client(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--leg"]:
+        return leg()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2831,10 +3424,16 @@ def main():
     say("planes_ab_phase", seconds=time.perf_counter() - t0)
     front_launches = {k: sum(seg["launches"][k] for seg in front.values())
                       for k in ("scan", "repair")}
+    t0 = time.perf_counter()
+    journal = journal_phase(torch, P, K, TB, front)
+    say("journal_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     standalone, http = http_phase(torch, P, K, TB)
     say("http_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    restart_phase(TB, K)
+    say("restart_phase", seconds=time.perf_counter() - t0)
 
     scan = sk["plain"]
     rep = mk["plain"]
@@ -2860,6 +3459,8 @@ def main():
          "scan_pinned": {k: pinned[k] for k in
                          ("step_p50_ms", "kernel_ms_per_launch", "launches")},
          "penalized": sk["penalized"],
+         "replay_launches": journal["replay_launches"]["scan"],
+         "replay_ms": journal["replay_ms"]["scan"],
          "wide": {k: (v if k == "balancer" else
                       {f: v[f] for f in ("N", "A", "B", "valid_rows", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
@@ -2883,7 +3484,9 @@ def main():
          "main_path_ms_per_launch": profile["repair_ms_per_launch"],
          "main_path_ms_per_round": profile["repair_ms_per_round"],
          "memory_traffic": kres["repair"]["times"],
-         "penalized": mk["penalized"]},
+         "penalized": mk["penalized"],
+         "replay_launches": journal["replay_launches"]["repair"],
+         "replay_ms": journal["replay_ms"]["repair"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -756,9 +756,17 @@ class ControllerApi:
         The port runs one controller without HA or partitions, so the
         mode is `single` and the answer 200."""
         lb = self.c.load_balancer
-        doc = {"mode": "single", "ready": True,
-               "journal": {"attached": getattr(lb, "journal", None)
-                           is not None}}
+        doc = {"mode": "single", "ready": True}
+        journal = getattr(lb, "journal", None)
+        jdoc = {"attached": journal is not None}
+        if journal is not None:
+            jdoc["lag_batches"] = journal.lag_batches
+        plane = getattr(lb, "anomaly", None)
+        if plane is not None:
+            jdoc["stall_firing"] = any(
+                name == "journal_stall"
+                for (name, _sev) in plane.engine.firing_counts())
+        doc["journal"] = jdoc
         return web.json_response(doc)
 
     async def latency_waterfall(self, request):

@@ -74,6 +74,7 @@ from ...utils.tracing import export_tracing_gauges, trace_id_of
 from .base import (HEALTHY, CommonLoadBalancer, InvokerHealth,
                    LoadBalancerException, LoadBalancerThrottleException)
 from .flight_recorder import BatchRecord, free_slot_histogram, occupancy_json
+from .journal import decode_array, encode_array
 from .supervision import InvokerPool
 
 #: batch-bucket width from which placement_kernel="auto" swaps the scan
@@ -564,8 +565,11 @@ class TpuBalancer(CommonLoadBalancer):
         self._partitions_stale = True
         self._coprimes: Dict[int, List[int]] = {}
 
-        sched, release, self.placement_kernel_resolved = device_pair(
-            self.device, placement_kernel)
+        #: the schedule and release pair of the books' device: the live
+        #: steps below and the journal replay's steps are built from it
+        self._sched_fn, self._release_fn, self.placement_kernel_resolved = \
+            device_pair(self.device, placement_kernel)
+        sched, release = self._sched_fn, self._release_fn
         # the profiler interposes on every device entry point: first-seen
         # signatures classify by first-call / expect-window / pow2-bucketed
         # statics (the only shapes _bucket may produce) — anything else is
@@ -595,6 +599,22 @@ class TpuBalancer(CommonLoadBalancer):
         self._books_seq = 0
         self._books_cache_seq = 0
         self.state: Optional[PlacementState] = None
+        #: the books live on one device: no fleet mesh, one shard (the
+        #: journal's topology stamp reads these)
+        self.mesh = None
+        self.n_shards = 1
+        #: write-ahead placement journal (loadbalancer/journal.py): None =
+        #: journaling off. Every committed change to the books appends one
+        #: record; a restored controller replays the tail on top of the
+        #: snapshot (replay_journal).
+        self.journal = None
+        self._journal_seq = 0
+        #: True while replay_journal re-applies records, so the re-applied
+        #: changes don't journal themselves again
+        self._journal_mute = False
+        #: a fleet-mesh writer's one-shot topology stamp (the port has no
+        #: mesh yet: it stays False)
+        self._journal_mesh_stamped = False
         self._init_device_state()
 
         # request queue: (req, placement future, slot key, enqueue time,
@@ -685,6 +705,9 @@ class TpuBalancer(CommonLoadBalancer):
             self.logger.error(None, "device step failed; rebuilding the "
                                     "device books", "TpuBalancer")
         self._init_device_state()
+        if self._journal_live():
+            # books were rebuilt at full capacity: replay must do the same
+            self._journal_append({"t": "reinit"})
 
     def _set_inflight(self, delta: int) -> None:
         self._inflight_steps += delta
@@ -708,6 +731,8 @@ class TpuBalancer(CommonLoadBalancer):
         health[:n_old] = st.health
         self._n_pad = new_pad
         self._install_state(PlacementState(free, conc.T, health))
+        if self._journal_live():
+            self._journal_append({"t": "grow", "n_pad": new_pad})
 
     def _grow_slots(self, new_slots: int) -> None:
         """Widen the books' action axis on the device, preserving every
@@ -721,6 +746,8 @@ class TpuBalancer(CommonLoadBalancer):
         self._slots.grow(new_slots)
         self._install_state(PlacementState(st.free_mb, conc.T, st.health))
         self.counters["action_slot_growth"] += 1
+        if self._journal_live():
+            self._journal_append({"t": "slots", "action_slots": new_slots})
 
     def _ensure_slot_capacity(self, slot_key: str) -> None:
         """Grow the concurrency-slot axis before the allocator runs dry;
@@ -758,6 +785,11 @@ class TpuBalancer(CommonLoadBalancer):
                 [self._slot_mb(self._registry[i].user_memory.to_mb)
                  for i in new_rows], dtype=torch.int32).to(self.device)
             self._set_books_now()
+            if self._journal_live():
+                self._journal_append({
+                    "t": "reg",
+                    "reg": [self._registry[i].to_json() for i in new_rows],
+                    "healthy": [bool(self._healthy[i]) for i in new_rows]})
         self._health_updates[idx] = self._healthy[idx]
         self._partitions_stale = True
 
@@ -802,6 +834,10 @@ class TpuBalancer(CommonLoadBalancer):
         # bus-client health rides the same cadence: coalescing batch sizes
         # (messaging/coalesce.py)
         export_coalesce_gauges(self.metrics)
+        # journal durability lag / size / fsync tail ride the same 1 Hz
+        # cadence
+        if self.journal is not None:
+            self.journal.export_gauges(self.metrics)
 
     def update_cluster(self, cluster_size: int) -> None:
         """Controller joined/left: re-shard every invoker's memory (ref
@@ -811,10 +847,443 @@ class TpuBalancer(CommonLoadBalancer):
             self.profiler.expect("cluster_resize")
             self._init_device_state()
             self._partitions_stale = True
+            if self._journal_live():
+                self._journal_append({"t": "cluster", "size": cluster_size})
 
     @property
     def cluster_size(self) -> int:
         return self._cluster_size
+
+    # -- placement journal (loadbalancer/journal.py) -----------------------
+    def attach_journal(self, journal) -> None:
+        """Adopt a PlacementJournal. Appends start from the max of the
+        balancer's own seq and what the log already holds, so a restarted
+        active never reuses a sequence number. Also registers the
+        journal's durability lag as an alert signal: the built-in
+        `journal_stall` rule (anomaly.py) fires when the lag stays above
+        its threshold for its window — an fsync device stall — and
+        /admin/ready surfaces the firing state."""
+        self.journal = journal
+        if journal is not None:
+            self._journal_seq = max(self._journal_seq, journal.last_seq())
+            self.anomaly.extra_signals["journal_lag_batches"] = (
+                lambda: float(self.journal.lag_batches)
+                if self.journal is not None else None)
+
+    def _journal_live(self) -> bool:
+        return self.journal is not None and not self._journal_mute
+
+    def _journal_append(self, rec: dict) -> int:
+        """Stamp the next seq onto `rec` and append. Returns the seq (0
+        when journaling is off). Called on the event loop in the SAME
+        synchronous block as the change to the books it records, so
+        journal order == the order of changes to the books and a
+        snapshot's `journal_seq` is exactly consistent with its books."""
+        if not self._journal_live():
+            return 0
+        self._journal_seq += 1
+        rec["seq"] = self._journal_seq
+        try:
+            self.journal.append(rec)
+        except Exception as e:  # noqa: BLE001 — journaling degrades, the
+            # placement path never dies for the flight data recorder
+            if self.logger:
+                self.logger.warn(None, f"journal append failed: {e!r}; "
+                                       "detaching journal", "TpuBalancer")
+            self.journal = None
+        return rec.get("seq", 0)
+
+    def replay_journal(self, records, logger=None,
+                       from_seq: Optional[int] = None,
+                       parts_filter=None, foreign: bool = False) -> dict:
+        """Deterministically re-execute a journal tail on top of the
+        current (snapshot-restored) books. Batch records re-run the SAME
+        schedule and release functions the live balancer used (the CUDA
+        kernels on the card, their plain versions on the CPU) over the
+        recorded packed input buffers — placement is bit-deterministic
+        across them, so the re-derived books equal the writer's and the
+        re-derived decisions equal the journaled readback
+        (`parity_mismatches` counts divergence, e.g. a kernel-knob change
+        across the restart). Structural records (registration, growth,
+        cluster) re-apply their host-side change.
+
+        Batches journaled at dispatch but crashed before readback replay
+        with their full request set (conservative over-hold: those
+        placements were computed on the dead device; self-heal via forced
+        timeouts reclaims them, exactly the checkpoint posture).
+
+        Topology: a batch record carrying a shard count (`S`) other than
+        this balancer's (one) COLD-STARTS the books with a logged reason
+        instead of mis-sharding the replay (`skipped: "mesh_topology"`).
+
+        `parts_filter` restricts the replay to batch records whose `parts`
+        intersect the given partition set (and their acks); structural
+        records are skipped under a filter. `foreign=True` marks the tail
+        as another controller's journal: its seqs live in that journal's
+        numbering, so this balancer's own `_journal_seq` never moves, and
+        a topology mismatch skips the replay (logged) instead of
+        cold-starting the live books. Records carrying a `pe`
+        (per-partition epoch) map are dropped PER PARTITION when every
+        overlapping partition was superseded at-or-before their seq."""
+        stats: dict = {}
+        for _ in self.replay_stepper(records, logger=logger,
+                                     from_seq=from_seq,
+                                     parts_filter=parts_filter,
+                                     foreign=foreign, stats=stats):
+            pass
+        return stats
+
+    def replay_stepper(self, records, logger=None,
+                       from_seq: Optional[int] = None,
+                       parts_filter=None, foreign: bool = False,
+                       stats: Optional[dict] = None):
+        """The replay engine behind `replay_journal`, exposed as a
+        generator for the time-travel debugger (timetravel.py): yields one
+        step dict `{seq, t, rec, detail}` per APPLIED record (acks and
+        stale/filtered records are handled internally), so a consumer can
+        stop at seq K, break on an activation id, or inspect the
+        re-derived books between any two steps. `stats` is a
+        caller-supplied dict mutated in place (replayed/batches/
+        parity_mismatches/last_seq...) — shared with `replay_journal`, and
+        still correct when the consumer abandons the generator early:
+        finalization (journal un-mute, host-books refresh, last_seq) runs
+        in the generator's `finally`, i.e. also on `close()`."""
+        log = logger or self.logger
+        if stats is None:
+            stats = {}
+        if from_seq is not None and not foreign:
+            self._journal_seq = int(from_seq)
+        stats.update({"replayed": 0, "batches": 0, "parity_mismatches": 0,
+                      "from_seq": (int(from_seq) if from_seq is not None
+                                   else self._journal_seq)})
+        self.profiler.expect("snapshot_restore")
+        recs = [r for r in records]
+        # stale-epoch filter: a demoted active's already-popped write batch
+        # can still land in its own old segment AFTER the new epoch began —
+        # any record whose epoch is superseded at-or-before its seq was
+        # never part of the promoted active's state and must not replay
+        first_seq: Dict[int, int] = {}
+        #: per-partition variant of the same bound: (pid, epoch) -> first
+        #: seq observed carrying it (records with a `pe` map)
+        pfirst_seq: Dict[tuple, int] = {}
+        for r in recs:
+            e, s = int(r.get("epoch", 0)), int(r.get("seq", 0))
+            first_seq[e] = min(first_seq.get(e, s), s)
+            for pid_s, pe in (r.get("pe") or {}).items():
+                key = (int(pid_s), int(pe))
+                pfirst_seq[key] = min(pfirst_seq.get(key, s), s)
+        bounds = sorted(first_seq.items())
+        pbounds: Dict[int, list] = {}
+        for (pid, e), s in sorted(pfirst_seq.items()):
+            pbounds.setdefault(pid, []).append((e, s))
+
+        def _fresh_for(pid: int, e: int, s: int) -> bool:
+            return not any(e2 > e and s2 <= s
+                           for e2, s2 in pbounds.get(pid, ()))
+
+        def _fresh(r: dict) -> bool:
+            e, s = int(r.get("epoch", 0)), int(r.get("seq", 0))
+            if any(e2 > e and s2 <= s for e2, s2 in bounds):
+                return False
+            pe = r.get("pe")
+            if not pe:
+                return True
+            # fresh while ANY overlapping partition is fresh — a batch
+            # mixing a stale and a live partition still owes the live
+            # partition its holds (the stale rows are epsilon over-hold,
+            # self-healed by forced timeouts like every replay over-hold)
+            pids = ((int(p) for p in pe)
+                    if parts_filter is None
+                    else (int(p) for p in pe if int(p) in parts_filter))
+            return any(_fresh_for(p, int(pe[str(p)]), s) for p in pids)
+
+        if parts_filter is not None:
+            parts_filter = set(int(p) for p in parts_filter)
+            kept = []
+            kept_seqs = set()
+            for r in recs:
+                t = r.get("t")
+                if t == "batch":
+                    if parts_filter & set(int(p) for p in
+                                          r.get("parts") or ()):
+                        kept.append(r)
+                        kept_seqs.add(int(r.get("seq", 0)))
+                elif t == "ack":
+                    # an ack applies through its dispatch-time batch
+                    # record: absorbed iff that batch was
+                    if int(r.get("for", 0)) in kept_seqs:
+                        kept.append(r)
+                # everything else (reg/grow/slots/cluster/reinit/fold/
+                # mesh): the previous owner's own topology and idle
+                # bookkeeping — never part of a partition handoff
+            stats["filtered_out"] = len(recs) - len(kept)
+            recs = kept
+        n_all = len(recs)
+        recs = [r for r in recs if _fresh(r)]
+        stats["stale_epoch_dropped"] = n_all - len(recs)
+        # acks key their dispatch-time batch record by `for` (the ack's own
+        # seq only orders it in the log)
+        acks = {int(r["for"]): r for r in recs
+                if r.get("t") == "ack" and "for" in r}
+        # the live pair, outside the profiler's wrap: replay steps are not
+        # live placement traffic
+        replay_step = make_fused_step_packed(self._release_fn, self._sched_fn)
+        replay_release = make_release_packed(self._release_fn)
+        # foreign tails run on a LOCAL cursor in the dead owner's seq
+        # space; our own journal numbering is untouched
+        cursor = (int(from_seq or 0) if foreign else self._journal_seq)
+        self._journal_mute = True
+        cold = False
+        try:
+            for rec in recs:
+                t = rec.get("t")
+                seq = int(rec.get("seq", 0))
+                if t == "ack":
+                    # already applied through its batch record; still claim
+                    # the seq so the promoted active never reuses it
+                    cursor = max(cursor, seq)
+                    if not foreign:
+                        self._journal_seq = cursor
+                    continue
+                if seq <= cursor:
+                    continue
+                if t in ("batch", "mesh"):
+                    got = int(rec.get("S" if t == "batch" else "n_shards",
+                                      1))
+                    if got != self.n_shards:
+                        if foreign:
+                            # NEVER cold-start a live survivor's books
+                            # over an absorbed tail: skip it and say so;
+                            # the un-replayed holds self-heal
+                            if log:
+                                log.warn(None, "absorbed journal tail was "
+                                               f"written at {got} fleet "
+                                               f"shard(s), this balancer "
+                                               f"runs {self.n_shards}; "
+                                               "skipping the absorb "
+                                               "replay", "TpuBalancer")
+                            stats["skipped"] = "mesh_topology"
+                            break
+                        cold = True
+                        self._topology_coldstart(stats, recs, got, log)
+                        return
+                detail = None
+                if t == "mesh":
+                    pass  # topology verified above; nothing to re-apply
+                elif t == "batch":
+                    detail = self._replay_batch(rec, acks.get(seq),
+                                                replay_step, stats)
+                elif t == "fold":
+                    self._replay_fold(rec, replay_release)
+                elif t == "reg":
+                    self._replay_reg(rec)
+                elif t == "grow":
+                    if int(rec["n_pad"]) > self._n_pad:
+                        self._grow_padding(int(rec["n_pad"]))
+                elif t == "slots":
+                    if int(rec["action_slots"]) > self.action_slots:
+                        self._grow_slots(int(rec["action_slots"]))
+                elif t == "cluster":
+                    self.update_cluster(int(rec["size"]))
+                elif t == "reinit":
+                    self._init_device_state()
+                elif log:
+                    log.warn(None, f"journal record type {t!r} unknown "
+                                   "(newer writer?); skipped", "TpuBalancer")
+                stats["replayed"] += 1
+                cursor = max(cursor, seq)
+                if not foreign:
+                    self._journal_seq = cursor
+                yield {"seq": seq, "t": t, "rec": rec, "detail": detail}
+        finally:
+            self._journal_mute = False
+            if not cold:
+                self._set_books_now()
+                stats["last_seq"] = cursor
+                if stats["parity_mismatches"] and log:
+                    log.warn(None, f"journal replay re-derived "
+                                   f"{stats['parity_mismatches']} decisions "
+                                   "differently than the recorded readback "
+                                   "(kernel knobs changed across the "
+                                   "restart?)", "TpuBalancer")
+
+    def _topology_coldstart(self, stats: dict, recs: list, got: int,
+                            log) -> dict:
+        """A journal tail written at a different fleet topology cannot be
+        replayed here (the packed records are deterministic only through
+        the SAME sharded kernels): cold-start — fresh full-capacity books
+        over the restored registry; leaked in-flight holds self-heal via
+        forced timeouts, exactly the pruned-tail posture — with a logged
+        reason. Every seq in the tail is still claimed so a promoted
+        active never reuses one."""
+        if log:
+            log.warn(None, f"placement journal tail was written at {got} "
+                           f"fleet shard(s) but this balancer runs "
+                           f"{self.n_shards}; cold-starting instead of "
+                           f"mis-sharding the replay", "TpuBalancer")
+        stats["skipped"] = "mesh_topology"
+        stats["journal_shards"] = got
+        stats["balancer_shards"] = self.n_shards
+        self._journal_seq = max(
+            [self._journal_seq] + [int(r.get("seq", 0)) for r in recs])
+        self._init_device_state()
+        stats["last_seq"] = self._journal_seq
+        return stats
+
+    def _replay_batch(self, rec: dict, ack: Optional[dict], replay_step,
+                      stats: dict) -> dict:
+        R, H, B = int(rec["R"]), int(rec["H"]), int(rec["B"])
+        rows, b = int(rec["rows"]), int(rec["b"])
+        buf = decode_array(rec["buf"])
+        rel = buf[:5 * R]
+        health = buf[5 * R:5 * R + 3 * H]
+        req = buf[5 * R + 3 * H:].reshape(rows, B)[:9].copy()
+        if ack is not None:
+            out_rec = np.asarray(ack["out"], np.int64)
+            throttled = ((out_rec >> 1) & 1).astype(bool)
+            # device rate admission already rejected these at commit time:
+            # replay with their valid bit cleared so the re-derived books
+            # hold exactly what the committed step held
+            req[8, :len(throttled)] &= ~throttled
+        buf9 = np.concatenate([rel, health, req.ravel()]).astype(np.int32)
+        self.state, out = replay_step(self.state, self._to_device(buf9),
+                                      R, H, B)
+        stats["batches"] += 1
+        #: per-batch evidence for the time-travel debugger (timetravel.py):
+        #: replay_journal ignores it
+        detail: dict = {"b": b, "aids": rec.get("aids") or [],
+                        "acked": ack is not None, "mismatches": 0}
+        if ack is not None:
+            # the one host read of a replayed batch: only acked batches
+            # have recorded decisions to hold the derived ones against
+            derived = out.cpu().numpy()[:b].astype(np.int64)
+            recorded = np.asarray(ack["out"], np.int64)[:b]
+            thr = ((recorded >> 1) & 1).astype(bool)
+            mism = int(np.count_nonzero(derived[~thr] != recorded[~thr]))
+            stats["parity_mismatches"] += mism
+            detail.update({"derived": derived, "recorded": recorded,
+                           "throttled": thr, "mismatches": mism})
+        return detail
+
+    def _replay_fold(self, rec: dict, replay_release) -> None:
+        if "rel" in rec:
+            rel = decode_array(rec["rel"]).reshape(5, -1).copy()
+            self.state = replay_release(self.state, self._to_device(rel))
+        health = rec.get("health")
+        if health:
+            self.state = set_health(self.state,
+                                    [int(i) for i, _ in health],
+                                    [bool(v) for _, v in health])
+
+    def _replay_reg(self, rec: dict) -> None:
+        new_rows = []
+        for j, healthy in zip(rec["reg"], rec["healthy"]):
+            inv = InvokerInstanceId.from_json(j)
+            idx = inv.instance
+            while idx >= len(self._registry):
+                new_rows.append(len(self._registry))
+                self._registry.append(inv)
+                self._healthy.append(False)
+            self._registry[idx] = inv
+            self._healthy[idx] = bool(healthy)
+        if new_rows:
+            if len(self._registry) > self._n_pad:
+                self._grow_padding(_next_pow2(len(self._registry)))
+            self.state.free_mb[torch.tensor(new_rows)] = torch.tensor(
+                [self._slot_mb(self._registry[i].user_memory.to_mb)
+                 for i in new_rows], dtype=torch.int32).to(self.device)
+        self._partitions_stale = True
+
+    # -- checkpoint / resume -----------------------------------------------
+    def snapshot_parts(self) -> dict:
+        """Event-loop-side capture for a snapshot: device-side clones of
+        the books plus copies of the host books. The steps write the books
+        IN PLACE, so the clones are enqueued here, on the stream behind
+        every step dispatched so far and ahead of any later one (the
+        pattern of `_books_ref`); the device->host transfer then runs on a
+        worker thread (checkpoint.BalancerSnapshotter) reading only the
+        clones, without racing the loop's later steps or mixing books
+        from different steps."""
+        st = self.state
+        return {
+            "state": PlacementState(st.free_mb.clone(),
+                                    st.conc_free.T.clone().T,
+                                    st.health.clone()),
+            "journal_seq": self._journal_seq,
+            "n_pad": self._n_pad,
+            "fleet_shards": self.n_shards,
+            "cluster_size": self._cluster_size,
+            "action_slots": self.action_slots,
+            "registry": [inv.to_json() for inv in self._registry],
+            "healthy": list(self._healthy),
+            "slots": dict(self._slots.slots),
+            "slot_refcount": dict(self._slots.refcount),
+            "slot_overflow": {k: list(v)
+                              for k, v in self._slots.overflow.items()},
+        }
+
+    def snapshot(self, parts: Optional[dict] = None) -> dict:
+        """Host-side snapshot of the capacity books + registry, the JAX
+        package's document key for key. Thread-safe given `parts` from
+        snapshot_parts(). `conc_nonzero` lists [invoker, slot, value] in
+        row-major (invoker, slot) order; the non-zero cells are found on
+        the books' device, so only they cross to the host, never the
+        whole [N, A] book."""
+        parts = dict(parts) if parts is not None else self.snapshot_parts()
+        state = parts.pop("state")
+        conc = state.conc_free
+        nz = torch.nonzero(conc)
+        cells = torch.cat([nz, conc[nz[:, 0], nz[:, 1]].long()[:, None]], 1)
+        parts["free_mb"] = state.free_mb.cpu().tolist()
+        parts["conc_nonzero"] = cells.cpu().tolist()
+        return parts
+
+    def restore(self, snap: dict) -> None:
+        self.profiler.expect("snapshot_restore")
+        # the snapshot's books are GLOBAL (topology-independent); said out
+        # loud because the JOURNAL tail is not topology-portable
+        # (replay_journal cold-starts on a mismatch)
+        snap_shards = int(snap.get("fleet_shards", 1))
+        if snap_shards != self.n_shards and self.logger:
+            self.logger.info(
+                None, f"snapshot was taken at {snap_shards} fleet "
+                f"shard(s); restoring its books onto {self.n_shards}",
+                "TpuBalancer")
+        # the snapshot's books already hold every journaled change up to
+        # this seq: replay_journal resumes from here (older snapshots carry
+        # no seq — a full-history journal replays from 0)
+        self._journal_seq = int(snap.get("journal_seq", 0))
+        self._n_pad = int(snap["n_pad"])
+        self._cluster_size = int(snap["cluster_size"])
+        # older snapshots predate the growable slot axis
+        self.action_slots = int(snap.get("action_slots", self.action_slots))
+        self._registry = [InvokerInstanceId.from_json(j)
+                          for j in snap["registry"]]
+        self._healthy = [bool(h) for h in snap["healthy"]]
+        free = np.asarray(snap["free_mb"], np.int32)
+        if len(free) < self._n_pad:
+            free = np.concatenate(
+                [free, np.zeros((self._n_pad - len(free),), np.int32)])
+        # conc is held as the [N, A] view of [A, N] storage (init_state)
+        conc = np.zeros((self.action_slots, self._n_pad), np.int32)
+        cells = np.asarray(snap.get("conc_nonzero", []),
+                           np.int64).reshape(-1, 3)
+        conc[cells[:, 1], cells[:, 0]] = cells[:, 2]
+        health = np.zeros((self._n_pad,), bool)
+        health[: len(self._healthy)] = self._healthy
+        dev = self.device
+        self._install_state(PlacementState(
+            torch.from_numpy(free).to(dev), torch.from_numpy(conc).to(dev).T,
+            torch.from_numpy(health).to(dev)))
+        self._slots.n_slots = self.action_slots
+        self._slots.slots = dict(snap.get("slots", {}))
+        self._slots.refcount = dict(snap.get("slot_refcount", {}))
+        self._slots.overflow = {k: [int(v[0]), int(v[1])]
+                                for k, v in snap.get("slot_overflow", {}).items()}
+        used = set(self._slots.slots.values())
+        self._slots.free = [s for s in range(self.action_slots - 1, -1, -1)
+                            if s not in used]
+        self._partitions_stale = True
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self) -> None:
@@ -1310,13 +1779,23 @@ class TpuBalancer(CommonLoadBalancer):
             # nothing to schedule: fold releases and health
             folded = bool(self._releases)
             try:
+                rel_np = ups = None
                 if self._releases:
+                    rel_np = self._release_packed()
                     self.state = self._release_packed_fn(
-                        self.state, self._to_device(self._release_packed()))
+                        self.state, self._to_device(rel_np))
                 if self._health_updates:
                     ups, self._health_updates = self._health_updates, {}
                     self.state = set_health(self.state, list(ups.keys()),
                                             list(ups.values()))
+                if (rel_np is not None or ups) and self._journal_live():
+                    fold = {"t": "fold"}
+                    if rel_np is not None:
+                        fold["rel"] = encode_array(rel_np)
+                    if ups:
+                        fold["health"] = [[int(k), bool(v)]
+                                          for k, v in ups.items()]
+                    self._journal_append(fold)
             except Exception as e:  # noqa: BLE001 — a failed in-place fold
                 # may have half-written the books; the popped releases are
                 # moot once they are rebuilt at full capacity
@@ -1404,6 +1883,15 @@ class TpuBalancer(CommonLoadBalancer):
             return
         finally:
             GLOBAL_HOST_OBSERVATORY.end_dispatch()
+        # write-ahead journal: the step above is enqueued, so the record
+        # lands at exactly this point in the order of changes to the books
+        # (the readback appends a matching `ack` with the decisions)
+        jseq = 0
+        if self._journal_live():
+            jseq = self._journal_append({
+                "t": "batch", "R": r, "H": h, "B": bp,
+                "rows": int(req_np.shape[0]), "b": b,
+                "buf": encode_array(buf), "aids": [e[4] for e in batch]})
         # completion telemetry rides the SAME dispatch cycle: at most one
         # extra scatter-add per batch over event rows already packed
         # host-side — asynchronous like the step itself, no readback
@@ -1425,7 +1913,7 @@ class TpuBalancer(CommonLoadBalancer):
         self.counters["steps"] += 1
         task = asyncio.get_event_loop().create_task(
             self._readback_step(batch, b, out, rb, t0, req_np,
-                                self._next_books_seq(), rec))
+                                self._next_books_seq(), rec, jseq))
         self._readbacks.add(task)
         task.add_done_callback(self._readbacks.discard)
 
@@ -1458,7 +1946,8 @@ class TpuBalancer(CommonLoadBalancer):
         task.add_done_callback(self._readbacks.discard)
 
     async def _readback_step(self, batch, b, out, rb: _Readback, t0,
-                             req_np, books_seq: int, rec=None) -> None:
+                             req_np, books_seq: int, rec=None,
+                             journal_seq: int = 0) -> None:
         def _read():
             t_r0 = time.monotonic()
             arrs, books_np = self._read_back(rb)
@@ -1485,6 +1974,16 @@ class TpuBalancer(CommonLoadBalancer):
             (chosen_np, forced_np, throttled_np, rounds), t_done, books_np = \
                 await asyncio.to_thread(_read)
             self._install_books(books_np, books_seq)
+            if journal_seq and self._journal_live():
+                # the committed decision vector, keyed to the dispatch-time
+                # batch record: replay asserts parity against it, and the
+                # throttled bits tell replay which requests the device rate
+                # admission rejected (they consumed no capacity)
+                enc = (((chosen_np[:b].astype(np.int64) + 1) << 2)
+                       | (throttled_np[:b].astype(np.int64) << 1)
+                       | forced_np[:b].astype(np.int64))
+                self._journal_append({"t": "ack", "for": journal_seq,
+                                      "out": [int(v) for v in enc]})
         except Exception as e:  # noqa: BLE001 — the DISPATCH succeeded, so
             # the books hold this batch's placements with no publisher left
             # to release them: reverse them ON DEVICE from `out` (no
@@ -1496,6 +1995,14 @@ class TpuBalancer(CommonLoadBalancer):
                 rel = torch.stack([chosen.clamp_min(0), req[0], req[1],
                                    req[2], req[3] * (chosen >= 0).int()])
                 self.state = self._release_packed_fn(self.state, rel)
+                if journal_seq and self._journal_live():
+                    # the dispatch-time batch record stands; journal its
+                    # reversal on the device so replay undoes it
+                    # identically (the host copy syncs, but this is
+                    # already an error path)
+                    self._journal_append({"t": "fold",
+                                          "rel": encode_array(
+                                              rel.cpu().numpy())})
             except Exception:  # noqa: BLE001 — device genuinely dead: keep
                 # the host refcounts PINNED so the slot indices cannot pass
                 # to another action with phantom concurrency

@@ -9,7 +9,9 @@ a `guest` identity whose credentials are printed (and stable for dev use).
 
 The balancer runs on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`, the plain torch path); without a card the default raises.
-The lean balancer and the balancer snapshot and journal are not ported yet.
+The balancer's books can be checkpointed and journaled (`snapshot_path`,
+`journal_dir`): restored at boot, dumped at a clean shutdown. The lean
+balancer is not ported yet.
 """
 from __future__ import annotations
 
@@ -58,6 +60,9 @@ async def make_standalone(port: int = 3233, artifact_store=None,
                           balancer: str = "tpu", ui: bool = True,
                           device=None, invoker: bool = True,
                           messaging_provider=None,
+                          snapshot_path: Optional[str] = None,
+                          snapshot_interval: float = 10.0,
+                          journal_dir: Optional[str] = None,
                           **controller_kw) -> Controller:
     """Assemble and start a standalone server; returns the running Controller.
 
@@ -68,7 +73,12 @@ async def make_standalone(port: int = 3233, artifact_store=None,
     may pass as `messaging_provider` (default: a fresh in-memory bus).
     Extra keyword arguments pass through to Controller (e.g.
     invocations_per_minute for perf runs that must not trip the default
-    throttles)."""
+    throttles).
+
+    snapshot_path/journal_dir: checkpoint/journal the balancer's books —
+    restored at boot (snapshot + deterministic journal tail replay) and
+    dumped one final time on a clean shutdown, wired through
+    Controller.owned_resources so SIGTERM cannot skip the final dump."""
     if balancer not in BALANCERS:
         raise ValueError(f"balancer {balancer!r} is not ported; "
                          f"choose from {BALANCERS}")
@@ -77,12 +87,39 @@ async def make_standalone(port: int = 3233, artifact_store=None,
     provider = messaging_provider or MemoryMessagingProvider()
     instance = ControllerInstanceId("0")
     lb = make_balancer(provider, instance, logger, device=device)
+    journal = None
+    snapshotter = None
+    if snapshot_path or journal_dir:
+        from ..controller.loadbalancer.checkpoint import (
+            BalancerSnapshotter, load_snapshot)
+        if journal_dir:
+            from ..controller.loadbalancer.journal import journal_from_config
+            journal = journal_from_config(journal_dir, logger=logger)
+            if journal is not None:
+                lb.attach_journal(journal)
+        load_snapshot(lb, snapshot_path or "", logger, journal=journal)
+        if snapshot_path:
+            snapshotter = BalancerSnapshotter(
+                lb, snapshot_path, snapshot_interval, logger,
+                journal=journal).start()
     if ui and "extra_routes" not in controller_kw:
         # playground dev UI beside /api/v1 (ref standalone PlaygroundLauncher)
         from .playground import playground_routes
         controller_kw["extra_routes"] = playground_routes(GUEST_UUID, GUEST_KEY)
     controller = Controller(instance, provider, artifact_store=artifact_store,
                             logger=logger, load_balancer=lb, **controller_kw)
+    if snapshotter is not None:
+        # Controller.stop() drains owned_resources BEFORE closing the
+        # balancer: the final dump always sees live books, and the SIGTERM
+        # path (utils.tasks.wait_for_shutdown -> controller.stop) cannot
+        # skip it
+        controller.owned_resources.append(snapshotter)
+    if journal is not None:
+        class _JournalCloser:
+            async def stop(self_inner) -> None:
+                await asyncio.to_thread(journal.close)
+
+        controller.owned_resources.append(_JournalCloser())
     # seed the guest identity
     ident = guest_identity()
     await controller.auth_store.put(

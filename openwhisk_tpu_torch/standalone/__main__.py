@@ -1,5 +1,5 @@
 """CLI: python -m openwhisk_tpu_torch.standalone [--port 3233] [--db PATH]
-[--device {cuda,cpu}].
+[--device {cuda,cpu}] [--balancer-snapshot PATH] [--balancer-journal DIR].
 
 Runs on the CUDA card unless `--device cpu` asks for the plain torch path;
 without a card the default exits non-zero with the reason."""
@@ -68,8 +68,7 @@ def preflight(port: int, manifest: dict = None,
 def main() -> None:
     parser = argparse.ArgumentParser(
         description="Standalone OpenWhisk-TPU server (PyTorch port)",
-        epilog="Not ported yet: --balancer lean, --balancer-snapshot, "
-               "--balancer-snapshot-interval and --balancer-journal.")
+        epilog="Not ported yet: --balancer lean.")
     parser.add_argument("--port", type=int, default=3233)
     parser.add_argument("--db", type=str, default=None,
                         help="sqlite path for durable storage (default: in-memory)")
@@ -80,6 +79,15 @@ def main() -> None:
     parser.add_argument("--balancer", choices=("tpu",), default="tpu",
                         help="load balancer: tpu (device placement kernels; "
                              "the lean balancer is not ported yet)")
+    parser.add_argument("--balancer-snapshot", default=None,
+                        help="path for periodic balancer snapshots, "
+                             "restored at boot; the final dump rides the "
+                             "SIGTERM shutdown path")
+    parser.add_argument("--balancer-snapshot-interval", type=float,
+                        default=10.0)
+    parser.add_argument("--balancer-journal", default=None,
+                        help="write-ahead placement journal directory "
+                             "(snapshot + tail replay at boot)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None,
                         help="where the balancer places: the CUDA card "
                              "(default) or the plain torch path on the CPU")
@@ -127,7 +135,10 @@ def main() -> None:
                 port=args.port, artifact_store=store,
                 user_memory_mb=args.memory, prewarm=args.prewarm,
                 balancer=args.balancer, ui=not args.no_ui,
-                manifest=manifest, device=args.device)
+                manifest=manifest, device=args.device,
+                snapshot_path=args.balancer_snapshot,
+                snapshot_interval=args.balancer_snapshot_interval,
+                journal_dir=args.balancer_journal)
             print(f"OpenWhisk-TPU standalone listening on :{args.port} "
                   f"(balancer={args.balancer}, "
                   f"device={controller.load_balancer.device})", flush=True)

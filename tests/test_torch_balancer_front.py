@@ -964,6 +964,14 @@ def _identity_json(k):
             "rights": ["ACTIVATE"], "limits": {}}
 
 
+def _host_books(x):
+    """A host copy of a books array: a JAX array, or a torch tensor on
+    either device."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy().copy()
+    return np.asarray(x).copy()
+
+
 async def _scenario(pkg, rate, grow, seed, ack_producer=None, setup=None,
                     inspect=None):
     """One seeded run through one package's TpuBalancer; returns the
@@ -1108,9 +1116,9 @@ async def _scenario(pkg, rate, grow, seed, ack_producer=None, setup=None,
         active=bal.total_active_activations,
         n=len(bal._registry), pad=int(bal.state.free_mb.shape[0]),
         slots=int(bal.state.conc_free.shape[1]),
-        free=np.asarray(bal.state.free_mb).copy(),
-        conc=np.asarray(bal.state.conc_free).copy(),
-        health=np.asarray(bal.state.health).copy(),
+        free=_host_books(bal.state.free_mb),
+        conc=_host_books(bal.state.conc_free),
+        health=_host_books(bal.state.health),
         records=bal.flight_recorder.recent(1024, with_decisions=True),
         explain={a: (bal.flight_recorder.explain(a) or {}).get("decision")
                  for a in decisions},
