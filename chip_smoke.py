@@ -157,9 +157,39 @@ Phases, each reported on its own line:
               stalled, 10,000 invokers restored, the books the final
               dump's), 200 more invokes; each boot's restore and replay
               seconds ("restart" line).
-  9. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
-     journal replays of 7b beside the rest), then the card line, then the last
-     line `{"ok": true, "device": {...}}`.
+  9. deploy  the multi-process deployment over the port's TCP bus: the
+              broker (`python -m openwhisk_tpu_torch.messaging`), 4
+              invokers (`python -m openwhisk_tpu_torch.invoker`, python:3
+              sandboxes, 4,096 MB each) and one controller (the CLI's
+              `main()` with `--balancer tpu` on the card, `--seed-guest`,
+              a journal and a snapshot, `CONFIG_whisk_limits_*` raised for
+              the run), each an OS process on localhost. Over HTTP: all 4
+              invokers up, one echo action (128 MB), one cold blocking
+              invoke, 64 non-blocking invokes at once (one admission wave,
+              a step of 32 rows or more: the repair; up to three waves
+              until the controller has launched it), every activation
+              polled until recorded, 200 blocking invokes at 16 in flight,
+              50 one at a time (the scan). Every response 200 with its
+              echo, `/admin/ready` 200 with the journal attached,
+              `/admin/profile/kernel` with both kernels loaded from phase
+              2's build (no nvcc in the controller) and no churn. The
+              controller process keeps the kernel wrappers' launch counts:
+              chip_smoke resets them (SIGUSR2) before the traffic and
+              reads them (SIGUSR1) after it (`--deploy-controller`). Then
+              SIGTERM to every process (each exits 0; the controller
+              writes its final dump), and the controller's journal is
+              replayed here with `make_offline_balancer`: on the card
+              (both kernels launched, 0 parity mismatches, the final
+              dump's books) and on the CPU (the same books). One "deploy"
+              line: process start seconds, the first invoke's ms,
+              invokes/s and HTTP p50/p99 (client clock), the controller's
+              step p50 from its kernel profile and its latency waterfall's
+              stage medians (`/admin/latency/waterfall`), its launches, and the
+              replays' launches, kernel ms and batches/s. About 20 s on
+              an NVIDIA H100 80GB HBM3 at 700 W.
+ 10. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
+     journal replays of 7b and phase 9's launches beside the rest), then the
+     card line, then the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
 without a CUDA card, or outside the repository, it fails at once.
@@ -182,6 +212,7 @@ import ctypes
 import gc
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
@@ -3334,6 +3365,400 @@ def restart_phase(TB, K):
     return line
 
 
+# ---------------------------------------------------------------- phase 9
+DEPLOY_INVOKERS, DEPLOY_MEMORY_MB, DEPLOY_ACTION_MB = 4, 4_096, 128
+DEPLOY_BURST, DEPLOY_BLOCKING, DEPLOY_INFLIGHT, DEPLOY_SEQUENTIAL = \
+    64, 200, 16, 50
+#: the front door's limits for the run (the CLI's defaults, 60 a minute
+#: and 30 concurrent, would throttle the burst)
+DEPLOY_LIMITS = {"CONFIG_whisk_limits_invocationsPerMinute": "1000000",
+                 "CONFIG_whisk_limits_concurrentInvocations": "1000000"}
+DEPLOY_TIMEOUT_S = 60.0
+
+
+def deploy_controller(counts_path, argv):
+    """`--deploy-controller PATH ARGS...`: the controller CLI's `main()`
+    with ARGS, exactly as `python -m openwhisk_tpu_torch.controller ARGS`
+    runs it, plus the kernel wrappers' launch counts in PATH: written on
+    SIGUSR1, reset to 0 (and written) on SIGUSR2, and written at exit. The
+    launches happen in this process, so phase 9 reads them here."""
+    import atexit
+    import os
+    from openwhisk_tpu_torch.controller import __main__ as C
+    from openwhisk_tpu_torch.ops import placement_cuda as K
+
+    def dump(*_):
+        tmp = f"{counts_path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"scan": K.schedule_batch_cuda.launches,
+                       "repair": K.schedule_batch_repair_cuda.launches}, f)
+        os.replace(tmp, counts_path)
+
+    def reset(*_):
+        K.reset_launch_counts()
+        dump()
+
+    signal.signal(signal.SIGUSR1, dump)
+    signal.signal(signal.SIGUSR2, reset)
+    atexit.register(dump)
+    sys.argv = ["openwhisk_tpu_torch.controller", *argv]
+    C.main()
+    return 0
+
+
+class Deployment:
+    """The broker, DEPLOY_INVOKERS invokers and one controller as OS
+    processes on localhost, each started through its CLI, its output in a
+    log file under `work`."""
+
+    def __init__(self, work, device_args=()):
+        import os
+        self.work = work
+        self.bus, self.api = _free_port(), _free_port()
+        self.db = os.path.join(work, "whisks.db")
+        self.snap = os.path.join(work, "balancer.snap")
+        self.wal = os.path.join(work, "wal")
+        self.counts = os.path.join(work, "launches.json")
+        self.device_args = list(device_args)
+        self.procs = {}
+        self.started = {}
+
+    def _start(self, name, argv, env=None):
+        import os
+        log = open(os.path.join(self.work, f"{name}.log"), "w")
+        full_env = dict(os.environ, PYTHONUNBUFFERED="1", **(env or {}))
+        self.started[name] = time.perf_counter()
+        self.procs[name] = (subprocess.Popen(
+            [sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT,
+            env=full_env), log)
+
+    def start(self):
+        bus = f"127.0.0.1:{self.bus}"
+        self._start("broker", ["-m", "openwhisk_tpu_torch.messaging",
+                               "--port", str(self.bus)])
+        for i in range(DEPLOY_INVOKERS):
+            self._start(f"invoker{i}", [
+                "-m", "openwhisk_tpu_torch.invoker", "--bus", bus,
+                "--db", self.db, "--unique-name", f"deploy-{i}",
+                "--memory", str(DEPLOY_MEMORY_MB)])
+        self._start("controller", [
+            __file__, "--deploy-controller", self.counts,
+            "--bus", bus, "--db", self.db, "--port", str(self.api),
+            "--balancer", "tpu", "--seed-guest",
+            "--balancer-journal", self.wal, "--balancer-snapshot", self.snap,
+            "--balancer-snapshot-interval", "3600", *self.device_args],
+            env=DEPLOY_LIMITS)
+
+    def log(self, name):
+        import os
+        with open(os.path.join(self.work, f"{name}.log")) as f:
+            return f.read()
+
+    def wait_up(self, timeout=DEPLOY_TIMEOUT_S):
+        """Seconds from each process's start to its "up" line (polled in
+        its log); raises when one has not come up within `timeout`."""
+        marks = {"broker": "listening on", "controller": " up on :"}
+        up = {}
+        t0 = time.perf_counter()
+        while len(up) < len(self.procs):
+            for name, (proc, _log) in self.procs.items():
+                if name not in up and marks.get(name, ") up") in \
+                        self.log(name):
+                    up[name] = time.perf_counter() - self.started[name]
+                require(proc.poll() is None,
+                        f"deploy: {name} exited {proc.returncode}: "
+                        f"{self.log(name)[-2000:]}")
+            require(time.perf_counter() - t0 < timeout,
+                    f"deploy: {sorted(set(self.procs) - set(up))} not up")
+            time.sleep(0.05)
+        return up
+
+    def send(self, name, sig):
+        self.procs[name][0].send_signal(sig)
+
+    def launches(self, sig):
+        """Ask the controller for its kernel launch counts (SIGUSR1 reads,
+        SIGUSR2 resets) and wait for the file it writes."""
+        import os
+        stamp = os.path.getmtime(self.counts) if os.path.exists(
+            self.counts) else None
+        self.send("controller", sig)
+        for _ in range(500):
+            if os.path.exists(self.counts) and \
+                    os.path.getmtime(self.counts) != stamp:
+                time.sleep(0.02)
+                with open(self.counts) as f:
+                    return json.load(f)
+            time.sleep(0.01)
+        raise RuntimeError("deploy: the controller wrote no launch counts")
+
+    def stop(self):
+        """SIGTERM the controller (its final dump), then the invokers and
+        the broker; every process must exit 0 within 30 s."""
+        rcs = {}
+        order = ["controller"] + [n for n in self.procs
+                                  if n.startswith("invoker")] + ["broker"]
+        for name in order:
+            proc, log = self.procs[name]
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rcs[name] = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rcs[name] = proc.wait()
+            log.close()
+        return rcs
+
+
+async def _deploy_traffic(dep):
+    """Drive the deployment over HTTP (module docstring, phase 9)."""
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    api = f"http://127.0.0.1:{dep.api}"
+    base = f"{api}/api/v1/namespaces/_"
+    out = {}
+    conn = aiohttp.TCPConnector(limit=DEPLOY_BURST)
+    async with aiohttp.ClientSession(
+            connector=conn,
+            auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)) as s:
+        t0 = time.perf_counter()
+        invokers = {}
+        while time.perf_counter() - t0 < DEPLOY_TIMEOUT_S:
+            try:
+                async with s.get(f"{api}/invokers") as r:
+                    invokers = await r.json()
+                if sum(v == "up" for k, v in invokers.items()
+                       if k.startswith("invoker")) == DEPLOY_INVOKERS:
+                    break
+            except aiohttp.ClientError:
+                pass
+            await asyncio.sleep(0.2)
+        out["fleet_up_s"] = time.perf_counter() - t0
+        require(sum(v == "up" for v in invokers.values()) == DEPLOY_INVOKERS,
+                f"deploy: all {DEPLOY_INVOKERS} invokers up: {invokers}")
+        async with s.put(f"{base}/actions/echo", json={
+                "exec": {"kind": "python:3", "code": ECHO_CODE},
+                "limits": {"memory": DEPLOY_ACTION_MB}}) as r:
+            require(r.status == 200, f"deploy: PUT echo {r.status}")
+        bad = []
+
+        async def blocking(n):
+            t = time.perf_counter()
+            async with s.post(f"{base}/actions/echo?blocking=true&result=true",
+                              json={"n": n}) as r:
+                body = await r.json()
+                if r.status != 200 or body != {"n": n}:
+                    bad.append((n, r.status, body))
+            return (time.perf_counter() - t) * 1e3
+
+        # the first invoke: a cold sandbox and the balancer's first launch
+        out["first_invoke_ms"] = await blocking(-1)
+        # warm every pooled connection, so the burst leaves at once
+        await asyncio.gather(*[s.get(f"{api}/invokers")
+                               for _ in range(DEPLOY_BURST)])
+        launches0 = dep.launches(signal.SIGUSR2)  # counts to 0 before the path
+        bursts = []
+        aids = {}
+
+        async def fire(n):
+            async with s.post(f"{base}/actions/echo", json={"n": n}) as r:
+                body = await r.json()
+                if r.status != 202 or "activationId" not in body:
+                    bad.append((n, r.status, body))
+                else:
+                    aids[body["activationId"]] = n
+
+        t_burst = time.perf_counter()
+        for k in range(3):
+            # one admission wave: a step of at least 32 rows (the repair)
+            await asyncio.gather(*[fire(k * DEPLOY_BURST + n)
+                                   for n in range(DEPLOY_BURST)])
+            bursts.append(dep.launches(signal.SIGUSR1))
+            if bursts[-1]["repair"] > 0:
+                break
+        t_poll = time.perf_counter()
+        pending = dict(aids)
+        while pending and time.perf_counter() - t_poll < DEPLOY_TIMEOUT_S:
+            for aid in list(pending):
+                async with s.get(f"{base}/activations/{aid}") as r:
+                    if r.status == 200:
+                        rec = await r.json()
+                        result = rec.get("response", {}).get("result")
+                        if result != {"n": pending.pop(aid)}:
+                            bad.append((aid, result))
+            if pending:
+                await asyncio.sleep(0.1)
+        require(not pending, f"deploy: {len(pending)} burst activations "
+                             "never recorded")
+        out["burst"] = dict(invokes=len(aids), waves=len(bursts),
+                            recorded_s=time.perf_counter() - t_burst,
+                            launches=bursts[-1])
+        # DEPLOY_BLOCKING blocking invokes at DEPLOY_INFLIGHT in flight
+        sem = asyncio.Semaphore(DEPLOY_INFLIGHT)
+
+        async def limited(n):
+            async with sem:
+                return await blocking(n)
+
+        t0 = time.perf_counter()
+        conc_ms = await asyncio.gather(*[limited(10_000 + n)
+                                         for n in range(DEPLOY_BLOCKING)])
+        conc_s = time.perf_counter() - t0
+        # DEPLOY_SEQUENTIAL one at a time: single-row steps (the scan)
+        seq_ms = [await blocking(20_000 + n)
+                  for n in range(DEPLOY_SEQUENTIAL)]
+        out["launches"] = dep.launches(signal.SIGUSR1)
+        out["launches_before"] = launches0
+        require(not bad, f"deploy: every response 200 with its echo: "
+                         f"{bad[:5]}")
+        out.update(
+            invokes=len(aids) + DEPLOY_BLOCKING + DEPLOY_SEQUENTIAL + 1,
+            invokes_per_s=DEPLOY_BLOCKING / conc_s,
+            http_ms_p50_p99_concurrent=_percentiles(conc_ms),
+            http_ms_p50_p99_sequential=_percentiles(seq_ms))
+        await asyncio.sleep(1.0)  # the idle fold takes the last releases
+        async with s.get(f"{api}/admin/ready") as r:
+            out["ready"] = [r.status, await r.json()]
+        async with s.get(f"{api}/admin/profile/kernel") as r:
+            out["profile"] = [r.status, await r.json()]
+        async with s.get(f"{api}/admin/latency/waterfall") as r:
+            out["waterfall"] = [r.status, await r.json()]
+    return out
+
+
+def _books_match_dump(bal, doc):
+    """The replayed books equal the final dump's: free memory (rows past
+    the dump's are padding and must be untouched), the non-zero conc cells
+    and the health of every registered invoker. Health is read from the
+    device books: a replay sets the host registry's health only from
+    `reg` records (as the JAX package's does), and the flips ride the
+    batches' health rows."""
+    free = bal.state.free_mb.cpu().numpy()
+    conc = bal.state.conc_free.T.cpu().numpy()  # [N, A]
+    n, h = len(doc["free_mb"]), len(doc["healthy"])
+    cells = [[int(i), int(j), int(conc[i, j])] for i, j in zip(
+        *np.nonzero(conc[:n]))]
+    return (free[:n].tolist() == doc["free_mb"] and not free[n:].any()
+            and cells == doc["conc_nonzero"] and not conc[n:].any()
+            and bal.state.health[:h].cpu().tolist() == doc["healthy"])
+
+
+def deploy_phase(TB, K):
+    """Phase 9: the broker, invoker and controller CLIs as processes."""
+    import shutil
+    import tempfile
+    from openwhisk_tpu_torch.controller.loadbalancer import journal as JN
+    from openwhisk_tpu_torch.controller.loadbalancer import timetravel as TT
+    work = tempfile.mkdtemp(prefix="chip-smoke-deploy-")
+    dep = Deployment(work, [] if DEVICE == "cuda" else ["--device", DEVICE])
+    t_phase = time.perf_counter()
+    try:
+        dep.start()
+        try:
+            up_s = dep.wait_up()
+            traffic = asyncio.run(_deploy_traffic(dep))
+        except Exception:
+            for name in dep.procs:
+                print(f"--- {name} log:\n{dep.log(name)[-3000:]}",
+                      file=sys.stderr)
+            raise
+        finally:
+            rcs = dep.stop()
+        logs = {n: dep.log(n)[-2000:] for n in dep.procs}
+        require(all(rc == 0 for rc in rcs.values()),
+                f"deploy: every process exits 0 on SIGTERM: {rcs} {logs}")
+        with open(dep.snap) as f:
+            doc = json.load(f)
+        records = [r for r in JN.PlacementJournal(dep.wal).records(0)
+                   if int(r["seq"]) <= doc["journal_seq"]]
+
+        async def replay(device):
+            bal = TT.make_offline_balancer(device=device)
+            try:
+                if device is None:
+                    st, rp = _measured_replay(
+                        TB, K, bal, lambda: bal.replay_journal(records))
+                else:
+                    t = time.perf_counter()
+                    st = bal.replay_journal(records)
+                    rp = dict(s=time.perf_counter() - t)
+                return st, rp, _books_match_dump(bal, doc)
+            finally:
+                await bal.close()
+
+        card_st, card_rp, card_equal = asyncio.run(
+            replay(None if DEVICE == "cuda" else DEVICE))
+        cpu_st, cpu_rp, cpu_equal = asyncio.run(replay("cpu"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    status, ready = traffic["ready"]
+    pstatus, prof = traffic["profile"]
+    wstatus, wf = traffic["waterfall"]
+    builds = {(b["source"], b["how"]) for b in prof.get("kernel_builds", [])}
+    line = dict(
+        processes=1 + DEPLOY_INVOKERS + 1, invokers=DEPLOY_INVOKERS,
+        invoker_memory_mb=DEPLOY_MEMORY_MB, up_s=up_s,
+        fleet_up_s=traffic["fleet_up_s"],
+        first_invoke_ms=traffic["first_invoke_ms"],
+        invokes=traffic["invokes"], invokes_per_s=traffic["invokes_per_s"],
+        http_ms_p50_p99_concurrent=traffic["http_ms_p50_p99_concurrent"],
+        http_ms_p50_p99_sequential=traffic["http_ms_p50_p99_sequential"],
+        burst=traffic["burst"], launches=traffic["launches"],
+        step_ms=prof.get("phases", {}).get("total"),
+        # the controller's stages: completion_ack's median holds the bus
+        # hops, the invoker process and the sandbox
+        waterfall={k: wf.get("budget", {}).get(k) for k in (
+            "stage_medians_ms", "e2e_p50_ms", "e2e_p99_ms", "count")},
+        kernel_builds=prof.get("kernel_builds"),
+        compiles=prof.get("compiles", {}).get("unexpected"),
+        ready=ready, rcs=rcs,
+        final_dump=dict(journal_seq=doc["journal_seq"],
+                        registry=len(doc["registry"]),
+                        conc_cells=len(doc["conc_nonzero"])),
+        replay_card=dict(records=card_st["replayed"],
+                         batches=card_st["batches"],
+                         parity_mismatches=card_st["parity_mismatches"],
+                         books_equal_final_dump=card_equal,
+                         batches_per_s=card_st["batches"] / card_rp["s"],
+                         **card_rp),
+        replay_cpu=dict(backend="cpu", records=cpu_st["replayed"],
+                        batches=cpu_st["batches"],
+                        parity_mismatches=cpu_st["parity_mismatches"],
+                        books_equal_final_dump=cpu_equal, s=cpu_rp["s"]),
+        phase_s=time.perf_counter() - t_phase)
+    say("deploy", **line)
+    lc = traffic["launches"]
+    require(traffic["launches_before"] == {"scan": 0, "repair": 0},
+            "deploy: the controller's counts were reset before the traffic")
+    require(lc["scan"] > 0 and lc["repair"] > 0 or DEVICE != "cuda",
+            f"deploy: the controller launched both kernels: {lc}")
+    require(status == 200 and ready["journal"]["attached"],
+            f"deploy: /admin/ready answers 200 with the journal: {ready}")
+    require(pstatus == 200 and prof["compiles"]["unexpected"] == 0,
+            "deploy: the kernel profile shows no churn")
+    require(wstatus == 200 and wf["finished"] >= traffic["invokes"],
+            f"deploy: the waterfall finished every activation: "
+            f"{wf.get('finished')}")
+    # phase 2's libraries (same sources, same cache key): loaded, not built
+    require(DEVICE != "cuda" or builds == {("placement_scan", "load"),
+                                           ("placement_repair", "load")},
+            f"deploy: the controller loaded both kernels unbuilt: {builds}")
+    require(len(doc["registry"]) == DEPLOY_INVOKERS,
+            "deploy: the final dump holds the fleet")
+    require(card_equal and card_st["parity_mismatches"] == 0
+            and card_st["batches"] >= 1,
+            f"deploy: the journal replays on the card to the final dump's "
+            f"books: {card_st}")
+    require(DEVICE != "cuda" or (card_rp["launches"]["scan"] > 0
+                                 and card_rp["launches"]["repair"] > 0),
+            f"deploy: both kernels ran in the card replay: {card_rp}")
+    require(cpu_equal and cpu_st["parity_mismatches"] == 0,
+            f"deploy: the journal replays on the CPU to the same books: "
+            f"{cpu_st}")
+    return line
+
+
 def leg():
     """`--leg`: one leg of a parent/change comparison inside one call, run
     from the root of each tree: phase 7's main run without the profile
@@ -3363,6 +3788,8 @@ def main():
         return http_client(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--leg"]:
         return leg()
+    if sys.argv[1:2] == ["--deploy-controller"]:
+        return deploy_controller(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3434,6 +3861,9 @@ def main():
     t0 = time.perf_counter()
     restart_phase(TB, K)
     say("restart_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    deploy = deploy_phase(TB, K)
+    say("deploy_phase", seconds=time.perf_counter() - t0)
 
     scan = sk["plain"]
     rep = mk["plain"]
@@ -3466,7 +3896,9 @@ def main():
                                          "plain_ms", "bound_ms", "bound_by",
                                          "cluster")})
                   for k, v in wide.items()},
-         "wide_launches": wide["balancer"]["launches"]["scan"]},
+         "wide_launches": wide["balancer"]["launches"]["scan"],
+         "deploy_launches": deploy["launches"]["scan"],
+         "deploy_replay_launches": deploy["replay_card"]["launches"]["scan"]},
         {"name": "placement_repair", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
@@ -3486,7 +3918,9 @@ def main():
          "memory_traffic": kres["repair"]["times"],
          "penalized": mk["penalized"],
          "replay_launches": journal["replay_launches"]["repair"],
-         "replay_ms": journal["replay_ms"]["repair"]},
+         "replay_ms": journal["replay_ms"]["repair"],
+         "deploy_launches": deploy["launches"]["repair"],
+         "deploy_replay_launches": deploy["replay_card"]["launches"]["repair"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

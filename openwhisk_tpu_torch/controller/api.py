@@ -753,8 +753,9 @@ class ControllerApi:
 
     async def admin_ready(self, request):
         """Readiness probe: which placement role this controller holds.
-        The port runs one controller without HA or partitions, so the
-        mode is `single` and the answer 200."""
+        The port runs its controllers without HA or partitions, so the
+        mode is `single` and the answer 200; a controller in the
+        membership protocol adds the live cluster size."""
         lb = self.c.load_balancer
         doc = {"mode": "single", "ready": True}
         journal = getattr(lb, "journal", None)
@@ -767,6 +768,9 @@ class ControllerApi:
                 name == "journal_stall"
                 for (name, _sev) in plane.engine.firing_counts())
         doc["journal"] = jdoc
+        mem = self.c.membership
+        if mem is not None:
+            doc["cluster_size"] = mem.cluster_size
         return web.json_response(doc)
 
     async def latency_waterfall(self, request):

@@ -7,10 +7,11 @@ authentication and stores, and exposes /invokers and /metrics. Rule status
 lives on the trigger document exactly as in the reference (Rules.scala).
 `start` installs the host observatory on the controller's loop (and the
 opt-in GC tuning) and keeps the event log on while an incident recorder is
-armed; `stop` uninstalls the observatory. The membership join that a
-clustering balancer triggers, HA failover, partitions, spillover, the
-admission funnel and the fleet events are not ported yet: they come with
-the multi-process controller.
+armed; `stop` uninstalls the observatory. A clustering balancer (one that
+overrides `update_cluster`, as the TPU and sharding balancers do) joins the
+controller membership protocol at `start` and leaves it at `stop`, as in
+the reference. HA failover, partitions, spillover, the admission funnel
+and the fleet events are not ported yet (membership runs with them off).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from .cors import CorsSettings
 from .authentication import BasicAuthenticationProvider
 from .entitlement import LocalEntitlementProvider
 from .invoke import ActionInvoker
+from .loadbalancer.base import LoadBalancer
 from .routemgmt import ApiRouteManager
 from .sequences import SequenceInvoker
 from .triggers_service import TriggerService
@@ -86,6 +88,7 @@ class Controller:
         self.route_manager = ApiRouteManager(store)
         self.api = ControllerApi(self)
         self._runner: Optional[web.AppRunner] = None
+        self.membership = None
         # (method, path, handler) triples mounted beside /api/v1 at start —
         # the seam the standalone playground UI plugs into. These are
         # operator-mounted dev/ops pages, served without platform auth (the
@@ -157,6 +160,18 @@ class Controller:
             # system test action for probing unhealthy invokers
             # (ref InvokerPool.prepare, InvokerSupervision.scala:239-252)
             await self.load_balancer.prepare_health_test_action(self.entity_store)
+        lb_cls = type(self.load_balancer) if self.load_balancer else None
+        if lb_cls is not None and \
+                lb_cls.update_cluster is not LoadBalancer.update_cluster:
+            # clustering balancer: join the membership protocol so joins /
+            # crashes of peer controllers re-shard capacity at runtime
+            # (replaces Akka Cluster events,
+            # ShardingContainerPoolBalancer.scala:217-250)
+            from .loadbalancer.membership import ControllerMembership
+            self.membership = ControllerMembership(
+                self.provider, self.instance, self.load_balancer,
+                logger=self.logger)
+            self.membership.start()
         app = self.api.make_app()
         for method, path, handler in self.extra_routes:
             app.router.add_route(method, path, handler)
@@ -174,6 +189,8 @@ class Controller:
             self._host_observatory_owner = False
         if self._runner:
             await self._runner.cleanup()
+        if self.membership is not None:
+            await self.membership.stop()  # sends the graceful leave
         for resource in self.owned_resources:
             await resource.stop()
         if hasattr(self.entitlement, "close"):

@@ -54,6 +54,7 @@ import torch
 from ...core.entity import ExecutableWhiskAction, InvokerInstanceId
 from ...messaging.coalesce import export_coalesce_gauges
 from ...messaging.message import ActivationMessage
+from ...messaging.tcp import export_bus_gauges
 from ...models.sharding_policy import (MIN_SLOT_MB, generate_hash,
                                        pairwise_coprimes)
 from ...ops.placement import (PlacementState, init_state,
@@ -832,8 +833,9 @@ class TpuBalancer(CommonLoadBalancer):
         self.profiler.refresh_memory(self.metrics)
         export_tracing_gauges(self.metrics)
         # bus-client health rides the same cadence: coalescing batch sizes
-        # (messaging/coalesce.py)
+        # and TCP-bus consumer reconnects (messaging/{coalesce,tcp}.py)
         export_coalesce_gauges(self.metrics)
+        export_bus_gauges(self.metrics)
         # journal durability lag / size / fsync tail ride the same 1 Hz
         # cadence
         if self.journal is not None:

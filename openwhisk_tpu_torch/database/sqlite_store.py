@@ -6,6 +6,12 @@ sqlite in WAL mode with the same revisioned-document semantics
 (rev "N-<hash>"; conflict on mismatched rev) and the same views (query by
 collection/namespace/updated). Blocking sqlite calls run in a thread executor
 so the asyncio control plane never stalls on fsync.
+
+Unlike the JAX package's store, a put or delete on a file reads the revision
+and writes inside one `BEGIN IMMEDIATE` transaction, so the revision check
+holds across processes sharing the file (invokers claiming their ids at
+once), and a connection retries the journal-mode switch and the schema
+while another process opening the same new file holds its lock.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import hashlib
 import json
 import sqlite3
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from .store import (ArtifactStore, DocumentConflict, NoDocumentException,
@@ -42,10 +49,35 @@ CREATE TABLE IF NOT EXISTS attachments (
 
 _memdb_counter = 0
 
+#: how long a connection retries the journal-mode switch and the schema
+#: while other processes opening the same new file hold the lock
+SETUP_RETRY_S = 10.0
+
+
+def _setup(conn: sqlite3.Connection) -> None:
+    """WAL mode and the schema (idempotent: IF NOT EXISTS). Processes that
+    open one new file at once contend for the locks these take, and sqlite
+    answers "database is locked" there without waiting on its busy
+    handler: retry for a bounded time."""
+    deadline = time.monotonic() + SETUP_RETRY_S
+    while True:
+        try:
+            conn.execute("PRAGMA journal_mode=WAL")
+            conn.execute("PRAGMA synchronous=NORMAL")
+            conn.executescript(_SCHEMA)
+            return
+        except sqlite3.OperationalError as e:
+            if "locked" not in str(e) or time.monotonic() > deadline:
+                raise
+            time.sleep(0.01)
+
 
 class SqliteArtifactStore(ArtifactStore):
     def __init__(self, path: str = ":memory:"):
         global _memdb_counter
+        #: a file is shared between processes; a named in-memory database
+        #: lives in this one only
+        self._shared_file = path != ":memory:"
         if path == ":memory:":
             # plain :memory: would give every executor thread its own empty
             # database; a named shared-cache URI makes them one database.
@@ -62,13 +94,18 @@ class SqliteArtifactStore(ArtifactStore):
         conn = getattr(self._local, "conn", None)
         if conn is None:
             conn = sqlite3.connect(self.path, check_same_thread=False, uri=self._uri)
-            conn.execute("PRAGMA journal_mode=WAL")
-            conn.execute("PRAGMA synchronous=NORMAL")
             with self._init_lock:
-                conn.executescript(_SCHEMA)  # idempotent (IF NOT EXISTS)
+                _setup(conn)
                 self._conns.append(conn)
             self._local.conn = conn
         return conn
+
+    def _begin_write(self, conn: sqlite3.Connection) -> None:
+        """Take the file's write lock before reading a revision, so the
+        check and the write are one transaction for every process on the
+        file (the in-process lock covers this process only)."""
+        if self._shared_file:
+            conn.execute("BEGIN IMMEDIATE")
 
     async def _run(self, fn, *args):
         return await asyncio.get_event_loop().run_in_executor(None, fn, *args)
@@ -79,6 +116,7 @@ class SqliteArtifactStore(ArtifactStore):
         body = json.dumps(doc)
         digest = hashlib.sha1(body.encode()).hexdigest()[:10]
         with self._init_lock, conn:
+            self._begin_write(conn)
             row = conn.execute("SELECT rev FROM documents WHERE id=?", (doc_id,)).fetchone()
             if row is not None:
                 cur = row[0]
@@ -116,6 +154,7 @@ class SqliteArtifactStore(ArtifactStore):
     def _delete_sync(self, doc_id: str, rev: Optional[str]) -> bool:
         conn = self._conn()
         with self._init_lock, conn:
+            self._begin_write(conn)
             row = conn.execute("SELECT rev FROM documents WHERE id=?", (doc_id,)).fetchone()
             if row is None:
                 raise NoDocumentException(doc_id)

@@ -1,4 +1,5 @@
-"""Standalone server: controller + the TPU balancer + in-process invoker.
+"""Standalone server: controller + the TPU (or lean) balancer + in-process
+invoker.
 
 The port's counterpart of `openwhisk_tpu/standalone/__init__.py` (rebuild
 of core/standalone/.../StandaloneOpenWhisk.scala): a single process serving
@@ -7,11 +8,13 @@ in-memory bus, the port's `TpuBalancer` placing on the card, and an
 in-process InvokerReactive running subprocess action sandboxes. Boots with
 a `guest` identity whose credentials are printed (and stable for dev use).
 
-The balancer runs on the CUDA card unless the caller asks for the CPU
+The TPU balancer runs on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`, the plain torch path); without a card the default raises.
-The balancer's books can be checkpointed and journaled (`snapshot_path`,
-`journal_dir`): restored at boot, dumped at a clean shutdown. The lean
-balancer is not ported yet.
+Its books can be checkpointed and journaled (`snapshot_path`,
+`journal_dir`): restored at boot, dumped at a clean shutdown. The port's
+default balancer is `tpu`, the path on the card; the JAX package's
+standalone defaults to `lean` (in-process dispatch, no device), which the
+port offers as `balancer="lean"`.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from ..containerpool import ContainerPoolConfig
 from ..containerpool.logstore import ContainerLogStore
 from ..containerpool.process_factory import ProcessContainerFactory
 from ..controller.core import Controller
+from ..controller.loadbalancer.lean import LeanBalancer
 from ..controller.loadbalancer.tpu_balancer import TpuBalancer
 from ..core.entity import (BasicAuthenticationAuthKey, ControllerInstanceId,
                            EntityName, ExecManifest, Identity, InvokerInstanceId,
@@ -36,7 +40,7 @@ GUEST_UUID = "2c9f4ad1-4a5e-4d7e-9b11-2c9f4ad10e66"
 GUEST_KEY = "tpu-native-openwhisk-standalone-guest-key-0123456789abcdef012345"
 
 #: balancers the port's standalone can assemble
-BALANCERS = ("tpu",)
+BALANCERS = ("tpu", "lean")
 
 
 def guest_identity() -> Identity:
@@ -67,10 +71,13 @@ async def make_standalone(port: int = 3233, artifact_store=None,
     """Assemble and start a standalone server; returns the running Controller.
 
     balancer: "tpu", the port's device placement balancer fed by the
-    in-process invoker's health pings. device: None or "cuda" for the card,
-    "cpu" for the plain torch path. invoker=False leaves the invoker out,
-    for callers that attach invokers of their own to the bus, which they
-    may pass as `messaging_provider` (default: a fresh in-memory bus).
+    in-process invoker's health pings, or "lean" (in-process dispatch, no
+    supervision — the reference's LeanBalancer mode; `device`, `invoker`
+    and the snapshot/journal arguments do not apply to it). device: None
+    or "cuda" for the card, "cpu" for the plain torch path. invoker=False
+    leaves the invoker out, for callers that attach invokers of their own
+    to the bus, which they may pass as `messaging_provider` (default: a
+    fresh in-memory bus).
     Extra keyword arguments pass through to Controller (e.g.
     invocations_per_minute for perf runs that must not trip the default
     throttles).
@@ -86,10 +93,32 @@ async def make_standalone(port: int = 3233, artifact_store=None,
     ExecManifest.initialize(manifest)
     provider = messaging_provider or MemoryMessagingProvider()
     instance = ControllerInstanceId("0")
-    lb = make_balancer(provider, instance, logger, device=device)
+
+    async def invoker_factory(invoker_id, messaging_provider):
+        store = controller.artifact_store
+        inv = InvokerReactive(
+            invoker_id, messaging_provider,
+            EntityStore(store),
+            ArtifactActivationStore(store),
+            ProcessContainerFactory(logger=logger),
+            pool_config=ContainerPoolConfig(user_memory=MB(user_memory_mb),
+                                            pause_grace=1.0),
+            logstore=ContainerLogStore(), logger=logger)
+        await inv.start(start_prewarm=prewarm)
+        return inv
+
     journal = None
     snapshotter = None
-    if snapshot_path or journal_dir:
+    if balancer == "lean":
+        # metrics=logger.metrics: the controller serves this emitter at
+        # /metrics — sharing it puts the lean balancer's counters AND its
+        # telemetry histogram families on the scrape page
+        lb = LeanBalancer(provider, instance, invoker_factory, logger=logger,
+                          metrics=logger.metrics,
+                          user_memory=MB(user_memory_mb))
+    else:
+        lb = make_balancer(provider, instance, logger, device=device)
+    if balancer == "tpu" and (snapshot_path or journal_dir):
         from ..controller.loadbalancer.checkpoint import (
             BalancerSnapshotter, load_snapshot)
         if journal_dir:
@@ -125,19 +154,12 @@ async def make_standalone(port: int = 3233, artifact_store=None,
     await controller.auth_store.put(
         WhiskAuthRecord(ident.subject, [ident.namespace], [ident.authkey]))
     await controller.start(port=port)
-    if invoker:
+    if balancer == "tpu" and invoker:
         # the balancer talks to invokers over the bus + health pings: boot
         # the in-process invoker beside it and wait for its first ping
-        store = controller.artifact_store
-        inv = InvokerReactive(
+        inv = await invoker_factory(
             InvokerInstanceId(0, unique_name="standalone",
-                              user_memory=MB(user_memory_mb)), provider,
-            EntityStore(store), ArtifactActivationStore(store),
-            ProcessContainerFactory(logger=logger),
-            pool_config=ContainerPoolConfig(user_memory=MB(user_memory_mb),
-                                            pause_grace=1.0),
-            logstore=ContainerLogStore(), logger=logger)
-        await inv.start(start_prewarm=prewarm)
+                              user_memory=MB(user_memory_mb)), provider)
         controller.owned_resources.append(inv)
         for _ in range(100):
             if any(lb._healthy):

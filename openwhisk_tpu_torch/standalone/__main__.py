@@ -67,8 +67,7 @@ def preflight(port: int, manifest: dict = None,
 
 def main() -> None:
     parser = argparse.ArgumentParser(
-        description="Standalone OpenWhisk-TPU server (PyTorch port)",
-        epilog="Not ported yet: --balancer lean.")
+        description="Standalone OpenWhisk-TPU server (PyTorch port)")
     parser.add_argument("--port", type=int, default=3233)
     parser.add_argument("--db", type=str, default=None,
                         help="sqlite path for durable storage (default: in-memory)")
@@ -76,9 +75,11 @@ def main() -> None:
                         help="invoker user memory (MB)")
     parser.add_argument("--prewarm", action="store_true",
                         help="start prewarm stem cells from the runtimes manifest")
-    parser.add_argument("--balancer", choices=("tpu",), default="tpu",
-                        help="load balancer: tpu (device placement kernels; "
-                             "the lean balancer is not ported yet)")
+    parser.add_argument("--balancer", choices=("tpu", "lean"), default="tpu",
+                        help="load balancer: tpu (device placement kernels "
+                             "on the card, the default here) or lean "
+                             "(in-process dispatch, no device: the JAX "
+                             "package's default)")
     parser.add_argument("--balancer-snapshot", default=None,
                         help="path for periodic balancer snapshots, "
                              "restored at boot; the final dump rides the "
@@ -97,13 +98,15 @@ def main() -> None:
                         help="runtimes manifest JSON file (default: built-in "
                              "python:3 + nodejs:14)")
     args = parser.parse_args()
-    # the card unless --device cpu: fail before booting anything
-    from ..ops.placement import resolve_device
-    try:
-        resolve_device(None if args.device == "cuda" else args.device)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
-        raise SystemExit(1)
+    # the card unless --device cpu: fail before booting anything (the lean
+    # balancer has no device)
+    if args.balancer == "tpu":
+        from ..ops.placement import resolve_device
+        try:
+            resolve_device(None if args.device == "cuda" else args.device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            raise SystemExit(1)
 
     # parse the manifest file exactly once; preflight and the server get
     # the same dict (no validate/run TOCTOU window)
@@ -139,9 +142,9 @@ def main() -> None:
                 snapshot_path=args.balancer_snapshot,
                 snapshot_interval=args.balancer_snapshot_interval,
                 journal_dir=args.balancer_journal)
+            device = getattr(controller.load_balancer, "device", "none")
             print(f"OpenWhisk-TPU standalone listening on :{args.port} "
-                  f"(balancer={args.balancer}, "
-                  f"device={controller.load_balancer.device})", flush=True)
+                  f"(balancer={args.balancer}, device={device})", flush=True)
             print(f"  AUTH     {GUEST_UUID}:{GUEST_KEY}")
             print(f"  API      http://127.0.0.1:{args.port}/api/v1")
             if not args.no_ui:

@@ -376,7 +376,9 @@ def test_standalone_restarts_from_its_own_snapshot(tmp_path, monkeypatch):
     assert out["seq"] == doc["journal_seq"] > 0
     status, ready = out["ready"]
     assert status == 200
-    assert ready == {"mode": "single", "ready": True,
+    # the TPU balancer clusters, so the controller runs the membership
+    # protocol and reports its live size
+    assert ready == {"mode": "single", "ready": True, "cluster_size": 1,
                      "journal": {"attached": True, "lag_batches": 0,
                                  "stall_firing": False}}
 
@@ -414,14 +416,14 @@ def test_admin_ready_journal_block_is_the_jax_standalones(tmp_path,
     results = run(go(), 120)
     for (ref_status, ref), (status, port) in results:
         assert status == ref_status == 200
-        # the JAX standalone adds its membership's cluster_size (the port
-        # has no membership yet); the journal's lag is a moment's reading
-        # (the JAX standalone's in-process invoker registers as it boots)
-        assert port.keys() == ref.keys() - {"cluster_size"}
+        # both controllers run the membership protocol and report its
+        # cluster_size; the journal's lag is a moment's reading (the JAX
+        # standalone's in-process invoker registers as it boots)
+        assert port.keys() == ref.keys()
         assert port["journal"].keys() == ref["journal"].keys()
         for doc in (port, ref):
             doc["journal"].pop("lag_batches", None)
-        assert port == {k: v for k, v in ref.items() if k != "cluster_size"}
+        assert port == ref
     assert results[0][1][1]["journal"] == {"attached": True,
                                            "stall_firing": False}
     assert results[1][1][1]["journal"] == {"attached": False,
@@ -435,8 +437,10 @@ def test_help_lists_the_snapshot_and_journal_flags():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     text = out.stdout
-    epilog = text[text.index("Not ported yet"):]
+    # every flag of the JAX standalone is ported: no option is named as
+    # missing, and the lean balancer is a choice beside the default tpu
+    assert "not ported" not in text.lower()
+    assert "--balancer {tpu,lean}" in text
     for flag in ("--balancer-snapshot", "--balancer-snapshot-interval",
                  "--balancer-journal"):
-        assert flag in text[:text.index("Not ported yet")]
-        assert flag not in epilog
+        assert flag in text

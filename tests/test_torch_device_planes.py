@@ -302,11 +302,14 @@ async def _alert_arms_recorder(pkg, bb):
     try:
         armed = rec._owner is bal
         listening = rec._on_alert in bal.anomaly.engine.listeners
+        # `captured` counts for the whole process: wait for this capture,
+        # not for any earlier test's
+        base = rec.stats()["captured"]
         # the watchdog's rule fires at once: churn of 3 recompiles
         bal.anomaly.engine.evaluate(time.monotonic(),
                                     {"recompile_churn": [((), 3.0)]})
         for _ in range(500):
-            if rec.stats()["captured"]:
+            if rec.stats()["captured"] > base:
                 break
             await asyncio.sleep(0.01)
         rows = rec.list_incidents()
@@ -318,14 +321,23 @@ async def _alert_arms_recorder(pkg, bb):
         await bal.close()
 
 
-@pytest.mark.parametrize("side", ["port", "jax"])
-def test_a_firing_alert_arms_the_incident_recorder(side, tmp_path,
-                                                   monkeypatch):
+@pytest.mark.parametrize("side,after_a_capture", [
+    pytest.param(side, after, id=side + ("-after_a_capture" if after else ""))
+    for after in (False, True) for side in ("port", "jax")])
+def test_a_firing_alert_arms_the_incident_recorder(side, after_a_capture,
+                                                   tmp_path, monkeypatch):
     from openwhisk_tpu.utils import blackbox as JBB
     from openwhisk_tpu_torch.utils import blackbox as TBB
     pkg, bb = ((_port_package(), TBB) if side == "port"
                else (_jax_package(), JBB))
     monkeypatch.setenv("CONFIG_whisk_incidents_enabled", "true")
+    if after_a_capture:
+        # an earlier capture in this process (another test's) leaves the
+        # recorder's process-wide count above 0
+        monkeypatch.setenv("CONFIG_whisk_incidents_directory",
+                           str(tmp_path / "earlier"))
+        run(_alert_arms_recorder(pkg, bb), 60)
+        assert bb.GLOBAL_INCIDENTS.stats()["captured"] > 0
     monkeypatch.setenv("CONFIG_whisk_incidents_directory", str(tmp_path))
     out = run(_alert_arms_recorder(pkg, bb), 60)
     assert bb.GLOBAL_INCIDENTS.stats()["installed"] is False
