@@ -187,9 +187,62 @@ Phases, each reported on its own line:
               stage medians (`/admin/latency/waterfall`), its launches, and the
               replays' launches, kernel ms and batches/s. About 20 s on
               an NVIDIA H100 80GB HBM3 at 700 W.
- 10. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
-     journal replays of 7b and phase 9's launches beside the rest), then the
-     card line, then the last line `{"ok": true, "device": {...}}`.
+ 10. ha     the controller tier.
+              10a (in one process, "absorb" line): three `TpuBalancer()` on
+              the card over phase 7's fleet (10,000 invokers registered by
+              pings, N = 16,384, A = 4,096), in partition mode (a ring of
+              8), each with its own journal under one root, one shared
+              in-memory bus, a `ControllerMembership` each (the ring's
+              claims at the default 1 s heartbeat and 5 s member timeout)
+              and the controller CLI's partition callback (absorb from the
+              previous owner's journal and snapshot, then place), a
+              spillover sender and receiver each. Waves of phase 7's mix
+              are routed to each namespace's owner with a trickle of
+              single-row publishes (the scan); rows sent to a non-owner
+              are refused with the reference's text; one hot namespace's
+              non-blocking burst spills past `spillover_depth` to a peer;
+              snapshots at wave 4. At wave 9 controller 2 is stopped (its
+              membership silent, no leave, no final dump) and dropped from
+              the survivors' view: they claim its partitions at higher
+              epochs and absorb its tail on the card. Held: each absorb's
+              books equal the same tail replayed on the CPU onto the same
+              pre-absorb books (bit for bit, same statistics), each absorb
+              launched the kernels (both kernels across them), none
+              skipped, every row dispatched exactly once, the survivors own
+              every partition at higher epochs, and the port's invoker
+              fence discards a dead owner's late dispatch after a
+              survivor's newer one. Reported: absorb ms, batches and
+              records a partition, and the claims after the kill beyond
+              the dead owner's (ownership flapping while the loop is
+              blocked).
+              10b (processes, "ha" line): the broker and 4 invokers, then
+              3 controllers on the card with `--ha` and
+              `CONFIG_whisk_ha_activeActive` (8 partitions; a journal and
+              a snapshot at 1 s each) behind the port's edge, 16 tenants
+              (two a partition) invoking an action that writes one file an
+              execution, open loop without retries at 10 a second for
+              12 s, controller 1 SIGKILLed at 4 s; then 2 controllers in
+              active/standby (`CONFIG_whisk_ha_failover_enabled`, one
+              snapshot and journal) with the active SIGKILLed the same
+              way. Held: no execution twice, every tenant served after the
+              kill, the survivors own all 8 partitions (the dead owner's
+              at higher epochs), the promoted standby active at epoch 2 or
+              more, the survivors' kernels launched (SIGUSR2/SIGUSR1 as in
+              phase 9). Reported: failover downtime (kill to the first 200
+              of a dead owner's tenant), invokes/s, HTTP p50/p99 before
+              and after.
+              10c ("funnel" line): 1 `--role balancer` on the card and 2
+              `--role frontend --funnel-depth 64` behind the edge: 200
+              blocking invokes at 16 in flight, 64 non-blocking (each
+              recorded), a burst of 160 at one frontend (the overflow
+              answers the front door's exact 429 text). Held: every invoke
+              answered with its echo, the frontends hold no CUDA context
+              (`nvidia-smi --query-compute-apps`), the balancer launched
+              the kernels.
+ 11. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
+     journal replays of 7b, phase 9's and phase 10's launches beside the
+     rest), then the card line, then the last line
+     `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
 without a CUDA card, or outside the repository, it fails at once.
@@ -1118,6 +1171,8 @@ class Fleet:
         self.received = 0
         self.last_ping = 0.0
         self.task = None
+        #: a list to keep every drained activation message in, or None
+        self.seen = None
         self.host_s = {"fleet_parse_and_ack_build": 0.0}
         _time_calls(self, "ack_due", self.host_s, "fleet_ack_send")
         self.host_s["fleet_ping_send"] = 0.0
@@ -1164,6 +1219,8 @@ class Fleet:
                     else:
                         msgs.append(decode_message(M.ActivationMessage.parse,
                                                    payload, "activation"))
+                if self.seen is not None:
+                    self.seen.extend(msgs)
                 for msg in msgs:
                     now = time.time()
                     act = E.WhiskActivation(
@@ -3391,7 +3448,8 @@ def deploy_controller(counts_path, argv):
         tmp = f"{counts_path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:
             json.dump({"scan": K.schedule_batch_cuda.launches,
-                       "repair": K.schedule_batch_repair_cuda.launches}, f)
+                       "repair": K.schedule_batch_repair_cuda.launches,
+                       "cuda_initialized": torch.cuda.is_initialized()}, f)
         os.replace(tmp, counts_path)
 
     def reset(*_):
@@ -3729,7 +3787,8 @@ def deploy_phase(TB, K):
         phase_s=time.perf_counter() - t_phase)
     say("deploy", **line)
     lc = traffic["launches"]
-    require(traffic["launches_before"] == {"scan": 0, "repair": 0},
+    require({k: traffic["launches_before"][k] for k in ("scan", "repair")}
+            == {"scan": 0, "repair": 0},
             "deploy: the controller's counts were reset before the traffic")
     require(lc["scan"] > 0 and lc["repair"] > 0 or DEVICE != "cuda",
             f"deploy: the controller launched both kernels: {lc}")
@@ -3757,6 +3816,1168 @@ def deploy_phase(TB, K):
             f"deploy: the journal replays on the CPU to the same books: "
             f"{cpu_st}")
     return line
+
+
+# ---------------------------------------------------------------- phase 10
+#: 10a: three placing controllers on the card in partition mode
+AA_CTRLS, AA_PARTS, AA_DEAD = 3, 8, 2
+AA_WAVES, AA_SNAP_WAVE, AA_HOT_WAVE, AA_KILL_WAVE = 18, 4, 6, 9
+#: single-row publishes an owner after each wave's acks (the scan)
+AA_TRICKLE = 2
+#: the hot namespace's non-blocking burst, past `spillover_depth`
+AA_HOT_ROWS, AA_SPILL_DEPTH = 320, 256
+AA_REFUSED = 4
+
+
+def _launches(K):
+    return {"scan": K.schedule_batch_cuda.launches,
+            "repair": K.schedule_batch_repair_cuda.launches}
+
+
+def _host_state(P, st):
+    """A CPU copy of the books, conc as the [N, A] view of [A, N] storage
+    as on the card."""
+    return P.PlacementState(st.free_mb.cpu().clone(),
+                            st.conc_free.T.cpu().clone().T,
+                            st.health.cpu().clone())
+
+
+def _same_state(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+class _ListJournal:
+    """A journal over a list of records, as `PlacementJournal.records`."""
+
+    def __init__(self, recs):
+        self.recs = recs
+
+    def records(self, after_seq=0):
+        return iter([r for r in self.recs if int(r["seq"]) > after_seq])
+
+
+class _Resolver:
+    """The spillover receivers' entity store: the mix's actions by name."""
+
+    def __init__(self, mix):
+        self.by_name = {str(a.fully_qualified_name): a for a in mix.actions}
+
+    async def get_action(self, name, rev=None):
+        action = self.by_name[name]
+
+        class Doc:
+            @staticmethod
+            def to_executable():
+                return action
+        return Doc()
+
+
+async def _absorb_run(TB, K, P, root):
+    """Phase 10a's run (module docstring); returns its numbers and the
+    absorbs' inputs for the CPU replays."""
+    import os
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.controller.loadbalancer import checkpoint as CK
+    from openwhisk_tpu_torch.controller.loadbalancer import journal as JN
+    from openwhisk_tpu_torch.controller.loadbalancer.membership import \
+        ControllerMembership
+    from openwhisk_tpu_torch.controller.loadbalancer.spillover import (
+        SpilloverReceiver, SpilloverSender)
+    from openwhisk_tpu_torch.utils.partitions import PartitionRing
+    errors = []
+
+    class Log:
+        def error(self, _tid, msg, *_):
+            errors.append(msg)
+
+        def warn(self, *_):
+            pass
+
+        def info(self, *_):
+            pass
+
+    def wal(i):
+        return os.path.join(root, "wal", f"ctrl{i}")
+
+    def snap(i):
+        return os.path.join(root, f"bal.snap.ctrl{i}")
+
+    ring = PartitionRing(AA_PARTS)
+    fleet = Fleet(seed=17)
+    fleet.seen = []
+    fleet.start()
+    bals, members, receivers, absorbs, gains = [], [], [], [], []
+    dead = set()
+
+    def on_partitions_for(i):
+        async def on_partitions(gained, lost):
+            # the controller CLI's partition callback, each absorb measured
+            lb = bals[i]
+            for pid, epoch, *_rest in lost:
+                lb.set_partition_leadership(pid, epoch, False)
+            by_prev = {}
+            for pid, epoch, prev in gained:
+                gains.append((i, pid, epoch, prev, time.perf_counter()))
+                by_prev.setdefault(prev, []).append((pid, epoch))
+            for prev, items in by_prev.items():
+                pids = [p for p, _ in items]
+                if prev is not None:
+                    try:
+                        with open(snap(prev)) as f:
+                            snap_doc = json.load(f)
+                    except (OSError, ValueError):
+                        snap_doc = None
+                    from_seq = int((snap_doc or {}).get("journal_seq", 0))
+                    records = list(JN.PlacementJournal(wal(prev)).records(
+                        from_seq))
+                    before = _host_state(P, lb.state)
+                    l0 = _launches(K)
+                    t0 = time.perf_counter()
+                    stats = lb.absorb_partitions(
+                        pids, JN.PlacementJournal(wal(prev)),
+                        snap_doc=snap_doc)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    l1 = _launches(K)
+                    absorbs.append(dict(
+                        ctrl=i, prev=prev, pids=sorted(pids), stats=stats,
+                        ms=ms, launches={k: l1[k] - l0[k] for k in l0},
+                        before=before, after=_host_state(P, lb.state),
+                        records=records, snap_doc=snap_doc,
+                        t=time.perf_counter()))
+                for pid, epoch in items:
+                    lb.set_partition_leadership(pid, epoch, True)
+        return on_partitions
+
+    t_phase = time.perf_counter()
+    for i in range(AA_CTRLS):
+        bal = TB.TpuBalancer(
+            fleet.provider, E.ControllerInstanceId(str(i)), logger=Log(),
+            managed_fraction=0.9, blackbox_fraction=0.1, max_batch=MAX_BATCH,
+            action_slots=A, initial_pad=64,
+            device=None if DEVICE == "cuda" else DEVICE)
+        # the run is shorter than a ping round trip matters: no re-pings
+        bal.supervision.ping_timeout = 3600.0
+        bal.set_partition_mode(ring)
+        bal.spillover_depth = AA_SPILL_DEPTH
+        bal.attach_journal(JN.PlacementJournal(wal(i)))
+        await bal.start()
+        bals.append(bal)
+    t0 = time.perf_counter()
+    await fleet.ping(bals[0].supervision, list(range(N_INV)))
+    for bal in bals:
+        while not (len(bal._registry) == N_INV and all(bal._healthy)):
+            require(time.perf_counter() - t0 < 120.0,
+                    "absorb: every balancer registered the fleet")
+            await asyncio.sleep(0.01)
+    register_s = time.perf_counter() - t0
+    for i, bal in enumerate(bals):
+        lb = bal
+        members.append(ControllerMembership(
+            fleet.provider, E.ControllerInstanceId(str(i)), bal, ring=ring,
+            on_partitions=on_partitions_for(i),
+            load_hint=lambda lb=lb: float(lb.total_active_activations
+                                          + len(lb._pending))))
+        members[-1].start()
+    t0 = time.perf_counter()
+    while not (sum(len(m.owned_partitions) for m in members) == AA_PARTS
+               and all(m.owned_partitions for m in members)
+               and all(b.cluster_size == AA_CTRLS for b in bals)):
+        require(time.perf_counter() - t0 < 60.0,
+                "absorb: the ring's ownership converged")
+        await asyncio.sleep(0.02)
+    claim_s = time.perf_counter() - t0
+    mix = ActionMix(seed=19, ctrl=E.ControllerInstanceId("0"))
+    resolver = _Resolver(mix)
+    for i, bal in enumerate(bals):
+        bal._arm_flush()  # the registration's health flips, then traffic
+        await _drain_front(bal)
+        bal.spillover_sink = SpilloverSender(fleet.provider, members[i])
+        receivers.append(SpilloverReceiver(
+            fleet.provider, E.ControllerInstanceId(str(i)), bal, resolver))
+        receivers[-1].start()
+    owned_at_start = {i: sorted(m.owned_partitions)
+                      for i, m in enumerate(members)}
+
+    def owners():
+        own = {}
+        for i, m in enumerate(members):
+            if i not in dead:
+                for pid in m.owned_partitions:
+                    own[pid] = i
+        require(len(own) == AA_PARTS, f"absorb: every partition owned: {own}")
+        return own
+
+    def routed(pairs, own):
+        by = {}
+        for a, m in pairs:
+            i = own[ring.partition_of(str(m.user.namespace.name))]
+            m.root_controller_index = E.ControllerInstanceId(str(i))
+            by.setdefault(i, []).append((a, m))
+        return by
+
+    placed_outs, refused, spilled_outs = [], [], []
+    K_before = _launches(K)
+    t_kill = kill = None
+    prev = []
+    hot = {}
+    t_traffic = time.perf_counter()
+    for w in range(AA_WAVES):
+        await fleet.ack_due(w)
+        if w == AA_SNAP_WAVE:
+            for i, bal in enumerate(bals):
+                CK.write_snapshot(bal, snap(i))
+        if w == AA_KILL_WAVE:
+            # "kill" controller AA_DEAD: its membership falls silent (no
+            # leave), its receiver and balancer stop with no final dump;
+            # the survivors drop it from their view and claim its
+            # partitions at higher epochs, absorbing its journal tail
+            await asyncio.gather(*prev, return_exceptions=True)
+            dm = members[AA_DEAD]
+            kill = dict(partitions=sorted(dm.owned_partitions),
+                        epochs={p: bals[AA_DEAD].partition_epochs.get(p)
+                                for p in dm.owned_partitions},
+                        journal_seq=bals[AA_DEAD]._journal_seq)
+            await dm._ticker.stop()
+            await dm._feed.stop()
+            await receivers[AA_DEAD].stop()
+            await bals[AA_DEAD].close()
+            dead.add(AA_DEAD)
+            t_kill = time.perf_counter()
+            for i, m in enumerate(members):
+                if i not in dead:
+                    m._last_seen.pop(AA_DEAD, None)
+            want = set(kill["partitions"])
+            while True:
+                got = set()
+                for i, m in enumerate(members):
+                    if i not in dead:
+                        got |= set(m.owned_partitions)
+                gainers = {g[0] for g in gains if g[3] == AA_DEAD}
+                done = {a["ctrl"] for a in absorbs if a["prev"] == AA_DEAD}
+                if got == set(range(AA_PARTS)) and gainers and \
+                        gainers <= done:
+                    break
+                require(time.perf_counter() - t_kill < 60.0,
+                        f"absorb: the survivors claimed {sorted(got)}")
+                await asyncio.sleep(0.01)
+            kill["handoff_s"] = time.perf_counter() - t_kill
+        own = owners()
+        pairs = mix.pairs(MAX_BATCH)
+        outs = []
+        for i, ps in routed(pairs, own).items():
+            outs += bals[i].publish_many(ps)
+        placed_outs += outs
+        if w == 1:
+            # rows published to a non-owner: refused with the reference's
+            # text, nothing placed
+            for a, m in mix.pairs(AA_REFUSED):
+                pid = ring.partition_of(str(m.user.namespace.name))
+                wrong = next(i for i in range(AA_CTRLS) if own[pid] != i)
+                refused.append((pid, m.activation_id.asString,
+                                bals[wrong].publish_many([(a, m)])[0]))
+        if w == AA_HOT_WAVE:
+            # one hot namespace's non-blocking burst: its tail past the
+            # owner's spillover_depth forwards to the least-loaded peer
+            a, m0 = mix.pairs(1)[0]
+            ns = str(m0.user.namespace.name)
+            i_hot = own[ring.partition_of(ns)]
+            hot_pairs = []
+            for k in range(AA_HOT_ROWS):
+                m = mix.M.ActivationMessage(
+                    mix.Tx(f"hot{k}"), a.fully_qualified_name, "1-a",
+                    m0.user, E.ActivationId.generate(),
+                    E.ControllerInstanceId(str(i_hot)), False, {})
+                hot_pairs.append((a, m))
+            spilled0 = bals[i_hot].spilled_rows
+            spilled_outs = bals[i_hot].publish_many(hot_pairs)
+            hot = dict(ctrl=i_hot, ns=ns, partition=ring.partition_of(ns),
+                       rows=AA_HOT_ROWS,
+                       spilled=bals[i_hot].spilled_rows - spilled0)
+            placed_outs += spilled_outs
+        await asyncio.gather(*prev, return_exceptions=True)
+        prev = outs
+        # the trickle: single-row steps once a step took the releases
+        for i in range(AA_CTRLS):
+            if i in dead:
+                continue
+            for _ in range(AA_TRICKLE):
+                while True:
+                    a, m = mix.pairs(1)[0]
+                    if own[ring.partition_of(str(m.user.namespace.name))] \
+                            == i:
+                        break
+                m.root_controller_index = E.ControllerInstanceId(str(i))
+                out = asyncio.ensure_future(bals[i].publish(a, m))
+                placed_outs.append(out)
+                await asyncio.gather(out, return_exceptions=True)
+    await asyncio.gather(*prev, return_exceptions=True)
+    traffic_s = time.perf_counter() - t_traffic
+    placed = sum(1 for o in placed_outs if o.done() and not o.cancelled()
+                 and o.exception() is None)
+    t0 = time.monotonic()
+    while fleet.received < placed:
+        require(time.monotonic() - t0 < 60.0,
+                f"absorb: the fleet received {fleet.received} of {placed}")
+        await asyncio.sleep(0.01)
+    await fleet.ack_due(AA_WAVES, everything=True)
+    for i, bal in enumerate(bals):
+        if i not in dead:
+            await _drain_front(bal)
+    K_after = _launches(K)
+    failed = [o.exception() for o in placed_outs
+              if o.cancelled() or o.exception() is not None]
+    refusals = [(pid, o.exception()) for pid, _aid, o in refused]
+    # every activation dispatched once: the fleet saw each id once
+    seen = {}
+    for m in fleet.seen:
+        seen[m.activation_id.asString] = seen.get(
+            m.activation_id.asString, 0) + 1
+    late = next((m for m in fleet.seen
+                 if m.root_controller_index.name == str(AA_DEAD)
+                 and m.fence_part in (kill or {}).get("epochs", {})), None)
+    fresh = None if late is None else next(
+        (m for m in fleet.seen if m.fence_part == late.fence_part
+         and m.fence_epoch is not None
+         and m.fence_epoch > late.fence_epoch), None)
+    out = dict(
+        register_s=register_s, claim_s=claim_s, traffic_s=traffic_s,
+        owned_at_start=owned_at_start, kill=kill, hot=hot,
+        rows=len(placed_outs), failed=len(failed),
+        failed_texts=sorted({str(e) for e in failed})[:3],
+        refusals=[(pid, type(e).__name__, str(e)) for pid, e in refusals],
+        dispatched=len(seen), dispatched_twice=sum(c > 1 for c in
+                                                   seen.values()),
+        refused_dispatched=sum(aid in seen for _p, aid, _o in refused),
+        spill_received=sum(r.received for r in receivers),
+        spill_refused=sum(r.refused for r in receivers),
+        gains=gains, t_kill=t_kill, errors=errors[:5],
+        launches={k: K_after[k] - K_before[k] for k in K_after},
+        owned_at_end={i: sorted(m.owned_partitions)
+                      for i, m in enumerate(members) if i not in dead},
+        epochs_at_end={i: {p: bals[i].partition_epochs.get(p)
+                           for p in members[i].owned_partitions}
+                       for i in range(AA_CTRLS) if i not in dead},
+        late=late, fresh=fresh, phase_s=time.perf_counter() - t_phase)
+    for i, m in enumerate(members):
+        if i not in dead:
+            await m.stop()
+    for i, r in enumerate(receivers):
+        if i not in dead:
+            await r.stop()
+    for i, bal in enumerate(bals):
+        if i not in dead:
+            await bal.close()
+        if bal.journal is not None:
+            await asyncio.to_thread(bal.journal.close)
+    await fleet.stop()
+    return out, absorbs
+
+
+async def _fence_check(late, fresh):
+    """The port's invoker fence on the run's own messages: the survivor's
+    newer-epoch dispatch for the partition, then the dead owner's late one
+    (its old epoch): the late one is discarded."""
+    from openwhisk_tpu_torch.containerpool import ContainerPoolConfig
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.database import (ArtifactActivationStore,
+                                              EntityStore,
+                                              MemoryArtifactStore)
+    from openwhisk_tpu_torch.invoker.reactive import InvokerReactive
+    from openwhisk_tpu_torch.messaging import memory as mem
+
+    class FactoryStub:
+        async def cleanup(self):
+            pass
+
+    class FeedStub:
+        def processed(self):
+            pass
+
+    store = MemoryArtifactStore()
+    inv = InvokerReactive(
+        E.InvokerInstanceId(0, user_memory=E.MB(MEM_MB)),
+        mem.MemoryMessagingProvider(), EntityStore(store),
+        ArtifactActivationStore(store), FactoryStub(),
+        pool_config=ContainerPoolConfig(user_memory=E.MB(MEM_MB)))
+    await inv._process(fresh.serialize(), FeedStub())
+    fresh_discards = inv.fenced_discards
+    await inv._process(late.serialize(), FeedStub())
+    return dict(partition=late.fence_part, late_epoch=late.fence_epoch,
+                fresh_epoch=fresh.fence_epoch,
+                discarded_fresh=fresh_discards,
+                discarded_late=inv.fenced_discards - fresh_discards)
+
+
+def absorb_phase(TB, K, P):
+    """Phase 10a: active/active absorb at full width, in one process."""
+    import shutil
+    import tempfile
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.messaging.memory import MemoryMessagingProvider
+    root = tempfile.mkdtemp(prefix="chip-smoke-absorb-")
+    try:
+        run, absorbs = asyncio.run(_absorb_run(TB, K, P, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(run["late"] is not None and run["fresh"] is not None,
+            "absorb: a dead owner's dispatch and a survivor's later one "
+            "for the same partition")
+    fence = asyncio.run(_fence_check(run["late"], run["fresh"]))
+    # each absorb once more on the CPU: the same tail onto the same
+    # pre-absorb books through the plain versions
+    rows = []
+    for ab in absorbs:
+        async def cpu_replay(ab=ab):
+            cpu = TB.TpuBalancer(
+                MemoryMessagingProvider(), E.ControllerInstanceId("9"),
+                device="cpu", managed_fraction=0.9, blackbox_fraction=0.1,
+                max_batch=MAX_BATCH, action_slots=A, initial_pad=N_PAD)
+            try:
+                cpu._install_state(P.PlacementState(
+                    *(t.clone() for t in ab["before"])))
+                t0 = time.perf_counter()
+                st = cpu.absorb_partitions(ab["pids"],
+                                           _ListJournal(ab["records"]),
+                                           snap_doc=ab["snap_doc"])
+                return st, time.perf_counter() - t0, _same_state(
+                    _host_state(P, cpu.state), ab["after"])
+            finally:
+                await cpu.close()
+
+        cst, cpu_s, equal = asyncio.run(cpu_replay())
+        st = ab["stats"]
+        batches = [r for r in ab["records"] if r["t"] == "batch"
+                   and set(r.get("parts") or ()) & set(ab["pids"])]
+        rows.append(dict(
+            ctrl=ab["ctrl"], prev=ab["prev"], partitions=ab["pids"],
+            ms=ab["ms"], replayed=st.get("replayed"),
+            batches=st.get("batches"), filtered_out=st.get("filtered_out"),
+            stale_epoch_dropped=st.get("stale_epoch_dropped"),
+            parity_mismatches=st.get("parity_mismatches"),
+            skipped=st.get("skipped"), tail_records=len(ab["records"]),
+            batches_per_partition=len(batches) / len(ab["pids"]),
+            records_per_partition=st.get("replayed", 0) / len(ab["pids"]),
+            launches=ab["launches"], books_equal_cpu_replay=equal,
+            cpu_stats_equal=({k: cst.get(k) for k in st}
+                             == {k: st.get(k) for k in st}),
+            cpu_s=cpu_s, since_kill_s=ab["t"] - run["t_kill"]))
+    # ownership claims the kill does not explain: the 5 s heartbeat risk
+    after = [g for g in run["gains"] if g[4] >= run["t_kill"]]
+    expected = [g for g in after if g[3] == AA_DEAD]
+    line = dict(
+        controllers=AA_CTRLS, partitions=AA_PARTS, invokers=N_INV, n_pad=N_PAD,
+        a=A, register_s=run["register_s"], claim_s=run["claim_s"],
+        traffic_s=run["traffic_s"], owned_at_start=run["owned_at_start"],
+        killed=AA_DEAD, kill=run["kill"], absorbs=rows,
+        owned_at_end=run["owned_at_end"], epochs_at_end=run["epochs_at_end"],
+        rows=run["rows"], failed=run["failed"],
+        dispatched=run["dispatched"],
+        dispatched_twice=run["dispatched_twice"],
+        refusals=run["refusals"], refused_dispatched=run["refused_dispatched"],
+        hot=run["hot"], spill_received=run["spill_received"],
+        spill_refused=run["spill_refused"], fence=fence,
+        claims_after_kill=len(after),
+        unexpected_claims=len(after) - len(expected),
+        launches=run["launches"], errors=run["errors"],
+        phase_s=run["phase_s"])
+    say("absorb", **line)
+    require(not run["errors"], f"absorb: no balancer logged an error: "
+                               f"{run['errors']}")
+    require(rows and {r["ctrl"] for r in rows} <= set(range(AA_CTRLS))
+            - {AA_DEAD} and all(r["prev"] == AA_DEAD for r in rows),
+            f"absorb: the survivors absorbed the dead owner: {rows}")
+    require(set().union(*(r["partitions"] for r in rows))
+            == set(run["kill"]["partitions"]),
+            "absorb: every partition of the dead owner was absorbed")
+    for r in rows:
+        require(r["skipped"] is None, f"absorb: no absorb skipped: {r}")
+        require(r["books_equal_cpu_replay"] and r["cpu_stats_equal"],
+                f"absorb: the card's absorb equals the CPU replay: {r}")
+        require(r["batches"] >= 1, f"absorb: batches replayed: {r}")
+        require(DEVICE != "cuda" or sum(r["launches"].values()) > 0,
+                f"absorb: the absorb launched the kernels: {r}")
+    tot = {k: sum(r["launches"][k] for r in rows) for k in ("scan",
+                                                            "repair")}
+    require(DEVICE != "cuda" or (tot["scan"] > 0 and tot["repair"] > 0),
+            f"absorb: the absorbs launched both kernels: {tot}")
+    owned = set().union(*map(set, run["owned_at_end"].values()))
+    require(owned == set(range(AA_PARTS)),
+            f"absorb: the survivors own every partition: {owned}")
+    for pid, ep in run["kill"]["epochs"].items():
+        now_ep = next(e[pid] for e in run["epochs_at_end"].values()
+                      if pid in e)
+        require(now_ep > ep, f"absorb: partition {pid} at a higher epoch")
+    require(run["failed"] == 0 and run["dispatched_twice"] == 0,
+            f"absorb: every row resolved, each dispatched once: "
+            f"{run['failed']} failed {run['failed_texts']}, "
+            f"{run['dispatched_twice']} twice")
+    require(run["dispatched"] == run["rows"] and
+            run["refused_dispatched"] == 0,
+            f"absorb: {run['dispatched']} dispatched of {run['rows']} rows")
+    require(len(run["refusals"]) == AA_REFUSED and all(
+        t == "LoadBalancerException"
+        and e == f"partition {p} is owned by another controller"
+        for p, t, e in run["refusals"]),
+        f"absorb: a non-owner refuses with the reference's text: "
+        f"{run['refusals']}")
+    require(run["hot"]["spilled"] > 0 and run["spill_received"]
+            == run["hot"]["spilled"] and run["spill_refused"] == 0,
+            f"absorb: the hot tail spilled to a peer: {run['hot']}")
+    require(fence["discarded_fresh"] == 0 and fence["discarded_late"] == 1,
+            f"absorb: the invoker fence discards the late batch: {fence}")
+    return line
+
+
+#: 10b/10c: the deployment's processes on localhost (the broker and the
+#: invokers are shared by the three controller sets, each set with its own
+#: controller instance ids and its own edge)
+HA_INVOKERS, HA_PARTS, HA_TENANTS = 4, 8, 16
+HA_RATE, HA_DURATION_S, HA_KILL_S = 10.0, 12.0, 4.0
+HA_TIMEOUT_S = 90.0
+AA_INSTANCES, AS_INSTANCES, FUNNEL_INSTANCES = (0, 1, 2), (3, 4), (5, 6, 7)
+AA_KILLED = 1
+FUNNEL_DEPTH, FUNNEL_BURST, FUNNEL_BLOCKING, FUNNEL_NONBLOCKING = \
+    64, 160, 200, 64
+#: one file per execution: a double execution leaves two files for one n
+EFFECT_CODE = (
+    "import os, uuid\n"
+    "def main(a):\n"
+    "    p = os.path.join(a['dir'], '%s-%s' % (a['n'], uuid.uuid4().hex))\n"
+    "    open(p, 'w').close()\n"
+    "    return {'n': a['n']}\n")
+
+
+class HaDeployment(Deployment):
+    """Phase 10's processes: the broker and HA_INVOKERS invokers once, then
+    controller sets started and stopped in turn, each controller through
+    the CLI (`--deploy-controller` for a placing role, so its launch
+    counts can be read), each set behind its own edge."""
+
+    def __init__(self, work):
+        super().__init__(work)
+        self.effects = __import__("os").path.join(work, "effects")
+        __import__("os").makedirs(self.effects)
+
+    def start_base(self):
+        bus = f"127.0.0.1:{self.bus}"
+        self._start("broker", ["-m", "openwhisk_tpu_torch.messaging",
+                               "--port", str(self.bus)])
+        for i in range(HA_INVOKERS):
+            self._start(f"invoker{i}", [
+                "-m", "openwhisk_tpu_torch.invoker", "--bus", bus,
+                "--db", self.db, "--unique-name", f"ha-{i}",
+                "--memory", str(DEPLOY_MEMORY_MB)])
+
+    def start_controller(self, inst, port, args, env, role="all"):
+        """A controller through the CLI's `main()` under
+        `--deploy-controller` (launch counts and whether torch initialized
+        CUDA in the process, on SIGUSR1); a frontend gets no device
+        argument."""
+        import os
+        name = f"controller{inst}"
+        dev = ([] if DEVICE == "cuda" or role == "frontend"
+               else ["--device", DEVICE])
+        self._start(name, [__file__, "--deploy-controller",
+                           os.path.join(self.work, f"{name}.json"),
+                           "--bus", f"127.0.0.1:{self.bus}", "--db", self.db,
+                           "--port", str(port), "--instance", str(inst),
+                           "--role", role, "--balancer", "tpu", *args, *dev],
+                    env=env)
+        return name
+
+    def start_edge(self, name, ports, env=None):
+        self._start(name, ["-m", "openwhisk_tpu_torch.edge", "--port",
+                           str(self.api), "--controllers",
+                           *[f"http://127.0.0.1:{p}" for p in ports]],
+                    env=env)
+
+    def wait_for(self, names, timeout=HA_TIMEOUT_S):
+        marks = {"broker": "listening on", "edge": "edge proxy on"}
+        up = {}
+        t0 = time.perf_counter()
+        while len(up) < len(names):
+            for name in names:
+                proc, _log = self.procs[name]
+                mark = next((v for k, v in marks.items()
+                             if name.startswith(k)),
+                            " up on :" if name.startswith("controller")
+                            else ") up")
+                if name not in up and mark in self.log(name):
+                    up[name] = time.perf_counter() - self.started[name]
+                require(proc.poll() is None,
+                        f"ha: {name} exited {proc.returncode}: "
+                        f"{self.log(name)[-2000:]}")
+            require(time.perf_counter() - t0 < timeout,
+                    f"ha: {sorted(set(names) - set(up))} not up")
+            time.sleep(0.05)
+        return up
+
+    def launches_of(self, name, sig):
+        import os
+        path = os.path.join(self.work, f"{name}.json")
+        stamp = os.path.getmtime(path) if os.path.exists(path) else None
+        self.send(name, sig)
+        for _ in range(500):
+            if os.path.exists(path) and os.path.getmtime(path) != stamp:
+                time.sleep(0.02)
+                with open(path) as f:
+                    return json.load(f)
+            time.sleep(0.01)
+        raise RuntimeError(f"ha: {name} wrote no launch counts")
+
+    def kill(self, name):
+        proc, log = self.procs[name]
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=10)
+
+    def stop_set(self, names):
+        rcs = {}
+        for name in names:
+            proc, log = self.procs[name]
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name in names:
+            proc, log = self.procs[name]
+            try:
+                rcs[name] = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rcs[name] = proc.wait()
+            if not log.closed:
+                log.close()
+        return rcs
+
+    def doubles(self):
+        import os
+        seen = {}
+        for f in os.listdir(self.effects):
+            n = f.split("-", 1)[0]
+            seen[n] = seen.get(n, 0) + 1
+        return len(seen), sum(c > 1 for c in seen.values())
+
+
+def _tenants():
+    """HA_TENANTS identities whose namespaces cover every partition of the
+    ring, two a partition."""
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.utils.partitions import PartitionRing
+    ring = PartitionRing(HA_PARTS)
+    per = {p: [] for p in range(HA_PARTS)}
+    k = 0
+    while any(len(v) < HA_TENANTS // HA_PARTS for v in per.values()):
+        ns = f"tenant{k}"
+        p = ring.partition_of(ns)
+        if len(per[p]) < HA_TENANTS // HA_PARTS:
+            per[p].append(ns)
+        k += 1
+    names = sorted(ns for v in per.values() for ns in v)
+    return ring, [E.Identity.generate(ns) for ns in names]
+
+
+async def _seed_tenants(db, idents):
+    from openwhisk_tpu_torch.core.entity import WhiskAuthRecord
+    from openwhisk_tpu_torch.database import AuthStore, SqliteArtifactStore
+    store = SqliteArtifactStore(db)
+    auth = AuthStore(store)
+    for ident in idents:
+        await auth.put(WhiskAuthRecord(ident.subject, [ident.namespace],
+                                       [ident.authkey]))
+    await store.close()
+
+
+def _basic(ident=None):
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    if ident is None:
+        return aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)
+    u, _, k = ident.authkey.compact.partition(":")
+    return aiohttp.BasicAuth(u, k)
+
+
+async def _json_get(s, url, auth=None):
+    import aiohttp
+    try:
+        async with s.get(url, auth=auth or _basic()) as r:
+            return r.status, await r.json(content_type=None)
+    except (aiohttp.ClientError, asyncio.TimeoutError, ValueError):
+        return 0, {}
+
+
+async def _fleet_up(s, port, timeout=HA_TIMEOUT_S):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        st, body = await _json_get(s, f"http://127.0.0.1:{port}/invokers")
+        if st == 200 and sum(v == "up" for v in body.values()) \
+                == HA_INVOKERS:
+            return time.perf_counter() - t0
+        await asyncio.sleep(0.2)
+    raise RuntimeError(f"ha: the fleet is up at :{port}")
+
+
+def _owned_parts(doc):
+    return {p["partition"]: p["epoch"] for p in doc.get("partitions", [])
+            if p["role"] == "active"}
+
+
+async def _effect_invoke(s, base, ident, n, dep):
+    """One blocking invoke of the effect action, no retry: (ok, ms)."""
+    import aiohttp
+    t = time.perf_counter()
+    try:
+        async with s.post(f"{base}/namespaces/_/actions/fx?blocking=true"
+                          "&result=true", auth=_basic(ident),
+                          json={"n": n, "dir": dep.effects}) as r:
+            body = await r.json(content_type=None)
+            ok = r.status == 200 and body.get("n") == n
+    except (aiohttp.ClientError, asyncio.TimeoutError, ValueError):
+        ok = False
+    return ok, (time.perf_counter() - t) * 1e3
+
+
+async def _open_loop_burst(s, base, idents, dep, n0, kill):
+    """HA_RATE invokes a second for HA_DURATION_S over the tenants, open
+    loop and without retries; `kill()` runs HA_KILL_S in. Returns the
+    rows (tenant, sent, done, ok, ms) and the kill's time."""
+    rows, t_kill = [], [None]
+    t0 = time.perf_counter()
+
+    async def one(i):
+        ident = idents[i % len(idents)]
+        sent = time.perf_counter()
+        ok, ms = await _effect_invoke(s, base, ident, n0 + i, dep)
+        rows.append((i % len(idents), sent, time.perf_counter(), ok, ms))
+
+    async def killer():
+        await asyncio.sleep(HA_KILL_S)
+        t_kill[0] = time.perf_counter()
+        await asyncio.to_thread(kill)
+
+    tasks = [asyncio.ensure_future(killer())]
+    for i in range(int(HA_RATE * HA_DURATION_S)):
+        delay = t0 + i / HA_RATE - time.perf_counter()
+        if delay > 0:
+            await asyncio.sleep(delay)
+        tasks.append(asyncio.ensure_future(one(i)))
+    await asyncio.gather(*tasks)
+    return rows, t_kill[0], time.perf_counter() - t0
+
+
+def _burst_report(rows, t_kill, wall_s, tenants_of_dead):
+    ok = [r for r in rows if r[3]]
+    before = [r[4] for r in ok if r[2] < t_kill]
+    after_dead = [r for r in ok if r[1] > t_kill and r[0] in tenants_of_dead]
+    first = min((r[2] for r in after_dead), default=None)
+    after = [r[4] for r in ok if first is not None and r[1] >= first]
+    served_after = {r[0] for r in ok if r[1] > t_kill}
+    return dict(
+        offered=len(rows), completed=len(ok), wall_s=wall_s,
+        invokes_per_s=len(ok) / wall_s,
+        failed_during_failover=sum(1 for r in rows if not r[3]),
+        downtime_s=None if first is None else first - t_kill,
+        http_ms_p50_p99_before=_percentiles(before),
+        http_ms_p50_p99_after=_percentiles(after),
+        tenants_served_after_kill=len(served_after))
+
+
+async def _put_effect_action(s, base, idents):
+    for ident in [None, *idents]:
+        async with s.put(f"{base}/namespaces/_/actions/fx?overwrite=true",
+                         auth=_basic(ident), json={"exec": {
+                             "kind": "python:3", "code": EFFECT_CODE},
+                             "limits": {"memory": DEPLOY_ACTION_MB}}) as r:
+            require(r.status == 200, f"ha: PUT fx {r.status} "
+                                     f"{await r.text()}")
+
+
+async def _aa_traffic(dep, ports, idents, ring):
+    import aiohttp
+    conn = aiohttp.TCPConnector(limit=256)
+    out = {}
+    async with aiohttp.ClientSession(connector=conn, timeout=aiohttp
+                                     .ClientTimeout(total=30)) as s:
+        for p in ports:
+            await _fleet_up(s, p)
+        t0 = time.perf_counter()
+        while True:
+            rs = {i: await _json_get(s, f"http://127.0.0.1:{p}/admin/ready")
+                  for i, p in zip(AA_INSTANCES, ports)}
+            if all(st == 200 for st, _d in rs.values()) and sum(
+                    len(_owned_parts(d)) for _st, d in rs.values()) \
+                    == HA_PARTS:
+                break
+            require(time.perf_counter() - t0 < HA_TIMEOUT_S,
+                    f"ha: the ring's ownership converged: {rs}")
+            await asyncio.sleep(0.2)
+        out["claim_s"] = time.perf_counter() - t0
+        before = {i: _owned_parts(d) for i, (_st, d) in rs.items()}
+        dead_parts = before[AA_KILLED]
+        tenants_of_dead = {k for k, ident in enumerate(idents)
+                           if ring.partition_of(str(ident.namespace.name))
+                           in dead_parts}
+        base = f"http://127.0.0.1:{dep.api}/api/v1"
+        await _put_effect_action(s, base, idents)
+        for k, ident in enumerate(idents):  # warm: each tenant served once
+            ok, _ms = await _effect_invoke(s, base, ident, 900_000 + k, dep)
+            require(ok, f"ha: tenant {k} served before the burst")
+        survivors = [f"controller{i}" for i in AA_INSTANCES
+                     if i != AA_KILLED]
+        for name in survivors:
+            dep.launches_of(name, signal.SIGUSR2)
+        rows, t_kill, wall = await _open_loop_burst(
+            s, base, idents, dep, 0,
+            lambda: dep.kill(f"controller{AA_KILLED}"))
+        out["burst"] = _burst_report(rows, t_kill, wall, tenants_of_dead)
+        out["confirm"] = [(await _effect_invoke(
+            s, base, ident, 800_000 + k, dep))[0]
+            for k, ident in enumerate(idents)]
+        t0 = time.perf_counter()
+        while True:
+            rs = {i: await _json_get(s, f"http://127.0.0.1:{p}/admin/ready")
+                  for i, p in zip(AA_INSTANCES, ports) if i != AA_KILLED}
+            owned = {}
+            for _st, d in rs.values():
+                owned.update(_owned_parts(d))
+            if set(owned) == set(range(HA_PARTS)) or \
+                    time.perf_counter() - t0 > 10:
+                break
+            await asyncio.sleep(0.2)
+        out.update(before=before, dead_parts=dead_parts, after=owned,
+                   ready={i: [st, d.get("mode"), d.get("owned_partitions")]
+                          for i, (st, d) in rs.items()},
+                   tenants_of_dead=sorted(tenants_of_dead),
+                   launches={n: dep.launches_of(n, signal.SIGUSR1)
+                             for n in survivors})
+    return out
+
+
+async def _as_traffic(dep, ports, idents):
+    import aiohttp
+    conn = aiohttp.TCPConnector(limit=256)
+    out = {}
+    async with aiohttp.ClientSession(connector=conn, timeout=aiohttp
+                                     .ClientTimeout(total=30)) as s:
+        for p in ports:
+            await _fleet_up(s, p)
+        t0 = time.perf_counter()
+        while True:
+            rs = {i: await _json_get(s, f"http://127.0.0.1:{p}/admin/ready")
+                  for i, p in zip(AS_INSTANCES, ports)}
+            active = [i for i, (st, d) in rs.items() if st == 200
+                      and d.get("role") == "active"]
+            if len(active) == 1:
+                break
+            require(time.perf_counter() - t0 < HA_TIMEOUT_S,
+                    f"ha: a leader emerged: {rs}")
+            await asyncio.sleep(0.2)
+        out["elect_s"] = time.perf_counter() - t0
+        act = active[0]
+        standby = next(i for i in AS_INSTANCES if i != act)
+        base = f"http://127.0.0.1:{dep.api}/api/v1"
+        for k, ident in enumerate(idents):
+            ok, _ms = await _effect_invoke(s, base, ident, 700_000 + k, dep)
+            require(ok, f"ha: tenant {k} served by the active")
+        dep.launches_of(f"controller{standby}", signal.SIGUSR2)
+        rows, t_kill, wall = await _open_loop_burst(
+            s, base, idents, dep, 100_000,
+            lambda: dep.kill(f"controller{act}"))
+        out["burst"] = _burst_report(rows, t_kill, wall,
+                                     set(range(len(idents))))
+        out["confirm"] = [(await _effect_invoke(
+            s, base, ident, 600_000 + k, dep))[0]
+            for k, ident in enumerate(idents)]
+        st, doc = await _json_get(
+            s, f"http://127.0.0.1:{ports[AS_INSTANCES.index(standby)]}"
+               "/admin/ready")
+        out.update(active=act, standby=standby,
+                   ready=[st, {k: doc.get(k) for k in (
+                       "mode", "role", "epoch", "ready")}],
+                   launches=dep.launches_of(f"controller{standby}",
+                                            signal.SIGUSR1))
+    return out
+
+
+async def _funnel_traffic(dep, ports):
+    import aiohttp
+    from openwhisk_tpu_torch.controller.entitlement import \
+        CONCURRENT_LIMIT_MESSAGE
+    balancer_port, fronts = ports[0], ports[1:]
+    conn = aiohttp.TCPConnector(limit=FUNNEL_BURST)
+    out = {}
+    async with aiohttp.ClientSession(
+            connector=conn, auth=_basic(),
+            timeout=aiohttp.ClientTimeout(total=60)) as s:
+        await _fleet_up(s, balancer_port)
+        base = f"http://127.0.0.1:{dep.api}/api/v1/namespaces/_"
+        async with s.put(f"{base}/actions/echo?overwrite=true", json={
+                "exec": {"kind": "python:3", "code": ECHO_CODE},
+                "limits": {"memory": DEPLOY_ACTION_MB}}) as r:
+            require(r.status == 200, f"funnel: PUT echo {r.status}")
+        bad = []
+
+        async def blocking(url, n):
+            t = time.perf_counter()
+            async with s.post(f"{url}/actions/echo?blocking=true&result=true",
+                              json={"n": n}) as r:
+                body = await r.json(content_type=None)
+            return r.status, body, (time.perf_counter() - t) * 1e3
+
+        st, body, first_ms = await blocking(base, -1)
+        require(st == 200 and body == {"n": -1},
+                f"funnel: the first invoke {st} {body}")
+        dep.launches_of(f"controller{FUNNEL_INSTANCES[0]}", signal.SIGUSR2)
+        sem = asyncio.Semaphore(DEPLOY_INFLIGHT)
+
+        async def limited(url, n):
+            async with sem:
+                st, body, ms = await blocking(url, n)
+                if st != 200 or body != {"n": n}:
+                    bad.append((n, st, body))
+                return ms
+
+        # the same invokes straight to the balancer (it serves the API
+        # too), then through the edge and the frontends
+        direct = f"http://127.0.0.1:{balancer_port}/api/v1/namespaces/_"
+        t0 = time.perf_counter()
+        direct_ms = await asyncio.gather(*[
+            limited(direct, 30_000 + n) for n in range(FUNNEL_BLOCKING)])
+        direct_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ms = await asyncio.gather(*[limited(base, n) for n in
+                                    range(FUNNEL_BLOCKING)])
+        conc_s = time.perf_counter() - t0
+        aids = {}
+
+        async def fire(n):
+            async with s.post(f"{base}/actions/echo", json={"n": n}) as r:
+                body = await r.json(content_type=None)
+                if r.status != 202 or "activationId" not in body:
+                    bad.append((n, r.status, body))
+                else:
+                    aids[body["activationId"]] = n
+
+        await asyncio.gather(*[fire(10_000 + n)
+                               for n in range(FUNNEL_NONBLOCKING)])
+        t0 = time.perf_counter()
+        pending = dict(aids)
+        while pending and time.perf_counter() - t0 < 60:
+            for aid in list(pending):
+                async with s.get(f"{base}/activations/{aid}") as r:
+                    if r.status == 200:
+                        rec = await r.json()
+                        if rec.get("response", {}).get("result") != \
+                                {"n": pending.pop(aid)}:
+                            bad.append((aid, rec.get("response")))
+            if pending:
+                await asyncio.sleep(0.1)
+        # a burst past one frontend's funnel depth: the overflow answers
+        # the front door's exact 429 text
+        front = f"http://127.0.0.1:{fronts[0]}/api/v1/namespaces/_"
+        burst = await asyncio.gather(*[blocking(front, 20_000 + n)
+                                       for n in range(FUNNEL_BURST)])
+        launches = {f"controller{i}": dep.launches_of(f"controller{i}",
+                                                      signal.SIGUSR1)
+                    for i in FUNNEL_INSTANCES}
+        counters = {}
+        for i, p in zip(FUNNEL_INSTANCES, ports):
+            async with s.get(f"http://127.0.0.1:{p}/metrics") as r:
+                text = await r.text()
+            counters[f"controller{i}"] = {
+                ln.split()[0]: float(ln.split()[1])
+                for ln in text.splitlines()
+                if ln.startswith("openwhisk_funnel_") and len(ln.split()) == 2}
+        wst, wf = await _json_get(
+            s, f"http://127.0.0.1:{balancer_port}/admin/latency/waterfall")
+    codes = [st for st, _b, _ms in burst]
+    out.update(
+        first_invoke_ms=first_ms, invokes=FUNNEL_BLOCKING,
+        invokes_per_s=FUNNEL_BLOCKING / conc_s,
+        http_ms_p50_p99=_percentiles(ms),
+        direct_invokes_per_s=FUNNEL_BLOCKING / direct_s,
+        direct_http_ms_p50_p99=_percentiles(direct_ms),
+        counters=counters,
+        balancer_waterfall={k: wf.get("budget", {}).get(k) for k in (
+            "stage_medians_ms", "e2e_p50_ms", "e2e_p99_ms", "count")},
+        nonblocking=len(aids),
+        nonblocking_unrecorded=len(pending), bad=bad[:5], n_bad=len(bad),
+        burst={"offered": FUNNEL_BURST, "ok": codes.count(200),
+               "429": codes.count(429),
+               "other": [c for c in codes if c not in (200, 429)][:5],
+               "texts_exact": all(
+                   b.get("error") == CONCURRENT_LIMIT_MESSAGE
+                   for st, b, _ms in burst if st == 429),
+               "echoes_exact": all(
+                   b == {"n": 20_000 + n} for n, (st, b, _ms) in
+                   enumerate(burst) if st == 200)},
+        launches=launches)
+    return out
+
+
+def _compute_apps():
+    """`nvidia-smi --query-compute-apps` as it reads (its pids are the
+    host's, which a sandboxed process need not share), or None off the
+    card."""
+    if DEVICE != "cuda":
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+
+
+def _libcuda_mapped(pid):
+    """Whether the process has libcuda.so mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return None
+
+
+def ha_phase():
+    """Phase 10b and 10c: the HA deployments and the funnel as processes."""
+    import os
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-ha-")
+    dep = HaDeployment(work)
+    ring, idents = _tenants()
+    asyncio.run(_seed_tenants(dep.db, idents))
+    env = dict(DEPLOY_LIMITS)
+    t_phase = time.perf_counter()
+    lines = {}
+    try:
+        dep.start_base()
+        dep.wait_for(["broker"] + [f"invoker{i}" for i in range(HA_INVOKERS)])
+        # 10b, active/active: three controllers on the card, each with its
+        # own journal and snapshot under one root, behind the edge
+        aa_env = dict(env, CONFIG_whisk_ha_activeActive="true",
+                      CONFIG_whisk_ha_activeActive_partitions=str(HA_PARTS))
+        ports = [_free_port() for _ in AA_INSTANCES]
+        names = [dep.start_controller(i, p, [
+            "--ha", "--cluster-size", str(len(AA_INSTANCES)),
+            "--balancer-journal", os.path.join(work, "aa-wal"),
+            "--balancer-snapshot", os.path.join(work, "aa.snap"),
+            "--balancer-snapshot-interval", "1"]
+            + (["--seed-guest"] if i == AA_INSTANCES[0] else []), aa_env)
+            for i, p in zip(AA_INSTANCES, ports)]
+        dep.api = _free_port()
+        dep.start_edge("edge-aa", ports, env=aa_env)
+        t0 = time.perf_counter()
+        up = dep.wait_for(names + ["edge-aa"])
+        aa = asyncio.run(_aa_traffic(dep, ports, idents, ring))
+        aa.update(up_s=up, set_s=time.perf_counter() - t0,
+                  rcs=dep.stop_set([n for n in names
+                                    if n != f"controller{AA_KILLED}"]
+                                   + ["edge-aa"]))
+        lines["active_active"] = aa
+        # 10b, active/standby: two controllers on one snapshot + journal
+        as_env = dict(env, CONFIG_whisk_ha_failover_enabled="true")
+        ports = [_free_port() for _ in AS_INSTANCES]
+        names = [dep.start_controller(i, p, [
+            "--ha", "--cluster-size", str(len(AS_INSTANCES)),
+            "--balancer-journal", os.path.join(work, "as-wal"),
+            "--balancer-snapshot", os.path.join(work, "as.snap"),
+            "--balancer-snapshot-interval", "1"], as_env)
+            for i, p in zip(AS_INSTANCES, ports)]
+        dep.api = _free_port()
+        dep.start_edge("edge-as", ports)
+        t0 = time.perf_counter()
+        up = dep.wait_for(names + ["edge-as"])
+        st = asyncio.run(_as_traffic(dep, ports, idents))
+        st.update(up_s=up, set_s=time.perf_counter() - t0,
+                  rcs=dep.stop_set([f"controller{st['standby']}",
+                                    "edge-as"]))
+        lines["active_standby"] = st
+        # 10c, the funnel: one balancer on the card, two frontends behind
+        # the edge
+        ports = [_free_port() for _ in FUNNEL_INSTANCES]
+        bal = FUNNEL_INSTANCES[0]
+        fnames = [dep.start_controller(bal, ports[0], [
+            "--cluster-size", "1"], env, role="balancer")]
+        fnames += [dep.start_controller(i, p, [
+            "--funnel-to", str(bal), "--funnel-depth", str(FUNNEL_DEPTH)],
+            env, role="frontend")
+            for i, p in zip(FUNNEL_INSTANCES[1:], ports[1:])]
+        dep.api = _free_port()
+        dep.start_edge("edge-funnel", ports[1:])
+        t0 = time.perf_counter()
+        up = dep.wait_for(fnames + ["edge-funnel"])
+        fn = asyncio.run(_funnel_traffic(dep, ports))
+        fn.update(up_s=up, set_s=time.perf_counter() - t0,
+                  cuda_initialized={n: fn["launches"][n]["cuda_initialized"]
+                                    for n in fnames},
+                  libcuda_mapped={n: _libcuda_mapped(dep.procs[n][0].pid)
+                                  for n in fnames},
+                  nvidia_smi_compute_apps=_compute_apps(),
+                  frontend_logs=[
+                      "role=frontend" in dep.log(n) for n in fnames[1:]],
+                  rcs=dep.stop_set(fnames + ["edge-funnel"]))
+        lines["funnel"] = fn
+    except Exception:
+        for name in dep.procs:
+            print(f"--- {name} log:\n{dep.log(name)[-3000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        rest = dep.stop_set(list(dep.procs))
+        doubles = dep.doubles()
+        shutil.rmtree(work, ignore_errors=True)
+    aa, st, fn = lines["active_active"], lines["active_standby"], \
+        lines["funnel"]
+    executed, twice = doubles
+    say("ha", executed=executed, executed_twice=twice,
+        base_rcs={k: v for k, v in rest.items()
+                  if k == "broker" or k.startswith("invoker")},
+        phase_s=time.perf_counter() - t_phase,
+        **{k: v for k, v in lines.items() if k != "funnel"})
+    say("funnel", **fn)
+    require(executed > 0 and twice == 0,
+            f"ha: zero double executions ({twice} of {executed})")
+    require(all(aa["confirm"]) and all(st["confirm"]),
+            "ha: every tenant served again after the kill")
+    require(set(aa["after"]) == set(range(HA_PARTS)) and all(
+        aa["after"][p] > ep for p, ep in aa["dead_parts"].items()),
+        f"ha: the survivors own all {HA_PARTS} partitions, the dead "
+        f"owner's at higher epochs: {aa['after']} {aa['dead_parts']}")
+    require(aa["burst"]["downtime_s"] is not None
+            and aa["burst"]["tenants_served_after_kill"] == HA_TENANTS,
+            f"ha: every tenant served after the kill: {aa['burst']}")
+    require(DEVICE != "cuda" or all(
+        sum(v.values()) > 0 for v in aa["launches"].values()),
+        f"ha: the survivors launched the kernels: {aa['launches']}")
+    require(st["ready"][0] == 200 and st["ready"][1]["role"] == "active"
+            and st["ready"][1]["epoch"] >= 2,
+            f"ha: the standby promoted: {st['ready']}")
+    require(st["burst"]["downtime_s"] is not None,
+            f"ha: the promoted standby served: {st['burst']}")
+    require(DEVICE != "cuda" or sum(st["launches"].values()) > 0,
+            f"ha: the promoted standby launched the kernels: "
+            f"{st['launches']}")
+    require(all(rc == 0 for rc in list(aa["rcs"].values())
+                + list(st["rcs"].values()) + list(fn["rcs"].values())),
+            f"ha: every process stopped by SIGTERM exits 0: "
+            f"{aa['rcs']} {st['rcs']} {fn['rcs']}")
+    require(fn["n_bad"] == 0 and fn["nonblocking_unrecorded"] == 0,
+            f"funnel: every invoke answered with its echo: {fn['bad']}")
+    require(fn["burst"]["429"] > 0 and fn["burst"]["ok"] > 0
+            and not fn["burst"]["other"] and fn["burst"]["texts_exact"]
+            and fn["burst"]["echoes_exact"],
+            f"funnel: the overflow answers the exact 429: {fn['burst']}")
+    require(all(fn["frontend_logs"]), "funnel: the frontends ran as such")
+    require(not any(fn["cuda_initialized"][n] for n in fnames[1:])
+            and (DEVICE != "cuda" or fn["cuda_initialized"][fnames[0]]),
+            f"funnel: CUDA initialized in the balancer only: "
+            f"{fn['cuda_initialized']}")
+    # the card's contexts while the funnel set runs: this script's and the
+    # balancer's, none of a frontend
+    require(DEVICE != "cuda" or len(fn["nvidia_smi_compute_apps"]) == 2,
+            f"funnel: two CUDA contexts on the card (this script and the "
+            f"balancer): {fn['nvidia_smi_compute_apps']}")
+    bl = fn["launches"][fnames[0]]
+    require(DEVICE != "cuda" or bl["scan"] + bl["repair"] > 0,
+            f"funnel: the balancer launched the kernels: {bl}")
+    return lines
 
 
 def leg():
@@ -3864,6 +5085,12 @@ def main():
     t0 = time.perf_counter()
     deploy = deploy_phase(TB, K)
     say("deploy_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    absorb = absorb_phase(TB, K, P)
+    say("absorb_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ha = ha_phase()
+    say("ha_phase", seconds=time.perf_counter() - t0)
 
     scan = sk["plain"]
     rep = mk["plain"]
@@ -3898,7 +5125,16 @@ def main():
                   for k, v in wide.items()},
          "wide_launches": wide["balancer"]["launches"]["scan"],
          "deploy_launches": deploy["launches"]["scan"],
-         "deploy_replay_launches": deploy["replay_card"]["launches"]["scan"]},
+         "deploy_replay_launches": deploy["replay_card"]["launches"]["scan"],
+         "absorb_launches": absorb["launches"]["scan"],
+         "absorb_replay_launches": sum(r["launches"]["scan"]
+                                       for r in absorb["absorbs"]),
+         "ha_active_active_launches": sum(
+             v["scan"] for v in ha["active_active"]["launches"].values()),
+         "ha_active_standby_launches":
+             ha["active_standby"]["launches"]["scan"],
+         "funnel_launches": ha["funnel"]["launches"][
+             f"controller{FUNNEL_INSTANCES[0]}"]["scan"]},
         {"name": "placement_repair", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
@@ -3920,7 +5156,16 @@ def main():
          "replay_launches": journal["replay_launches"]["repair"],
          "replay_ms": journal["replay_ms"]["repair"],
          "deploy_launches": deploy["launches"]["repair"],
-         "deploy_replay_launches": deploy["replay_card"]["launches"]["repair"]},
+         "deploy_replay_launches": deploy["replay_card"]["launches"]["repair"],
+         "absorb_launches": absorb["launches"]["repair"],
+         "absorb_replay_launches": sum(r["launches"]["repair"]
+                                       for r in absorb["absorbs"]),
+         "ha_active_active_launches": sum(
+             v["repair"] for v in ha["active_active"]["launches"].values()),
+         "ha_active_standby_launches":
+             ha["active_standby"]["launches"]["repair"],
+         "funnel_launches": ha["funnel"]["launches"][
+             f"controller{FUNNEL_INSTANCES[0]}"]["repair"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -752,12 +752,36 @@ class ControllerApi:
         return web.json_response(report)
 
     async def admin_ready(self, request):
-        """Readiness probe: which placement role this controller holds.
-        The port runs its controllers without HA or partitions, so the
-        mode is `single` and the answer 200; a controller in the
-        membership protocol adds the live cluster size."""
+        """Ops/chaos readiness probe: which placement role this controller
+        holds RIGHT NOW, without scraping /metrics.
+
+        Body: `mode` (single | active_standby | active_active), `ready`,
+        per-partition `{partition, epoch, role, replay}` rows in
+        active/active mode, and the journal's durability state (lag +
+        whether the built-in `journal_stall` alert is firing); a
+        controller in the membership protocol adds the live cluster size.
+        Status is 200 when this controller is placing for at least one
+        partition (or is the global active / a non-HA single); a
+        standby-for-all answers 503 so load checks and the chaos riders
+        read ownership from the status code alone."""
         lb = self.c.load_balancer
-        doc = {"mode": "single", "ready": True}
+        ring = getattr(lb, "partition_ring", None)
+        doc = {}
+        if ring is not None:
+            parts = lb.partitions_json()
+            owned = sum(1 for p in parts if p["role"] == "active")
+            doc.update(mode="active_active", partitions=parts,
+                       owned_partitions=owned,
+                       n_partitions=ring.n_partitions,
+                       ready=owned > 0)
+        elif getattr(lb, "fence_epoch", None) is not None \
+                or getattr(lb, "ha_standby", False):
+            active = not lb.ha_standby
+            doc.update(mode="active_standby",
+                       role="active" if active else "standby",
+                       epoch=lb.fence_epoch or 0, ready=active)
+        else:
+            doc.update(mode="single", ready=True)
         journal = getattr(lb, "journal", None)
         jdoc = {"attached": journal is not None}
         if journal is not None:
@@ -771,7 +795,7 @@ class ControllerApi:
         mem = self.c.membership
         if mem is not None:
             doc["cluster_size"] = mem.cluster_size
-        return web.json_response(doc)
+        return web.json_response(doc, status=200 if doc["ready"] else 503)
 
     async def latency_waterfall(self, request):
         """Where does the end-to-end latency live: per-stage p50/p90/p99

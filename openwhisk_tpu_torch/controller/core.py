@@ -10,8 +10,11 @@ opt-in GC tuning) and keeps the event log on while an incident recorder is
 armed; `stop` uninstalls the observatory. A clustering balancer (one that
 overrides `update_cluster`, as the TPU and sharding balancers do) joins the
 controller membership protocol at `start` and leaves it at `stop`, as in
-the reference. HA failover, partitions, spillover, the admission funnel
-and the fleet events are not ported yet (membership runs with them off).
+the reference, with the HA failover, partition ring, partition callback
+and spillover load hint an assembler set before `start`; a spillover or
+funnel receiver it attached starts and stops with the controller. The
+fleet observatory (its identity block, admin address and fleet events) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -89,6 +92,27 @@ class Controller:
         self.api = ControllerApi(self)
         self._runner: Optional[web.AppRunner] = None
         self.membership = None
+        # HA failover (loadbalancer/membership.py leadership): assemblers
+        # set these BEFORE start() to run the epoch-fenced active/standby
+        # protocol on the membership heartbeats. on_leadership(epoch,
+        # active) may be async (promotion restores snapshot+journal).
+        self.ha_failover = False
+        self.on_leadership = None
+        # Active/active partitioned controllers (loadbalancer/partitions
+        # .py): assemblers set the ring + the partition-transition
+        # callback BEFORE start(). on_partitions(gained, lost) may be
+        # async (a gain absorbs the previous owner's journal tail).
+        # spillover_receiver (loadbalancer/spillover.py) is started/
+        # stopped with the controller when attached.
+        self.ha_partition_ring = None
+        self.on_partitions = None
+        self.spillover_receiver = None
+        # admission funnel (loadbalancer/funnel.py): the balancer-role
+        # assembler attaches a FunnelReceiver BEFORE start(); started/
+        # stopped with the controller like spillover. None (the default
+        # and the --role all path) keeps the single-process behavior
+        # bit-exact.
+        self.funnel_receiver = None
         # (method, path, handler) triples mounted beside /api/v1 at start —
         # the seam the standalone playground UI plugs into. These are
         # operator-mounted dev/ops pages, served without platform auth (the
@@ -168,10 +192,27 @@ class Controller:
             # (replaces Akka Cluster events,
             # ShardingContainerPoolBalancer.scala:217-250)
             from .loadbalancer.membership import ControllerMembership
+            lb = self.load_balancer
+
+            def load_hint() -> float:
+                # the spillover plane's least-loaded ranking: in-flight
+                # activations + what is queued for the device
+                return (lb.total_active_activations
+                        + len(getattr(lb, "_pending", ())))
+
             self.membership = ControllerMembership(
                 self.provider, self.instance, self.load_balancer,
-                logger=self.logger)
+                logger=self.logger, ha=self.ha_failover,
+                on_leadership=self.on_leadership,
+                ring=self.ha_partition_ring,
+                on_partitions=self.on_partitions,
+                load_hint=(load_hint if self.ha_partition_ring is not None
+                           else None))
             self.membership.start()
+        if self.spillover_receiver is not None:
+            self.spillover_receiver.start()
+        if self.funnel_receiver is not None:
+            self.funnel_receiver.start()
         app = self.api.make_app()
         for method, path, handler in self.extra_routes:
             app.router.add_route(method, path, handler)
@@ -191,6 +232,10 @@ class Controller:
             await self._runner.cleanup()
         if self.membership is not None:
             await self.membership.stop()  # sends the graceful leave
+        if self.spillover_receiver is not None:
+            await self.spillover_receiver.stop()
+        if self.funnel_receiver is not None:
+            await self.funnel_receiver.stop()
         for resource in self.owned_resources:
             await resource.stop()
         if hasattr(self.entitlement, "close"):

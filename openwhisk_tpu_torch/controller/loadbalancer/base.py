@@ -32,8 +32,14 @@ CommonLoadBalancer.scala), with the parts the TPU balancer's front needs:
     (`KernelProfiler`) and anomaly scoring with its alert engine
     (`AnomalyPlane`), constructed, attached and rendered as there.
 
-The quality plane and the HA / partition fencing are not here: neither
-changes a decision. Events are counted in `counters`, rendered on the
+  - the HA and partition plane: active/standby leadership
+    (`set_leadership`, `fence_epoch`, `ha_standby`, the journal's
+    demotion `abandon`), active/active partitions (`set_partition_mode`,
+    `set_partition_leadership`, `_partition_refusal` with the spillover
+    credential, `partitions_json`) and the fence stamps of
+    `prepare_dispatch`.
+
+The quality plane is not here: it changes no decision. Events are counted in `counters`, rendered on the
 metric emitter's page as `openwhisk_loadbalancer_<event>` counters.
 """
 from __future__ import annotations
@@ -53,6 +59,7 @@ from ...messaging.message import (AcknowledgementMessage, ActivationMessage,
 from ...utils.config import load_config
 from ...utils.logging import MetricEmitter
 from ...utils.blackbox import GLOBAL_INCIDENTS
+from ...utils.eventlog import GLOBAL_EVENT_LOG
 from ...utils.tracestore import GLOBAL_TRACE_STORE
 from ...utils.tracing import trace_id_of
 from ...utils.transaction import TransactionId
@@ -215,6 +222,29 @@ class CommonLoadBalancer(LoadBalancer):
         # restores the raw serial producer bit-exactly.
         from ...messaging.coalesce import maybe_coalesce
         self.producer = maybe_coalesce(messaging_provider.get_producer())
+        # HA failover plane (membership.py leadership): while `ha_standby`
+        # the balancer refuses placement; once active, `fence_epoch` stamps
+        # every produced ActivationMessage so invokers can discard a dead
+        # epoch's late (zombie) batches. Both default to the non-HA
+        # behavior: no stamp, always active.
+        self.fence_epoch: Optional[int] = None
+        self.ha_standby = False
+        # Active/active partitions (loadbalancer/partitions.py): with a
+        # ring attached, placement is fenced PER PARTITION — this
+        # controller refuses namespaces whose partition it does not own
+        # (503, the edge walks to the owner) and stamps (fence_part,
+        # per-partition epoch) on every dispatch. ring=None (the default
+        # and the CONFIG_whisk_ha_activeActive=false path) keeps every
+        # branch below dormant — bit-exact with the single-active path.
+        self.partition_ring = None
+        self.partition_epochs: Dict[int, int] = {}
+        self.owned_partitions: set = set()
+        #: pid -> "replaying" | "ready" (the /admin/ready replay-state)
+        self.partition_replay: Dict[int, str] = {}
+        #: partitions gained but not yet dispatched into — the fleet
+        #: timeline's `first_placement` marker. Empty-set check on the hot
+        #: path; empty whenever the event log is off.
+        self._fp_pending: set = set()
         #: batch-shaped completion pipeline: a batch wire ack
         #: frame is processed in ONE pass (entries, telemetry, waterfall
         #: folds) instead of N per-ack callback hops. False replays each
@@ -463,11 +493,137 @@ class CommonLoadBalancer(LoadBalancer):
         self.process_completion(entry.id, forced=True, is_system_error=False,
                                 invoker=entry.invoker)
 
+    # -- HA leadership (membership.py fires this on claim/demote) ----------
+    def set_leadership(self, epoch: int, active: bool) -> None:
+        """Adopt a leadership transition: the fencing epoch stamps every
+        later dispatch; a standby refuses placement until promoted."""
+        if epoch:
+            self.fence_epoch = int(epoch)
+        if not active:
+            # demotion: drop the journal's buffered tail NOW — a
+            # superseded active must not flush stale frames into the log
+            # the new epoch's active owns (journal.abandon docstring)
+            journal = getattr(self, "journal", None)
+            if journal is not None and hasattr(journal, "abandon"):
+                journal.abandon()
+        self.ha_standby = not active
+        GLOBAL_EVENT_LOG.record("leadership",
+                                instance=self.controller.instance,
+                                epoch=int(epoch), active=bool(active))
+        self.metrics.gauge("controller_leadership_epoch", int(epoch))
+        if self.logger:
+            self.logger.info(
+                TransactionId.LOADBALANCER,
+                f"leadership epoch {epoch}: this controller is now "
+                f"{'ACTIVE' if active else 'standby'}", "LoadBalancer")
+
+    # -- active/active partitions (partitions.py) --------------------------
+    def set_partition_mode(self, ring) -> None:
+        """Attach the namespace partition ring: placement becomes
+        per-partition fenced (class doc). Call before start()."""
+        self.partition_ring = ring
+
+    def partition_of_msg(self, msg: ActivationMessage) -> int:
+        return self.partition_ring.partition_of(
+            str(msg.user.namespace.name))
+
+    def set_partition_leadership(self, pid: int, epoch: int,
+                                 active: bool) -> None:
+        """Adopt one partition's ownership transition (membership.py's
+        per-partition claim/demote). Epochs only move forward."""
+        self.partition_epochs[pid] = max(
+            self.partition_epochs.get(pid, 0), int(epoch))
+        if active:
+            self.owned_partitions.add(pid)
+            self.partition_replay.setdefault(pid, "ready")
+            if GLOBAL_EVENT_LOG.enabled:
+                # arm the timeline's first-placement marker for this
+                # partition: prepare_dispatch stamps it on the first
+                # post-claim dispatch
+                self._fp_pending.add(pid)
+        else:
+            self.owned_partitions.discard(pid)
+            self.partition_replay.pop(pid, None)
+            self._fp_pending.discard(pid)
+        GLOBAL_EVENT_LOG.record("part_ownership",
+                                instance=self.controller.instance,
+                                part=pid, epoch=int(epoch),
+                                active=bool(active))
+        self.metrics.gauge("loadbalancer_owned_partitions",
+                           len(self.owned_partitions))
+        if self.logger:
+            self.logger.info(
+                TransactionId.LOADBALANCER,
+                f"partition {pid} epoch {epoch}: this controller is now "
+                f"{'ACTIVE' if active else 'standby'} for it",
+                "LoadBalancer")
+
+    def _partition_refusal(self, msg: ActivationMessage,
+                           pid: Optional[int] = None
+                           ) -> Optional["LoadBalancerException"]:
+        """None when this controller may place `msg`; the 503-shaped
+        refusal otherwise. A message already fence-stamped by the current
+        owner of its partition passes even here — that stamp is the
+        spillover credential (spillover.py): the owner explicitly
+        forwarded its overflow, fenced, so replay stays exact. `pid` may
+        be passed pre-computed to spare the hot path a second hash."""
+        if self.partition_ring is None:
+            return None
+        if pid is None:
+            pid = self.partition_of_msg(msg)
+        if pid in self.owned_partitions:
+            return None
+        if (msg.fence_part == pid and msg.fence_epoch is not None
+                and msg.fence_epoch >= self.partition_epochs.get(pid, 0)):
+            # current-epoch spillover from the owner: a fenced handoff
+            # row is always trace-worthy — note it before the verdict.
+            # Rare path (spilled-in rows only), one dict op.
+            if self.trace_store.active:
+                self.trace_store.mark(trace_id_of(msg.trace_context),
+                                      "fenced")
+            return None
+        return LoadBalancerException(
+            f"partition {pid} is owned by another controller")
+
+    def partitions_json(self) -> List[dict]:
+        """Per-partition role/epoch/replay-state (the /admin/ready body)."""
+        if self.partition_ring is None:
+            return []
+        return [{"partition": pid,
+                 "epoch": self.partition_epochs.get(pid, 0),
+                 "role": ("active" if pid in self.owned_partitions
+                          else "standby"),
+                 "replay": self.partition_replay.get(pid, "n/a")}
+                for pid in range(self.partition_ring.n_partitions)]
+
     # -- dispatch (ref :175-198) -------------------------------------------
     def prepare_dispatch(self, msg: ActivationMessage,
                          invoker: InvokerInstanceId) -> str:
-        """The synchronous half of a dispatch: counts it and returns the
-        invoker topic."""
+        """The synchronous half of a dispatch, shared by the serial send
+        and the batched publish path's task-free send: fence stamping and
+        the published counter live HERE so the two paths cannot drift.
+        Returns the invoker topic."""
+        if self.partition_ring is not None:
+            # active/active: stamp (partition, per-partition epoch). A
+            # spilled message arrives already stamped by its origin —
+            # keep the higher of the two epochs (ours can lag the
+            # origin's by one claim announcement)
+            pid = self.partition_of_msg(msg)
+            ep = self.partition_epochs.get(pid)
+            if ep is not None and (msg.fence_part != pid
+                                   or msg.fence_epoch is None
+                                   or ep >= msg.fence_epoch):
+                msg.fence_epoch = ep
+                msg.fence_part = pid
+            if self._fp_pending and pid in self._fp_pending:
+                self._fp_pending.discard(pid)
+                GLOBAL_EVENT_LOG.record("first_placement",
+                                        instance=self.controller.instance,
+                                        part=pid, epoch=ep or 0)
+        elif self.fence_epoch is not None:
+            # epoch fencing: invokers discard messages from a superseded
+            # epoch, so a zombie active's late batches never double-run
+            msg.fence_epoch = self.fence_epoch
         self.counters["activations_published"] += 1
         return invoker.as_string  # "invoker<N>"
 

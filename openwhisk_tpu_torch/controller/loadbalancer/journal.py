@@ -242,6 +242,10 @@ class PlacementJournal:
                         and not self._closing):
                     self._lock.wait(self.linger_s)
                 batch, self._pending = self._pending, []
+            if not batch:
+                # a demotion's abandon() emptied the queue while the
+                # writer lingered: nothing to write, keep the writer alive
+                continue
             try:
                 self._write_batch(batch)
             except OSError as e:

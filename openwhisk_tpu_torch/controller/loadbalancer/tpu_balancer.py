@@ -32,6 +32,16 @@ supervision tick), the 1 Hz supervision tick runs the telemetry burn
 rates, the anomaly step and the HBM watermarks, and the kernel profiler
 wraps the step entry points and times each dispatch phase.
 
+HA rides the same path as the JAX package's: an active/standby standby
+refuses placement and journals nothing, an active stamps its fence epoch
+on every dispatch and journal record; in partition mode (a ring
+attached) a row of a partition this controller does not own is refused,
+each pending row carries its `(partition, epoch)` into the batch
+record's `parts`/`pe`, a batch's non-blocking tail past
+`spillover_depth` forwards to a peer, and `absorb_partitions` replays a
+previous owner's journal tail, filtered to the partitions claimed,
+through the same kernels on top of the live books.
+
 The device half: each step packs releases, health flips and requests into
 ONE int32 host buffer, copies it to the device once, runs ONE fused step
 and copies the B+1 decision vector back once. On the card (`device=None`
@@ -69,9 +79,11 @@ from ...ops.placement_cuda import (schedule_batch_cuda,
                                    to_transposed)
 from ...ops.profiler import pow2_statics
 from ...ops.throttle import init_buckets
+from ...utils.eventlog import GLOBAL_EVENT_LOG
 from ...utils.hostprof import GLOBAL_HOST_OBSERVATORY
 from ...utils.ring_buffer import ColumnRing
 from ...utils.tracing import export_tracing_gauges, trace_id_of
+from ...utils.waterfall import STAGE_SPILL_FORWARD
 from .base import (HEALTHY, CommonLoadBalancer, InvokerHealth,
                    LoadBalancerException, LoadBalancerThrottleException)
 from .flight_recorder import BatchRecord, free_slot_histogram, occupancy_json
@@ -616,11 +628,19 @@ class TpuBalancer(CommonLoadBalancer):
         #: a fleet-mesh writer's one-shot topology stamp (the port has no
         #: mesh yet: it stays False)
         self._journal_mesh_stamped = False
+        #: cross-partition spillover (active/active only; spillover.py):
+        #: with a sink attached, publish_many diverts its non-blocking
+        #: overflow past `spillover_depth` pending rows to the
+        #: least-loaded peer instead of deepening the local queue
+        self.spillover_sink = None
+        self.spillover_depth = 256
+        self.spilled_rows = 0
         self._init_device_state()
 
         # request queue: (req, placement future, slot key, enqueue time,
         # activation id, action, trace id) per row — the trailing fields
-        # feed the flight recorder — its int columns mirrored in a ring;
+        # feed the flight recorder; in partition mode one more, the row's
+        # (partition, epoch) — its int columns mirrored in a ring;
         # releases: (slot key, slot) per row, columns in a ring
         self._pending: List[tuple] = []
         self._req_ring = ColumnRing(10, max_batch * 4)
@@ -873,18 +893,21 @@ class TpuBalancer(CommonLoadBalancer):
                 if self.journal is not None else None)
 
     def _journal_live(self) -> bool:
-        return self.journal is not None and not self._journal_mute
+        return (self.journal is not None and not self._journal_mute
+                and not self.ha_standby)
 
     def _journal_append(self, rec: dict) -> int:
-        """Stamp the next seq onto `rec` and append. Returns the seq (0
-        when journaling is off). Called on the event loop in the SAME
-        synchronous block as the change to the books it records, so
-        journal order == the order of changes to the books and a
-        snapshot's `journal_seq` is exactly consistent with its books."""
+        """Stamp the next seq (and fencing epoch) onto `rec` and append.
+        Returns the seq (0 when journaling is off). Called on the event
+        loop in the SAME synchronous block as the change to the books it
+        records, so journal order == the order of changes to the books and
+        a snapshot's `journal_seq` is exactly consistent with its books."""
         if not self._journal_live():
             return 0
         self._journal_seq += 1
         rec["seq"] = self._journal_seq
+        if self.fence_epoch is not None:
+            rec["epoch"] = self.fence_epoch
         try:
             self.journal.append(rec)
         except Exception as e:  # noqa: BLE001 — journaling degrades, the
@@ -1109,6 +1132,56 @@ class TpuBalancer(CommonLoadBalancer):
                                    "(kernel knobs changed across the "
                                    "restart?)", "TpuBalancer")
 
+    def absorb_partitions(self, pids, journal, snap_doc=None,
+                          logger=None) -> dict:
+        """Partition handoff, absorb side: replay the PREVIOUS owner's
+        journal tail — filtered to exactly the partitions this controller
+        just claimed — through the same kernels, on top of the live books
+        (on the card, the scan and repair kernels). The dead (or
+        rebalanced-away) owner's post-snapshot in-flight holds for these
+        partitions land on the new owner's books conservatively
+        (un-acked rows self-heal via forced timeouts), per-partition stale
+        epochs drop, and the previous owner's structural records never
+        touch our topology. The absorbed tail's seqs stay in the previous
+        owner's numbering (`foreign`), so our own journal order is
+        untouched. The epoch bump that fences the previous owner happened
+        at claim time (set_partition_leadership) — this replay is
+        books-accuracy, the fence is the zero-double-execution guarantee.
+
+        Every failure path degrades to skipped-absorb with the fence
+        still in place; never an abort."""
+        log = logger or self.logger
+        pids = set(int(p) for p in pids)
+        for pid in pids:
+            self.partition_replay[pid] = "replaying"
+        from_seq = int((snap_doc or {}).get("journal_seq", 0))
+        GLOBAL_EVENT_LOG.record("absorb_start",
+                                instance=self.controller.instance,
+                                parts=sorted(pids), from_seq=from_seq)
+        stats = {"absorbed_partitions": sorted(pids), "replayed": 0}
+        try:
+            stats = self.replay_journal(journal.records(from_seq),
+                                        logger=log, from_seq=from_seq,
+                                        parts_filter=pids, foreign=True)
+            stats["absorbed_partitions"] = sorted(pids)
+        except Exception as e:  # noqa: BLE001 — degrade, never abort: the
+            # claim's epoch bump already fences the previous owner
+            stats["skipped"] = f"absorb_error: {e!r}"
+            if log:
+                log.warn(None, f"partition absorb replay failed ({e!r}); "
+                               "continuing with the fence only",
+                         "TpuBalancer")
+        finally:
+            for pid in pids:
+                self.partition_replay[pid] = "ready"
+        GLOBAL_EVENT_LOG.record("absorb_end",
+                                instance=self.controller.instance,
+                                parts=sorted(pids),
+                                replayed=int(stats.get("replayed", 0)),
+                                skipped=stats.get("skipped"))
+        self.counters["partitions_absorbed"] += len(pids)
+        return stats
+
     def _topology_coldstart(self, stats: dict, recs: list, got: int,
                             log) -> dict:
         """A journal tail written at a different fleet topology cannot be
@@ -1321,6 +1394,14 @@ class TpuBalancer(CommonLoadBalancer):
 
     # -- publish -----------------------------------------------------------
     def _standby_error(self) -> Optional[LoadBalancerException]:
+        """The pre-placement refusals shared by publish/publish_many."""
+        if self.ha_standby:
+            # HA failover mode: placement is fenced to the active leader —
+            # refusing BEFORE any state change makes the 503 safe for the
+            # edge to retry on the active upstream
+            return LoadBalancerException(
+                "standby controller: placement is fenced to the active "
+                "leader")
         if len(self._registry) == 0 or not any(self._healthy):
             return LoadBalancerException(
                 "No invokers available to schedule the activation.")
@@ -1392,6 +1473,12 @@ class TpuBalancer(CommonLoadBalancer):
         err = self._standby_error()
         if err is not None:
             raise err
+        pid = None
+        if self.partition_ring is not None:
+            pid = self.partition_of_msg(msg)
+            err = self._partition_refusal(msg, pid)
+            if err is not None:
+                raise err
         req, slot_key, fqn_str = self._build_row(action, msg)
         fut: asyncio.Future = asyncio.get_event_loop().create_future()
         # trailing fields feed the flight recorder: enqueue time (queue-age
@@ -1403,6 +1490,12 @@ class TpuBalancer(CommonLoadBalancer):
         entry = (req, fut, slot_key, t_now,
                  aid_str, fqn_str,
                  trace_id_of(msg.trace_context))
+        if pid is not None:
+            # active/active: the row's (partition, epoch) rides the entry
+            # so the dispatch-time journal record carries per-partition
+            # ids + the epoch each row was admitted under (a spilled row
+            # keeps its origin's stamp when that is ahead of ours)
+            entry = entry + ((pid, self._row_epoch(msg, pid)),)
         self._req_ring.push(req)
         self._pending.append(entry)
         # inline fast path: with free pipeline capacity, dispatch NOW when
@@ -1470,7 +1563,33 @@ class TpuBalancer(CommonLoadBalancer):
                 out.set_exception(type(err)(*err.args))
             return outs
         built: List[tuple] = []
+        ring = self.partition_ring
+        # cross-partition spillover (active/active): with a peered sink
+        # and the pending queue past the depth gate, this batch's
+        # NON-BLOCKING tail forwards to the least-loaded peer instead of
+        # deepening the local queue (the forwarded rows are fenced with
+        # this owner's partition epoch, so the peer's journal replays
+        # them exactly; blocking rows stay local — their client waits on
+        # THIS controller's completion promise)
+        overflow = 0
+        if (ring is not None and self.spillover_sink is not None
+                and self.spillover_sink.has_peer()):
+            overflow = max(0, len(self._pending) + len(pairs)
+                           - self.spillover_depth)
+        spill_rows: List[tuple] = []
         for (action, msg), out in zip(pairs, outs):
+            pid = None
+            if ring is not None:
+                pid = self.partition_of_msg(msg)
+                err = self._partition_refusal(msg, pid)
+                if err is not None:
+                    out.set_exception(err)
+                    continue
+                if overflow > 0 and not msg.blocking \
+                        and pid in self.owned_partitions:
+                    spill_rows.append((action, msg, out, pid))
+                    overflow -= 1
+                    continue
             try:
                 req, slot_key, fqn_str = self._build_row(action, msg)
             except Exception as e:  # noqa: BLE001 — per-row isolation,
@@ -1478,7 +1597,9 @@ class TpuBalancer(CommonLoadBalancer):
                 out.set_exception(e)
                 continue
             built.append((req, loop.create_future(), slot_key, msg, action,
-                          out, fqn_str))
+                          out, fqn_str, pid))
+        if spill_rows:
+            self._spill_forward(spill_rows)
         if not built:
             return outs
         # the serial path notes an arrival only after a successful row
@@ -1487,10 +1608,12 @@ class TpuBalancer(CommonLoadBalancer):
         self._note_arrivals(t_now, len(built))
         self._req_ring.push_block(
             np.asarray([b[0] for b in built], np.int32).T)
-        for req, fut, slot_key, msg, _action, _out, fqn_str in built:
-            self._pending.append((req, fut, slot_key, t_now,
-                                  msg.activation_id.asString, fqn_str,
-                                  trace_id_of(msg.trace_context)))
+        for req, fut, slot_key, msg, _action, _out, fqn_str, pid in built:
+            entry = (req, fut, slot_key, t_now, msg.activation_id.asString,
+                     fqn_str, trace_id_of(msg.trace_context))
+            self._pending.append(
+                entry if pid is None
+                else entry + ((pid, self._row_epoch(msg, pid)),))
         # ONE shared flush decision: drain full buckets inline, then apply
         # the serial eager/window rule once
         while (len(self._pending) >= self.max_batch
@@ -1498,7 +1621,7 @@ class TpuBalancer(CommonLoadBalancer):
             pass
         if self._pending and not (self._eager() and self._try_flush_now()):
             self._arm_flush(urgent=len(self._pending) >= self.max_batch)
-        for req, fut, slot_key, msg, action, out, _fqn in built:
+        for req, fut, slot_key, msg, action, out, _fqn, _pid in built:
             # a caller that goes away cancels its row: the readback fan-out
             # reads that as an abandoned publisher and returns the capacity
             out.add_done_callback(
@@ -1509,6 +1632,79 @@ class TpuBalancer(CommonLoadBalancer):
                 lambda f, r=req, sk=slot_key, m=msg, ac=action, o=out:
                 self._row_placed(f, r, sk, m, ac, o))
         return outs
+
+    def _row_epoch(self, msg, pid: int) -> int:
+        """The fence epoch a row is admitted under: our view of its
+        partition's epoch, or the origin's stamp when that is ahead (a
+        spilled row whose claim announcement we have not folded yet)."""
+        ep = self.partition_epochs.get(pid, 0)
+        if msg.fence_part == pid and msg.fence_epoch is not None:
+            ep = max(ep, int(msg.fence_epoch))
+        return ep
+
+    def _spill_forward(self, rows: List[tuple]) -> None:
+        """Forward an overflow sub-batch to the spillover sink
+        (spillover.py). Each row is fence-stamped with ITS partition's
+        current epoch BEFORE it leaves — the stamp is both the invoker
+        fence and the peer-side admission credential — and the waterfall
+        stamps the extra hop, then folds the origin-side partial vector
+        (the peer's books own the rest of the row's life). The caller's
+        future resolves to a completed placeholder promise: spillover
+        only takes non-blocking rows, whose promise is never awaited."""
+        wf = self.waterfall
+        loop = asyncio.get_event_loop()
+        pairs = []
+        for action, msg, _out, pid in rows:
+            msg.fence_part = pid
+            msg.fence_epoch = self.partition_epochs.get(pid, 0)
+            pairs.append((action, msg))
+        try:
+            sent = self.spillover_sink.forward(pairs)
+        except Exception as e:  # noqa: BLE001 — a failing forward fails
+            # its rows like a refused publish, never the whole batch —
+            # and is never counted as a forward (no stamp, no counter)
+            for _action, _msg, out, _pid in rows:
+                if not out.done():
+                    out.set_exception(LoadBalancerException(
+                        f"spillover forward failed: {e}"))
+            return
+        # handed to the sink: NOW count the forwards and fold the
+        # origin-side waterfall (an async send that later fails shows up
+        # in loadbalancer_spillover_send_failed, like a lost produce)
+        for _action, msg, _out, _pid in rows:
+            aid = msg.activation_id.asString
+            wf.stamp(aid, STAGE_SPILL_FORWARD)
+            row = wf.finish(aid)
+            # the origin half's tail verdict runs HERE — the spill hop is
+            # this process's terminal stage (no completion ack ever comes
+            # back to these books), so waiting for one would leak the
+            # pending spans forever. The kept half (the origin's spans and
+            # the hop span joined to the partial stage vector) is what
+            # /admin/trace/{id} merges with the peer's half.
+            if self.trace_store.enabled:
+                tid = (row or {}).get("trace_id") or trace_id_of(
+                    getattr(msg, "trace_context", None))
+                self.trace_store.complete(aid, tid, row=row)
+        self.spilled_rows += len(rows)
+        self.counters["spillover_forwarded"] += len(rows)
+        for (_action, _msg, out, _pid), row_sent in zip(rows, sent):
+            placeholder: asyncio.Future = loop.create_future()
+            placeholder.set_result(None)
+
+            def _resolve(sf: asyncio.Future, o=out, p=placeholder) -> None:
+                exc = None if sf.cancelled() else sf.exception()
+                if exc is not None:
+                    self.counters["spillover_send_failed"] += 1
+                if o.done():
+                    return
+                if sf.cancelled():
+                    o.cancel()
+                elif exc is not None:
+                    o.set_exception(exc)
+                else:
+                    o.set_result(p)
+
+            row_sent.add_done_callback(_resolve)
 
     def _row_placed(self, fut: asyncio.Future, req: tuple, slot_key: str,
                     msg, action, out: asyncio.Future) -> None:
@@ -1890,10 +2086,25 @@ class TpuBalancer(CommonLoadBalancer):
         # (the readback appends a matching `ack` with the decisions)
         jseq = 0
         if self._journal_live():
-            jseq = self._journal_append({
+            jrec = {
                 "t": "batch", "R": r, "H": h, "B": bp,
                 "rows": int(req_np.shape[0]), "b": b,
-                "buf": encode_array(buf), "aids": [e[4] for e in batch]})
+                "buf": encode_array(buf), "aids": [e[4] for e in batch]}
+            if self.partition_ring is not None:
+                # active/active: the record carries its rows' ring
+                # partitions plus the epoch each was admitted under, so
+                # a handoff replays EXACTLY the partitions the new owner
+                # absorbed and drops per-partition stale epochs
+                # (replay_journal parts_filter). Off-mode records carry
+                # neither key — the wire format is unchanged.
+                pe: Dict[str, int] = {}
+                for e in batch:
+                    if len(e) > 7:
+                        p, ep = e[7]
+                        pe[str(p)] = max(pe.get(str(p), 0), int(ep))
+                jrec["parts"] = sorted(int(p) for p in pe)
+                jrec["pe"] = pe
+            jseq = self._journal_append(jrec)
         # completion telemetry rides the SAME dispatch cycle: at most one
         # extra scatter-add per batch over event rows already packed
         # host-side — asynchronous like the step itself, no readback

@@ -208,6 +208,21 @@ def test_controller_without_a_card_exits_unless_asked_for_the_cpu(tmp_path):
     assert "up on" not in out.stdout
 
 
+_ACCEPTS = """
+import asyncio, sys
+import openwhisk_tpu_torch.controller.__main__ as M
+def run(coro):
+    frame = coro.cr_frame
+    print("ARGS", sorted(vars(frame.f_locals["args"]).items()))
+    coro.close()
+M.asyncio.run = run
+sys.argv = ["controller"] + sys.argv[1:]
+M.main()
+import torch
+print("CUDA_INITIALIZED", torch.cuda.is_initialized())
+"""
+
+
 @pytest.mark.parametrize("argv,named", [
     (["--ha"], "--ha"),
     (["--role", "frontend"], "--role frontend"),
@@ -216,10 +231,25 @@ def test_controller_without_a_card_exits_unless_asked_for_the_cpu(tmp_path):
     (["--funnel-depth", "64"], "--funnel-depth"),
 ])
 def test_unported_roles_are_refused_by_name(argv, named, tmp_path):
-    out = _cli("openwhisk_tpu_torch.controller", "--db",
-               str(tmp_path / "w.db"), "--device", "cpu", *argv)
-    assert out.returncode == 2
-    assert f"{named} is not ported (ROADMAP Queue 1 item 7)" in out.stderr
+    """The flags the multi-process slice once refused by name are ported:
+    each parses and reaches the boot (`asyncio.run` stubbed) with nothing
+    refused; a frontend needs no `--device` and no card, a placing role
+    still does."""
+    device = [] if argv[:2] == ["--role", "frontend"] else ["--device",
+                                                            "cpu"]
+    out = subprocess.run(
+        [sys.executable, "-c", _ACCEPTS, "--db", str(tmp_path / "w.db"),
+         *device, *argv], cwd=ROOT, env=_env(), capture_output=True,
+        text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "not ported" not in out.stderr + out.stdout
+    args = dict(ast.literal_eval(out.stdout.split("ARGS ", 1)[1]
+                                 .splitlines()[0]))
+    flag = named.split()[0].lstrip("-").replace("-", "_")
+    assert args[flag] == (True if flag == "ha" else
+                          named.split()[1] if flag == "role" else
+                          int(argv[1]))
+    assert "CUDA_INITIALIZED False" in out.stdout
 
 
 # -- import closures ----------------------------------------------------------
@@ -233,7 +263,13 @@ NEW_MODULES = [
     "openwhisk_tpu_torch.controller.loadbalancer.sharding_balancer",
     "openwhisk_tpu_torch.controller.loadbalancer.lean",
     "openwhisk_tpu_torch.controller.loadbalancer.membership",
-    "openwhisk_tpu_torch.controller.__main__"]
+    "openwhisk_tpu_torch.controller.__main__",
+    "openwhisk_tpu_torch.utils.partitions",
+    "openwhisk_tpu_torch.controller.loadbalancer.partitions",
+    "openwhisk_tpu_torch.controller.loadbalancer.funnel",
+    "openwhisk_tpu_torch.controller.loadbalancer.spillover",
+    "openwhisk_tpu_torch.edge", "openwhisk_tpu_torch.edge.__main__",
+    "openwhisk_tpu_torch.edge.proxy"]
 
 
 def _closure(mods, also=""):
@@ -290,11 +326,6 @@ def code_lines(src):
             if i not in doc_lines and ln.strip()]
 
 
-_ROLE_HELP = '''    parser.add_argument("--ha", action="store_true",
-                        help=f"epoch-fenced active/standby failover: "
-                             f"{NOT_PORTED}")
-'''
-
 #: module -> its named cuts: (name, first text of the reference's span,
 #: last text of the span or None for the first text alone, what the port
 #: has there). Every other code line is the reference's.
@@ -325,19 +356,14 @@ CUTS = {
     "controller/loadbalancer/membership.py": [],
     "controller/loadbalancer/__init__.py": [],
     "controller/__main__.py": [
-        ("no JAX platform hook; the refusals' text",
-         "import asyncio\n\n", "\n\ndef main() -> None:\n    "
-         "honor_jax_platforms_env()\n",
-         "import asyncio\nimport sys\n\n"
-         "from ..core.entity import ControllerInstanceId, ExecManifest, "
-         "WhiskAuthRecord\n"
-         "from ..database import open_store\n"
-         "from ..messaging import provider_for_bus\n"
-         "from ..utils.config import config_from_env\n"
-         "from ..utils.logging import Logging\n"
-         "from .core import Controller\n"
-         "from ..utils.tasks import wait_for_shutdown\n\n"
-         'NOT_PORTED = "not ported (ROADMAP Queue 1 item 7)"\n\n\n'
+        ("import sys", "import asyncio\n", None,
+         "import asyncio\nimport sys\n"),
+        ("no JAX platform hook",
+         "from ..utils.config import config_from_env, "
+         "honor_jax_platforms_env\n", None,
+         "from ..utils.config import config_from_env\n"),
+        ("no JAX platform hook call",
+         "def main() -> None:\n    honor_jax_platforms_env()\n", None,
          "def main() -> None:\n"),
         ("--device", '    parser.add_argument("--balancer", choices=("tpu", '
          '"sharding"), default="tpu")\n', None,
@@ -349,33 +375,12 @@ CUTS = {
          'CUDA card "\n'
          '                             "(default) or the plain torch path on '
          'the CPU")\n'),
-        ("--ha refused", '    parser.add_argument("--ha", action="store_true",',
-         '"storage)")\n', _ROLE_HELP),
-        ("--role and the funnel refused",
-         '    parser.add_argument("--role", choices=("all", "frontend", '
-         '"balancer"),', "    args = parser.parse_args()\n",
-         '    parser.add_argument("--role", choices=("all", "frontend", '
-         '"balancer"),\n'
-         '                        default="all",\n'
-         '                        help=f"multi-process deployment role: '
-         '\'all\' "\n'
-         '                             f"(default) runs here; \'frontend\' '
-         'and "\n'
-         '                             f"\'balancer\' are {NOT_PORTED}")\n'
-         '    parser.add_argument("--funnel-to", type=int, default=None,\n'
-         '                        help=f"(--role frontend) {NOT_PORTED}")\n'
-         '    parser.add_argument("--funnel-depth", type=int, default=None,\n'
-         '                        help=f"(--role frontend) {NOT_PORTED}")\n'
+        ("the role's help text", '"multi-process deployment role (', '): "',
+         '"multi-process deployment role: "'),
+        ("a placing role needs the card unless --device cpu",
+         "    args = parser.parse_args()\n", None,
          "    args = parser.parse_args()\n"
-         "    if args.ha:\n"
-         '        parser.error(f"--ha is {NOT_PORTED}")\n'
-         '    if args.role != "all":\n'
-         '        parser.error(f"--role {args.role} is {NOT_PORTED}")\n'
-         '    for flag in ("funnel_to", "funnel_depth"):\n'
-         "        if getattr(args, flag) is not None:\n"
-         "            parser.error(f\"--{flag.replace('_', '-')} is "
-         '{NOT_PORTED}")\n'
-         '    if args.balancer == "tpu":\n'
+         '    if args.balancer == "tpu" and args.role != "frontend":\n'
          "        from ..ops.placement import resolve_device\n"
          "        try:\n"
          '            resolve_device(None if args.device == "cuda" else '
@@ -383,47 +388,27 @@ CUTS = {
          "        except RuntimeError as e:\n"
          '            print(f"error: {e}", file=sys.stderr)\n'
          "            raise SystemExit(1)\n"),
-        ("the frontend role", '            if args.role == "frontend":\n',
-         "                return\n", ""),
         ("the card unless --device cpu",
          "                                 rate_limit_per_minute="
          "args.balancer_rate_limit)\n", None,
          "                                 rate_limit_per_minute="
          "args.balancer_rate_limit,\n"
          "                                 device=args.device)\n"),
-        ("active/active partitions", "            aa_ring = aa_cfg = None\n",
-         '                    snap_path = f"{snap_path}.ctrl{args.instance}"\n',
-         "            journal_dir = args.balancer_journal\n"
-         "            snap_path = args.balancer_snapshot\n"),
-        ("HA failover", "                    lb.attach_journal(journal)\n"
-         "            ha_on = False\n",
-         "                                  journal=journal)\n",
-         "                    lb.attach_journal(journal)\n"
-         "            if snap_path or journal is not None:\n"
-         "                from .loadbalancer.checkpoint import "
-         "(BalancerSnapshotter,\n"
-         "                                                      "
-         "load_snapshot)\n"
-         '                load_snapshot(lb, snap_path or "", logger,\n'
-         "                              cluster_size=args.cluster_size,\n"
-         "                              journal=journal)\n"),
-        ("the partition and leadership callbacks",
-         "            if aa_ring is not None:\n"
-         "                lb.set_partition_mode(aa_ring)\n",
-         "                lb.set_leadership(0, False)\n", ""),
-        ("HA, spillover and funnel wiring",
-         "            if ha_on:\n                controller.ha_failover",
-         "                    logger=logger, metrics=logger.metrics)\n"
-         "            if args.seed_guest:\n",
-         "            if args.seed_guest:\n"),
-        ("the spillover sender; the device in the boot line",
-         "            if aa_ring is not None and aa_cfg.spillover:\n",
-         '                     else "") + ")", flush=True)\n',
-         '            print(f"controller{args.instance} up on :{args.port} "\n'
-         '                  f"(balancer={args.balancer}, bus={args.bus}"\n'
+        ("the device in the boot line",
+         '                  + (", role=balancer" if args.role == "balancer"\n'
+         '                     else "") + ")", flush=True)\n', None,
+         '                  + (", role=balancer" if args.role == "balancer"\n'
+         '                     else "")\n'
          '                  + (f", device={lb.device}" if args.balancer == '
          '"tpu"\n'
          '                     else "") + ")", flush=True)\n')],
+    "utils/partitions.py": [],
+    "controller/loadbalancer/partitions.py": [],
+    "controller/loadbalancer/funnel.py": [],
+    "controller/loadbalancer/spillover.py": [],
+    "edge/__init__.py": [],
+    "edge/__main__.py": [],
+    "edge/proxy.py": [],
 }
 
 
@@ -449,3 +434,30 @@ def test_copied_modules_are_copies_outside_their_named_cuts(rel):
     doc = ast.get_docstring(ast.parse(port))
     if ast.get_docstring(ast.parse(ref)) is not None:
         assert f"A copy of `openwhisk_tpu/{rel}`" in doc
+
+
+#: every module of the port, and the chip smoke script
+PORT_SOURCES = sorted(
+    str(p.relative_to(ROOT)) for p in
+    (ROOT / "openwhisk_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "openwhisk_tpu", "tools", "loadgen"}
+
+
+@pytest.mark.parametrize("rel", PORT_SOURCES)
+def test_no_module_of_the_port_imports_jax_or_the_jax_package(rel):
+    """Every import statement of the file, at module level or inside a
+    function: none names jax, the JAX package or the repository's
+    `tools/` (its load generator)."""
+    tree = ast.parse((ROOT / rel).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.append(node.args[0].value)
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN_ROOTS]
+    assert not bad, bad

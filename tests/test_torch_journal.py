@@ -717,11 +717,27 @@ def test_the_new_modules_import_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+#: module -> its named cuts (the reference's text, the port's text)
+COPY_CUTS = {
+    "controller/loadbalancer/journal.py": [
+        # the writer survives an abandon() that empties the queue while it
+        # lingers (the JAX journal's writer thread dies there on an
+        # IndexError; ROADMAP Queue 3)
+        ("                batch, self._pending = self._pending, []\n",
+         "                batch, self._pending = self._pending, []\n"
+         "            if not batch:\n"
+         "                continue\n")],
+    "controller/loadbalancer/checkpoint.py": []}
+
+
 @pytest.mark.parametrize("rel", ["controller/loadbalancer/journal.py",
                                  "controller/loadbalancer/checkpoint.py"])
 def test_copied_modules_are_copies(rel):
     ref = (ROOT / "openwhisk_tpu" / rel).read_text()
     port = (ROOT / "openwhisk_tpu_torch" / rel).read_text()
+    for old, new in COPY_CUTS[rel]:
+        assert ref.count(old) == 1
+        ref = ref.replace(old, new)
     assert code_lines(port) == code_lines(ref)
     head = port.partition("\n\n")[0]
     assert head.replace(f"\nA copy of `openwhisk_tpu/{rel}`.", "") == \
