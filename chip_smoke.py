@@ -11,7 +11,8 @@ Phases, each reported on its own line:
   3. kernels  each kernel against its plain PyTorch version on the card at
               the full geometry (10,000 invokers padded to N = 16,384,
               A = 4,096 concurrency slots): the scan at B in {8, 16, 256},
-              the repair at B in {32, 256, 1024}, with and without a
+              the repair at B in {8, 16, 32, 256, 1024} (the shadow
+              pass runs it at every bucket), with and without a
               penalty, over six traffic families. Bit-exact: chosen,
               forced, rounds, free and conc. Times from CUDA events at
               B = 16 / 256 on memory-dominant traffic, with and without the
@@ -113,6 +114,40 @@ Phases, each reported on its own line:
               those counters. Then the planes A/B ("planes_ab" lines):
               phase 7's traffic at 24 waves with the three planes off,
               on, on, off (step p50, activations/s, placement p50).
+  7q. quality the placement quality plane and its shadow pass at phase 7's
+              geometry, three "quality" lines. (a) `auto`: phase 7's
+              balancer with `CONFIG_whisk_placementQuality_enabled` and a
+              shadow pass every 4 batches, the anomaly plane at its
+              defaults and a journal attached, 40 waves and a 6-step
+              trickle; at wave 4 the 4 invokers that have received the
+              most start acking 16 waves late, and the supervision's tick
+              also runs every 2 waves. Held: the shadow launched the
+              penalized repair (`penalized_launches`), every step scored
+              and every 4th shadowed with no failure swallowed, the
+              stragglers flagged and their passes divergent, the plane's
+              three /metrics families, the journal replayed on the CPU to
+              the card's decisions and books (the shadow wrote nothing
+              live), a kept flagged shadow pass bit-exact with the plain
+              shadow step, a kept scored batch against the NumPy twin
+              (integers exact, floats within rtol 1e-5, atol 1e-4), and
+              the kept penalized launch against its plain version, and
+              the first penalized launch below 32 rows (a trickle pass)
+              against its plain version with the flagged penalty. Timed
+              with CUDA events: the pass, its book copy alone, the
+              penalized repair beside the same batch unpenalized, the
+              scorer's device ms and its host enqueue ms a batch; the
+              step p50 beside phase 7's. (b) the scan-pinned balancer
+              (`placement_kernel="scan"`), a shadow every 2 batches over
+              10 waves, (a)'s straggler flags set in its anomaly plane's
+              scores at every wave: the penalized scan launched, every
+              step scored and every 2nd shadowed with no failure
+              swallowed, flagged passes divergent, a kept flagged pass
+              bit-exact, its kept launch timed. (c) 8b's assembly with
+              the plane on over 320 invokes: `/admin/placement/quality`
+              and `?raw=1` count every invoke, every step scored and
+              every 16th shadowed (the penalized repair launched), no
+              quality or shadow failure logged, `/metrics` carries the
+              plane's families.
   7b. journal the placement journal, snapshot and replay at phase 7's
               geometry: `TpuBalancer()` on the card with a
               `PlacementJournal` attached before the fleet registers, 24
@@ -241,7 +276,9 @@ Phases, each reported on its own line:
               the kernels.
  11. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
      journal replays of 7b, phase 9's and phase 10's launches beside the
-     rest), then the card line, then the last line
+     rest; `quality_launches` and `penalized_launches` on 7q's paths and
+     the kept penalized launch's numbers), then the card line, then the
+     last line
      `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
@@ -261,6 +298,7 @@ windows, read once, and the outputs: chosen, forced, rounds and the book
 cells that changed.
 """
 import asyncio
+import contextlib
 import ctypes
 import gc
 import json
@@ -461,7 +499,7 @@ def kernel_phase(torch, P, K):
     seed = 0
     for family in FAMILIES:
         for kind, bs in (("scan", (8, 16, 256)),
-                         ("repair", (32, 256, 1024))):
+                         ("repair", (8, 16, 32, 256, 1024))):
             for b in bs:
                 for use_pen in (False, True):
                     seed += 1
@@ -1120,7 +1158,9 @@ class Fleet:
     go out in paced rounds. With `echo` every activation is acked as soon
     as it is drained, with its arguments as its result. `wire` counts the
     frames the bus carried and the messages in them, for dispatches and
-    for acks."""
+    for acks. `received_by` counts the activations each invoker received;
+    an invoker in `slow` (index -> waves) acks that many waves later than
+    the draw (its stragglers' acks, phase 7q)."""
 
     def __init__(self, seed, echo=False, n_inv=None):
         self.echo = echo
@@ -1169,6 +1209,8 @@ class Fleet:
         self.due = {}          # wave -> [ack]
         self.wave = 0
         self.received = 0
+        self.received_by = {}
+        self.slow = {}
         self.last_ping = 0.0
         self.task = None
         #: a list to keep every drained activation message in, or None
@@ -1237,9 +1279,12 @@ class Fleet:
                         echoed.append(ack)
                     else:
                         self.due.setdefault(
-                            self.wave + int(self.rng.randint(1, 9)),
+                            self.wave + int(self.rng.randint(1, 9))
+                            + self.slow.get(inv.instance, 0),
                             []).append(ack)
                     self.received += 1
+                    self.received_by[inv.instance] = \
+                        self.received_by.get(inv.instance, 0) + 1
             self.host_s["fleet_parse_and_ack_build"] += \
                 time.perf_counter() - t0
             if echoed:
@@ -1544,37 +1589,42 @@ async def _drain_front(bal, timeout=120.0):
 
 
 async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
-                     flap, setup=None, on_wave=None):
+                     flap, setup=None, on_wave=None, kernel="auto",
+                     fleet_setup=None):
     """One balancer's run: register the fleet, drive `waves` publish_many
     waves (acks 1-8 waves later; the 1% flap with `flap`; the profiled
-    window with `profile`), ack everything, the trickle. `setup(bal)` runs
-    before the balancer starts, `await on_wave(bal, w)` at the start of
-    each wave. Returns the run's numbers, its recorder, (books at the
-    start, bucket state at the start, books at the end) and the
-    profiler."""
+    window with `profile`), ack everything, the trickle. `fleet_setup(
+    fleet)` runs once the fleet exists, `setup(bal)` before the balancer
+    starts, `await on_wave(bal, w)` at the start of each wave; `kernel` is
+    the balancer's `placement_kernel`. Returns the run's numbers (with the
+    quality plane on, its report and the failures it logged), its
+    recorder, (books at the start, bucket state at the start, books at
+    the end) and the profiler."""
     from openwhisk_tpu_torch.core import entity as E
     from openwhisk_tpu_torch.controller.loadbalancer.base import (
         HEALTHY, LoadBalancerThrottleException)
-    errors = []
+    errors, warnings = [], []
 
     class Log:
         def error(self, _tid, msg, *_):
             errors.append(msg)
 
-        def warn(self, *_):
-            pass
+        def warn(self, _tid, msg, *_):
+            warnings.append(msg)
 
         def info(self, *_):
             pass
 
     ctrl = E.ControllerInstanceId(ctrl_id)
     fleet = Fleet(seed=11)
+    if fleet_setup is not None:
+        fleet_setup(fleet)
     fleet.start()
     bal = TB.TpuBalancer(
         fleet.provider, ctrl, logger=Log(), managed_fraction=0.9,
         blackbox_fraction=0.1, max_batch=MAX_BATCH, action_slots=A,
         initial_pad=64, rate_limit_per_minute=rate_limit,
-        device=None if DEVICE == "cuda" else DEVICE)
+        placement_kernel=kernel, device=None if DEVICE == "cuda" else DEVICE)
     _annotate_planes(bal)
     if setup is not None:
         setup(bal)
@@ -1714,6 +1764,8 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         torch.cuda.synchronize()
     planes_rep = dict(_plane_report(bal), ticks_in_run=ticks_in_run)
     books = _books_np(bal.state)
+    quality = (bal.quality.quality_report(bal._telemetry_invoker_names())
+               if bal.quality.enabled else None)
     summary = dict(
         rate_limit=rate_limit, register_s=register_s, waves=waves,
         trickle_steps=trickle, activations=len(promises),
@@ -1736,6 +1788,10 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         planes=planes, wire=fleet.wire_report(),
         host_observatory=host_obs, flight_recorder_records=fr_filed,
         device_planes=planes_rep)
+    if quality is not None:
+        summary["quality"] = quality
+        summary["quality_failures"] = [
+            w for w in warnings if w.startswith(QUALITY_FAILURES)]
     if flap:
         summary["flap"] = dict(invokers=len(flapped), **flap_status)
     if rate_waves is not None:
@@ -1867,6 +1923,503 @@ def front_phase(torch, P, K, TB):
             require(out["launches"]["repair"] > 0,
                     f"the repair kernel ran: {out['launches']}")
         res[label] = out
+    return res
+
+
+# --------------------------------------------------------------- phase 7q
+#: the quality phase: (a) phase 7's traffic with the quality plane on
+#: (the shadow every Q_EVERY batches) and the journal attached, Q_WAVES
+#: waves and a Q_TRICKLE-step trickle; at wave Q_SLOW_AT the Q_SLOW
+#: invokers that have received the most start acking Q_SLOW_WAVES waves
+#: late (stragglers), and the supervision's tick also runs every
+#: Q_TICK_EVERY waves from then on; (b) the scan-pinned balancer over
+#: Q_PINNED_WAVES waves, the shadow every Q_PINNED_EVERY; (c) 8b's
+#: assembly over Q_HTTP_INVOKES invokes and a Q_HTTP_TRICKLE trickle
+Q_WAVES, Q_TRICKLE, Q_EVERY = 40, 6, 4
+Q_SLOW, Q_SLOW_AT, Q_SLOW_WAVES, Q_TICK_EVERY = 4, 4, 16, 2
+Q_PINNED_WAVES, Q_PINNED_EVERY = 10, 2
+Q_HTTP_INVOKES, Q_HTTP_TRICKLE = 300, 20
+QUALITY_ON = "CONFIG_whisk_placementQuality_enabled"
+QUALITY_EVERY = "CONFIG_whisk_placementQuality_shadowEveryN"
+#: the quality plane's /metrics families
+QUALITY_FAMILIES = ("openwhisk_loadbalancer_placement_regret",
+                    "openwhisk_loadbalancer_decision_divergence_total",
+                    "openwhisk_loadbalancer_fleet_imbalance")
+#: the warnings of a quality-plane failure that the balancer swallows
+QUALITY_FAILURES = ("shadow step failed", "quality step failed",
+                    "quality summary failed")
+#: the scorer's float tolerance against the NumPy twin (reduction order)
+Q_RTOL, Q_ATOL = 1e-5, 1e-4
+
+
+@contextlib.contextmanager
+def _environ(values):
+    import os
+    prior = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class QualityProbe:
+    """Wraps a balancer's shadow pass, its quality step and the kernel
+    wrapper `attr` (the smoke's instrumentation): every shadow pass and
+    scored batch is noted with whether the penalty held a flag (the
+    balancer's host copy: no device read), and the first pass, scored
+    batch and penalized launch that `want(flagged)` accepts are kept:
+    copies of their inputs and outputs. The first penalized launch below
+    the repair's bucket (`REPAIR_MIN_BATCH` rows) is kept too, whatever
+    its penalty ("kernel_small")."""
+
+    def __init__(self, bal, TB, attr, want):
+        self.bal, self.TB, self.attr = bal, TB, attr
+        self.passes, self.scored, self.kept = [], [], {}
+        shadow, qstep, kernel = bal._shadow_fn, bal._quality_step, \
+            getattr(TB, attr)
+        self.undo = lambda: (setattr(bal, "_shadow_fn", shadow),
+                             setattr(bal, "_quality_step", qstep),
+                             setattr(TB, attr, kernel))
+
+        def flagged():
+            return bool(bal._shadow_penalty_np.any())
+
+        def shadow_pass(state, buf, penalty, *shape, scratch=None):
+            keep = "shadow" not in self.kept and want(flagged())
+            books = tuple(t.clone() for t in state) if keep else None
+            out = shadow(state, buf, penalty, *shape, scratch=scratch)
+            self.passes.append(flagged())
+            if keep:
+                self.kept["shadow"] = dict(
+                    books=books, buf=buf.clone(), penalty=penalty.clone(),
+                    shape=shape, out=out.clone())
+            return out
+
+        def quality_step(req, out, shadow_out):
+            keep = ("scorer" not in self.kept and shadow_out is not None
+                    and want(flagged()))
+            st, qs = bal.state, bal.quality._qstate
+            if keep:
+                inputs = (st.free_mb.clone(), st.conc_free.T.clone().T,
+                          st.health.clone(), bal._quality_ewma.clone(),
+                          bal._quality_caps.clone(), req.clone(),
+                          out.clone(), shadow_out.clone())
+            summary = qstep(req, out, shadow_out)
+            self.scored.append((summary, shadow_out is not None, flagged()))
+            if keep:
+                self.kept["scorer"] = dict(inputs=inputs, before=qs,
+                                           after=bal.quality._qstate,
+                                           summary=summary.clone())
+            return summary
+
+        def keep_launch(key, state, batch, penalty):
+            self.kept[key] = dict(
+                state=tuple(t.clone() for t in state),
+                batch=type(batch)(*(c.clone() for c in batch)),
+                penalty=penalty.clone())
+
+        def launch(state, batch, penalty=None):
+            if penalty is not None:
+                if "kernel" not in self.kept and want(flagged()):
+                    keep_launch("kernel", state, batch, penalty)
+                if ("kernel_small" not in self.kept
+                        and batch.valid.shape[0] < TB.REPAIR_MIN_BATCH):
+                    keep_launch("kernel_small", state, batch, penalty)
+            return kernel(state, batch, penalty)
+
+        bal._shadow_fn, bal._quality_step = shadow_pass, quality_step
+        setattr(TB, attr, launch)
+
+
+def quality_kernel(kind, box, pen, torch, P, K):
+    """A penalized launch kept on a quality path: the kernel against the
+    plain version with `pen` and with no penalty on the same batch, each
+    timed with CUDA events, with the penalized work's bound."""
+    kfn, pfn = ((K.schedule_batch_cuda, P.schedule_batch) if kind == "scan"
+                else (K.schedule_batch_repair_cuda, P.schedule_batch_repair))
+    free0, conc0, health = box["state"]
+    batch = box["batch"]
+    work = P.PlacementState(free0.clone(), conc0.clone(), health)
+    std = K.to_transposed(P.PlacementState(free0, conc0, health))
+
+    def restore():
+        work.free_mb.copy_(free0)
+        work.conc_free.copy_(conc0)
+
+    out = dict(B=int(batch.valid.shape[0]),
+               valid_rows=int(batch.valid.sum()),
+               penalty_flags=int(pen.sum()))
+    for label, p in (("penalized", pen), ("unpenalized", None)):
+        err, rounds, _ = compare(kind, std, batch, p, P, K, torch)
+        require(err == 0, f"quality {kind} ({label}) differs from plain "
+                          f"by {err}")
+        row = dict(max_abs_err=err, ms=time_ms(
+            lambda: kfn(work, batch, p), restore, torch, reps=10))
+        if kind == "repair":
+            row["rounds"] = rounds
+        out[label] = row
+    nbytes, ops, _ = work_bytes_ops(kind, std, batch, pen, P)
+    bound_ms, bound_by = bound(nbytes, ops)
+    out["penalized"].update(
+        bytes=nbytes, key_evals=ops, bound_ms=bound_ms, bound_by=bound_by,
+        plain_ms=time_ms(lambda: pfn(K.to_transposed(work), batch, pen),
+                         restore, torch, reps=3))
+    return out
+
+
+def _kept_shadow(kept, kernel, P, TB, torch):
+    """The kept shadow pass again through the plain shadow step (plain
+    torch ops on the card, the balancer's release fold, the same inputs):
+    its vector against the card's. Then the card's pass (`kernel` is the
+    balancer's placement_kernel) and its book copy alone, timed on the
+    same inputs. Returns the line's numbers."""
+    books = P.PlacementState(*kept["books"])
+    R, H, B = kept["shape"]
+    _, release, resolved = TB._torch_pair(kernel)
+    shadow = P.make_shadow_step_packed(
+        release, TB.penalized_schedule(torch.device(DEVICE), resolved))
+    plain = P.make_shadow_step_packed(
+        release, TB.penalized_schedule(torch.device("cpu"), resolved))
+    want = plain(books, kept["buf"], kept["penalty"], R, H, B)
+    torch.cuda.synchronize()
+    exact = torch.equal(want, kept["out"])
+    scratch = P.empty_books_like(books)
+    pass_ms = time_ms(lambda: shadow(books, kept["buf"], kept["penalty"],
+                                     R, H, B, scratch=scratch),
+                      lambda: None, torch, reps=10)
+    copy_ms = time_ms(lambda: P.shadow_books(books, scratch), lambda: None,
+                      torch, reps=10)
+    copy_bytes = sum(t.numel() * t.element_size() for t in books)
+    return dict(R=R, H=H, B=B, penalty_flags=int(kept["penalty"].sum()),
+                plain_exact=exact, pass_ms=pass_ms, book_copy_ms=copy_ms,
+                book_copy_bytes=copy_bytes,
+                book_copy_bound_ms=2 * copy_bytes / HBM_BYTES_S * 1e3)
+
+
+def _kept_scorer(kept, step, Q, torch):
+    """The kept scored batch's delta and summary row against
+    `quality_step_np` from the same state (integers exact, floats within
+    Q_RTOL / Q_ATOL); the scorer
+    once under the sync debug mode (no host sync), then its device ms
+    (CUDA events) and host enqueue ms a batch."""
+    free, conc, health, ewma, caps, req, out, sh = kept["inputs"]
+    host = [t.cpu().numpy() for t in kept["inputs"]]
+    want, want_summary = Q.quality_step_np(
+        Q.host_state(kept["before"]), *host)
+    got = Q.host_state(kept["after"])
+    ints = all(np.array_equal(getattr(got, k), getattr(want, k))
+               for k in ("regret_hist", "counters", "inv_divergence"))
+    err = float(np.max(np.abs(got.inv_regret_ms - want.inv_regret_ms)))
+    summary = kept["summary"].cpu().numpy()
+    floats = (np.allclose(got.inv_regret_ms, want.inv_regret_ms,
+                          rtol=Q_RTOL, atol=Q_ATOL)
+              and np.allclose(summary, want_summary, rtol=Q_RTOL,
+                              atol=Q_ATOL))
+    args = (kept["before"], free, conc, health, ewma, caps, req, out, sh)
+    step(*args)  # the first call copies the bucket bounds over
+    torch.cuda.synchronize()
+    _sync_debug(torch, lambda: step(*args))  # raises on a host sync
+    device_ms = time_ms(lambda: step(*args), lambda: None, torch, reps=20)
+    enqueue = []
+    for _ in range(20):
+        t = time.perf_counter()
+        step(*args)
+        enqueue.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return dict(ints_exact=ints, floats_within=floats,
+                inv_regret_max_abs_err=err,
+                summary_max_abs_err=float(np.max(np.abs(
+                    summary.astype(np.float64) - want_summary))),
+                rtol=Q_RTOL, atol=Q_ATOL,
+                device_ms=device_ms, host_enqueue_ms=float(np.median(enqueue)),
+                divergent_rows=int(want_summary[Q.S_DIVERGENT]))
+
+
+def _quality_run(TB, K, label, waves, trickle, every, kernel, want,
+                 setup=None, on_wave=None, fleet_setup=None):
+    """One `_front_run` with the quality plane on and a probe attached:
+    (the run's summary, the final books, the probe, launches, penalized
+    launches, the quality families on the balancer's metrics page)."""
+    box = {}
+
+    def setup_all(bal):
+        if setup is not None:
+            setup(bal)
+        box["probe"] = QualityProbe(bal, TB, attr, want)
+        real_close = bal.close
+
+        async def close():
+            text = bal.metrics.prometheus_text()
+            box["families"] = [f for f in QUALITY_FAMILIES
+                               if f"# TYPE {f} " in text]
+            await real_close()
+        bal.close = close
+
+    attr = ("schedule_batch_cuda" if kernel == "scan"
+            else "schedule_batch_repair_cuda")
+    with _environ({QUALITY_ON: "true", QUALITY_EVERY: str(every)}):
+        out, _rec, (_b0, _bk0, books), _prof = asyncio.run(_front_run(
+            TB, K, None, "0", waves, trickle, profile=False, flap=False,
+            setup=setup_all, on_wave=on_wave, kernel=kernel,
+            fleet_setup=fleet_setup))
+    probe = box["probe"]
+    probe.undo()
+    launches = {"scan": K.schedule_batch_cuda.launches,
+                "repair": K.schedule_batch_repair_cuda.launches}
+    penalized = {"scan": K.schedule_batch_cuda.penalized_launches,
+                 "repair": K.schedule_batch_repair_cuda.penalized_launches}
+    q = out["quality"]
+    require(not out["failed"] and not out["unresolved"] and not out["errors"]
+            and out["active_at_end"] == 0 and out["books_full"],
+            f"quality {label}: every activation resolved, books full: "
+            f"{out['failed_first']} {out['errors']}")
+    require(not out["quality_failures"]
+            and q["batches"] == out["steps"]
+            and q["shadow_batches"] == out["steps"] // every,
+            f"quality {label}: every step scored, every {every}th shadowed, "
+            f"no failure swallowed: batches {q['batches']}, shadow "
+            f"{q['shadow_batches']}, steps {out['steps']}, "
+            f"{out['quality_failures'][:3]}")
+    return out, books, probe, launches, penalized, box["families"]
+
+
+async def _admin_quality(bal, port):
+    """7q(c): `/admin/placement/quality`, `?raw=1` and `/metrics` of the
+    card-backed controller once its run drained."""
+    import aiohttp
+    from openwhisk_tpu_torch import standalone as S
+    url = f"http://127.0.0.1:{port}"
+    got = {}
+    async with aiohttp.ClientSession(
+            auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY)) as s:
+        for path in ("/admin/placement/quality",
+                     "/admin/placement/quality?raw=1"):
+            async with s.get(url + path) as r:
+                got[path] = (r.status, await r.json())
+        async with s.get(url + "/metrics") as r:
+            text = await r.text()
+    (st, rep), (raw_st, raw) = (got["/admin/placement/quality"],
+                                got["/admin/placement/quality?raw=1"])
+    return dict(status=st, raw_status=raw_st, counters=rep.get("counters"),
+                raw_counters=raw.get("counters"),
+                batches=rep.get("batches"),
+                shadow_batches=rep.get("shadow_batches"),
+                shadow_every_n=rep.get("config", {}).get("shadow_every_n"),
+                divergent_rows=rep.get("divergent_rows"),
+                kernel=rep.get("kernel"),
+                families=[f for f in QUALITY_FAMILIES
+                          if f"# TYPE {f} " in text],
+                steps=bal.counters["steps"])
+
+
+def quality_phase(torch, P, K, TB, front):
+    """Phase 7q: the placement quality plane and its shadow pass."""
+    import shutil
+    import tempfile
+    from openwhisk_tpu_torch.controller.loadbalancer import journal as JN
+    from openwhisk_tpu_torch.controller.loadbalancer import timetravel as TT
+    from openwhisk_tpu_torch.ops import decision_quality as Q
+    work = tempfile.mkdtemp(prefix="chip-smoke-quality-")
+    try:
+        return _quality_phase(torch, P, K, TB, front, JN, TT, Q, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _quality_phase(torch, P, K, TB, front, JN, TT, Q, work):
+    import os
+    t0 = time.perf_counter()
+    # (a) "auto": the journal on, stragglers through their acks
+    jdir = os.path.join(work, "wal")
+    journal = JN.PlacementJournal(jdir)
+    box = {}
+
+    def fleet_setup(fleet):
+        box["fleet"] = fleet
+
+    async def on_wave(bal, w):
+        fleet = box["fleet"]
+        if w == Q_SLOW_AT:
+            by = fleet.received_by
+            box["slow"] = sorted(by, key=by.get, reverse=True)[:Q_SLOW]
+            fleet.slow = {i: Q_SLOW_WAVES for i in box["slow"]}
+        elif w > Q_SLOW_AT and w % Q_TICK_EVERY == 0:
+            bal._telemetry_tick()
+
+    out, books, probe, launches, penalized, families = _quality_run(
+        TB, K, "auto", Q_WAVES, Q_TRICKLE, Q_EVERY, "auto", bool,
+        setup=lambda bal: bal.attach_journal(journal), on_wave=on_wave,
+        fleet_setup=fleet_setup)
+    journal.close()
+    live_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    flagged_passes = sum(probe.passes)
+    divergent = {True: 0, False: 0}
+    for summary, shadowed, flagged in probe.scored:
+        if shadowed:
+            divergent[flagged] += int(summary[Q.S_DIVERGENT])
+    require(penalized["repair"] > 0 and penalized["scan"] == 0,
+            f"quality auto: the shadow launched the penalized repair: "
+            f"{penalized}")
+    require(flagged_passes > 0 and divergent[True] > 0,
+            f"quality auto: the stragglers {box['slow']} were flagged and "
+            f"moved the shadow: {flagged_passes} flagged passes, divergent "
+            f"rows {divergent}")
+    require(set(families) == set(QUALITY_FAMILIES),
+            f"quality auto: the plane's /metrics families: {families}")
+    require(all(k in probe.kept for k in ("shadow", "scorer", "kernel",
+                                          "kernel_small")),
+            f"quality auto: a flagged pass, scored batch and launch, and a "
+            f"launch below 32 rows kept: {sorted(probe.kept)}")
+    a_pen = probe.kept["kernel"]["penalty"]
+
+    t1 = time.perf_counter()
+
+    async def cpu_replay():
+        bal = TT.make_offline_balancer(device="cpu")
+        st = bal.replay_journal(JN.PlacementJournal(jdir).records(0))
+        eq = _same_books(bal, books)
+        await bal.close()
+        return st, eq
+
+    cst, cpu_equal = asyncio.run(cpu_replay())
+    cpu_s = time.perf_counter() - t1
+    require(cpu_equal and cst["parity_mismatches"] == 0
+            and cst["batches"] >= Q_WAVES,
+            f"quality auto: the journal replays on the CPU to the card's "
+            f"decisions and books (the shadow wrote nothing live): {cst}")
+    shadow = _kept_shadow(probe.kept["shadow"], "auto", P, TB, torch)
+    require(shadow["plain_exact"] and shadow["penalty_flags"] > 0,
+            f"quality auto: the kept flagged shadow pass is bit-exact with "
+            f"the plain shadow step: {shadow}")
+    scorer = _kept_scorer(probe.kept["scorer"],
+                          Q.make_quality_step(out["quality"]["config"][
+                              "buckets"]), Q, torch)
+    require(scorer["ints_exact"] and scorer["floats_within"],
+            f"quality auto: the kept batch's score against the NumPy twin: "
+            f"{scorer}")
+    kern = quality_kernel("repair", probe.kept["kernel"], a_pen, torch, P, K)
+    # the trickle's shadow pass runs the penalized repair below 32 rows:
+    # that launch's books and batch, held with the flagged penalty
+    small = quality_kernel("repair", probe.kept["kernel_small"], a_pen,
+                           torch, P, K)
+    require(small["B"] < TB.REPAIR_MIN_BATCH and small["penalty_flags"] > 0,
+            f"quality auto: the kept trickle launch: {small}")
+    auto = dict(
+        waves=Q_WAVES, trickle_steps=Q_TRICKLE, shadow_every_n=Q_EVERY,
+        slow_invokers=box["slow"], slow_waves=Q_SLOW_WAVES,
+        steps=out["steps"], activations=out["activations"],
+        quality={k: out["quality"][k] for k in (
+            "batches", "shadow_batches", "rows", "divergent_rows",
+            "shadow_rows", "divergence_ratio", "regret_sum_ms",
+            "regret_p99_le_ms", "fleet_imbalance_cov", "counters")},
+        shadow_passes=len(probe.passes), flagged_passes=flagged_passes,
+        divergent_rows_flagged=divergent[True],
+        divergent_rows_unflagged=divergent[False],
+        launches=launches, penalized_launches=penalized,
+        families=families, shadow=shadow, scorer=scorer, kernel=kern,
+        kernel_small=small,
+        step_ms_p50_plane_on=out["step_ms_p50_p99"][0],
+        step_ms_p50_phase7=front["main"]["step_ms_p50_p99"][0],
+        activations_per_s=out["activations_per_s"],
+        cpu_replay=dict(backend="cpu", batches=cst["batches"],
+                        parity_mismatches=cst["parity_mismatches"],
+                        books_equal=cpu_equal, s=cpu_s),
+        live_s=live_s)
+    say("quality", segment="auto", **auto)
+
+    # (b) scan-pinned, (a)'s straggler flags set in the anomaly plane's
+    # scores at every wave (a tick of its own would replace them)
+    t2 = time.perf_counter()
+    flags = a_pen.cpu().numpy().astype(np.float32)
+
+    async def flag_stragglers(bal, _w):
+        from openwhisk_tpu_torch.ops.anomaly import (N_SCORE_ROWS,
+                                                     S_STRAGGLER_FLAG)
+        old, n = bal.anomaly._scores, bal._n_pad
+        sc = np.zeros((N_SCORE_ROWS, n), np.float32)
+        if old is not None:  # harvested at the plane's own width
+            k = min(n, old.shape[1])
+            sc[:, :k] = old[:, :k]
+        sc[S_STRAGGLER_FLAG] = flags[:n]
+        bal.anomaly._scores = sc
+        bal._refresh_quality_signals()
+
+    bout, _bbooks, bprobe, blaunches, bpen, _ = _quality_run(
+        TB, K, "scan", Q_PINNED_WAVES, 0, Q_PINNED_EVERY, "scan", bool,
+        on_wave=flag_stragglers)
+    torch.cuda.synchronize()
+    bdiv = sum(int(summary[Q.S_DIVERGENT]) for summary, shadowed, flagged
+               in bprobe.scored if shadowed and flagged)
+    require(bpen["scan"] > 0 and blaunches["repair"] == 0,
+            f"quality scan: the shadow launched the penalized scan: "
+            f"{blaunches} {bpen}")
+    require(all(k in bprobe.kept for k in ("shadow", "kernel"))
+            and bdiv > 0,
+            f"quality scan: (a)'s flags moved the shadow: divergent rows "
+            f"{bdiv}, kept {sorted(bprobe.kept)}")
+    bshadow = _kept_shadow(bprobe.kept["shadow"], "scan", P, TB, torch)
+    require(bshadow["plain_exact"] and bshadow["penalty_flags"] > 0,
+            f"quality scan: the kept flagged shadow pass is bit-exact with "
+            f"the plain shadow step: {bshadow}")
+    bkern = quality_kernel("scan", bprobe.kept["kernel"],
+                           bprobe.kept["kernel"]["penalty"], torch, P, K)
+    pinned = dict(waves=Q_PINNED_WAVES, shadow_every_n=Q_PINNED_EVERY,
+                  steps=bout["steps"],
+                  quality={k: bout["quality"][k] for k in (
+                      "batches", "shadow_batches", "rows",
+                      "divergent_rows")},
+                  divergent_rows_flagged=bdiv,
+                  launches=blaunches, penalized_launches=bpen,
+                  shadow=bshadow, kernel=bkern,
+                  step_ms_p50_plane_on=bout["step_ms_p50_p99"][0],
+                  run_s=time.perf_counter() - t2)
+    say("quality", segment="scan_pinned", **pinned)
+
+    # (c) one card-backed controller over HTTP
+    t3 = time.perf_counter()
+    with _environ({QUALITY_ON: "true"}):
+        hout, _rec, _b0, _b1 = asyncio.run(_http_fleet_run(
+            TB, K, invokes=Q_HTTP_INVOKES, trickle=Q_HTTP_TRICKLE,
+            full=False, admin=_admin_quality))
+    hpen = {"scan": K.schedule_batch_cuda.penalized_launches,
+            "repair": K.schedule_batch_repair_cuda.penalized_launches}
+    adm = hout["admin"]
+    n = Q_HTTP_INVOKES + Q_HTTP_TRICKLE
+    require(hout["n_bad"] == 0, f"quality http: every invoke 200 with its "
+            f"echo: {hout['bad_first']}")
+    require(adm["status"] == adm["raw_status"] == 200
+            and adm["kernel"] == "device"
+            and adm["counters"]["rows"] == adm["counters"]["placed"] == n
+            and adm["raw_counters"][0] == n
+            and adm["batches"] == adm["steps"]
+            and adm["shadow_batches"] == adm["steps"] // adm["shadow_every_n"]
+            and hpen["repair"] > 0 and not hout["quality_failures"],
+            f"quality http: /admin/placement/quality counts every invoke, "
+            f"every step scored, every {adm['shadow_every_n']}th shadowed "
+            f"(penalized launches {hpen}), no failure swallowed "
+            f"{hout['quality_failures'][:3]}: {adm}")
+    want_families = set(QUALITY_FAMILIES) - (
+        set() if adm["divergent_rows"] else {QUALITY_FAMILIES[1]})
+    require(set(adm["families"]) == want_families,
+            f"quality http: /metrics carries the plane's families: {adm}")
+    http = dict(invokes=n, invokes_per_s=hout["invokes_per_s"],
+                http_ms_p50_p99=hout["http_ms_p50_p99_concurrent"],
+                launches=hout["launches"], penalized_launches=hpen,
+                run_s=time.perf_counter() - t3,
+                **adm)
+    say("quality", segment="http", **http)
+    res = dict(auto=auto, scan_pinned=pinned, http=http,
+               seconds=time.perf_counter() - t0)
+    res["launches"] = {k: auto["launches"][k] + blaunches[k]
+                       + hout["launches"][k] for k in ("scan", "repair")}
+    res["penalized_launches"] = {k: penalized[k] + bpen[k] + hpen[k]
+                                 for k in ("scan", "repair")}
     return res
 
 
@@ -2951,12 +3504,16 @@ def _warm_profiler():
     prof.stop()
 
 
-async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
+async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True,
+                          admin=None):
     """8b: the standalone's assembly over the simulated fleet, driven over
     HTTP by a client process: `invokes` blocking invokes in flight, then a
     `trickle` one at a time. `full` adds the step recorder (for the CPU
     replay) and the device profile window; without it the run is 8c's, an
-    A/B leg."""
+    A/B leg. `await admin(bal, port)`, when given, reads the admin routes
+    once the run drained (its result is the line's `admin`). The warnings
+    of a quality-plane failure the balancer swallowed are the line's
+    `quality_failures`."""
     invokes = HTTP_INVOKES if invokes is None else invokes
     trickle = HTTP_TRICKLE if trickle is None else trickle
     import aiohttp
@@ -2972,6 +3529,12 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
     bal = ctrl.load_balancer
     _annotate_planes(bal)
     out = {"device": str(bal.device)}
+    warnings, warn = [], bal.logger.warn
+
+    def log_warn(transid, msg, component=""):
+        warnings.append(str(msg))
+        warn(transid, msg, component)
+    bal.logger.warn = log_warn
     stop_pinging, pinger = asyncio.Event(), None
     try:
         t0 = time.perf_counter()
@@ -3036,6 +3599,8 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
         await _drain_front(bal)
         if full:
             out["device_planes"] = await _admin_planes(bal, port)
+        if admin is not None:
+            out["admin"] = await admin(bal, port)
         stop_pinging.set()
         await pinger
         server_cpu = time.process_time() - cpu0
@@ -3087,7 +3652,9 @@ async def _http_fleet_run(TB, K, invokes=None, trickle=None, full=True):
                 server_process=server_cpu, split=host,
                 wall=res["t_last"] - res["t_first"]),
             planes=planes, wire=fleet.wire_report(),
-            host_observatory=host_obs, flight_recorder_records=fr_filed)
+            host_observatory=host_obs, flight_recorder_records=fr_filed,
+            quality_failures=[w for w in warnings
+                              if w.startswith(QUALITY_FAILURES)])
     finally:
         stop_pinging.set()
         if pinger is not None:
@@ -5070,6 +5637,9 @@ def main():
     t0 = time.perf_counter()
     planes_ab(TB, K)
     say("planes_ab_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    quality = quality_phase(torch, P, K, TB, front)
+    say("quality_phase", seconds=time.perf_counter() - t0)
     front_launches = {k: sum(seg["launches"][k] for seg in front.values())
                       for k in ("scan", "repair")}
     t0 = time.perf_counter()
@@ -5134,7 +5704,10 @@ def main():
          "ha_active_standby_launches":
              ha["active_standby"]["launches"]["scan"],
          "funnel_launches": ha["funnel"]["launches"][
-             f"controller{FUNNEL_INSTANCES[0]}"]["scan"]},
+             f"controller{FUNNEL_INSTANCES[0]}"]["scan"],
+         "quality_launches": quality["launches"]["scan"],
+         "penalized_launches": quality["penalized_launches"]["scan"],
+         "quality_penalized": quality["scan_pinned"]["kernel"]},
         {"name": "placement_repair", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
@@ -5165,7 +5738,10 @@ def main():
          "ha_active_standby_launches":
              ha["active_standby"]["launches"]["repair"],
          "funnel_launches": ha["funnel"]["launches"][
-             f"controller{FUNNEL_INSTANCES[0]}"]["repair"]},
+             f"controller{FUNNEL_INSTANCES[0]}"]["repair"],
+         "quality_launches": quality["launches"]["repair"],
+         "penalized_launches": quality["penalized_launches"]["repair"],
+         "quality_penalized": quality["auto"]["kernel"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

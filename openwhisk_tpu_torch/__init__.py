@@ -11,3 +11,5 @@ Entry points run on the CUDA card unless the caller passes
 `device="cpu"`; the hand-written Hopper kernels live in `csrc/` and are
 built with `nvcc` at first use (`ops/_build.py`).
 """
+
+__version__ = "0.1.0"

@@ -2,11 +2,12 @@
 
 A copy of `openwhisk_tpu/controller/api.py` with every /api/v1 route,
 /ping, /invokers and /metrics. Of its /admin surface the port serves the
-flight recorder, the occupancy books, the SLO report, the kernel profiler
-and its capture window, the host observatory, the alerts and anomaly
-scores, the latency waterfall, the trace store, the incident recorder,
-the readiness probe and the index; the routes of planes not ported yet
-(placement quality, fleet federation) answer 404 naming the plane.
+flight recorder, the occupancy books, the placement quality report, the
+SLO report, the kernel profiler and its capture window, the host
+observatory, the alerts and anomaly scores, the latency waterfall, the
+trace store, the incident recorder, the readiness probe and the index;
+the routes of the plane not ported yet (the fleet federation) answer 404
+naming the plane.
 
 Rebuild of core/controller/.../controller/RestAPIs.scala:160-228 (versioned
 route tree + auth directive) with the per-collection APIs:
@@ -125,6 +126,10 @@ class ControllerApi:
         r.add_get("/admin/placement/explain/{activation_id}",
                   self.placement_explain)
         r.add_get("/admin/placement/occupancy", self.placement_occupancy)
+        # placement quality plane: regret / imbalance / attribution and
+        # the shadow counterfactual diff, auth-gated; 404 while the plane
+        # is disabled
+        r.add_get("/admin/placement/quality", self.placement_quality)
         # SLO plane: compliance / budget / burn rates from the balancer's
         # telemetry accumulator, auth-gated like the placement endpoints
         r.add_get("/admin/slo", self.slo_report)
@@ -620,8 +625,6 @@ class ControllerApi:
     #: the admin routes of the JAX package's API whose plane this package
     #: does not carry yet, by plane: each answers 404 naming its plane
     UNPORTED_ADMIN = (
-        ("placement quality plane", (
-            ("GET", "/admin/placement/quality"),)),
         ("fleet observatory", (
             ("GET", "/admin/metrics/raw"),
             ("GET", "/admin/fleet/metrics"),
@@ -641,6 +644,36 @@ class ControllerApi:
                               request.get("transid"))
             for method, path in routes:
                 router.add_route(method, path, not_ported)
+
+    async def placement_quality(self, request):
+        """How good are the placement kernel's decisions: per-row regret
+        (chosen invoker's predicted latency vs the best feasible
+        alternative under the same capacity/permit constraints), fleet
+        occupancy imbalance, forced/overflow/cold-start attribution, and
+        the shadow counterfactual diff against the anomaly-penalized
+        probe geometry. 404 while the plane is disabled — disabled is a
+        true no-op, there is nothing to report."""
+        qp = getattr(self.c.load_balancer, "quality", None)
+        if qp is None or not qp.enabled:
+            return _error(
+                404, "the placement quality plane is disabled "
+                "(CONFIG_whisk_placementQuality_enabled=false)",
+                request.get("transid"))
+        names = []
+        lb = self.c.load_balancer
+        if hasattr(lb, "_telemetry_invoker_names"):
+            names = lb._telemetry_invoker_names()
+        # ?raw=1: the exact-merge export the fleet federation scrapes
+        # (integer bucket counts + label-keyed per-invoker series)
+        raw = request.query.get("raw", "").lower() in ("1", "true", "yes")
+        fn = qp.raw_counts if raw else qp.quality_report
+        if qp.SYNCS_DEVICE:
+            # reading the device QualityState forces a device sync —
+            # worker thread, same policy as /admin/slo
+            report = await asyncio.to_thread(fn, names)
+        else:
+            report = fn(names)
+        return web.json_response(report)
 
     async def slo_report(self, request):
         """Is the fleet meeting its latency/error SLOs, and which invokers
@@ -828,6 +861,7 @@ class ControllerApi:
         lb = self.c.load_balancer
 
         fr = self._flight_recorder()
+        qp = getattr(lb, "quality", None)
         prof = getattr(lb, "profiler", None)
         from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
         traces_on = self._trace_store() is not None
@@ -845,6 +879,9 @@ class ControllerApi:
                 fr is not None,
                 knob="CONFIG_whisk_loadBalancer_flightRecorder_enabled"),
             row("/admin/placement/occupancy", "GET", lb is not None),
+            row("/admin/placement/quality", "GET",
+                qp is not None and qp.enabled,
+                knob="CONFIG_whisk_placementQuality_enabled"),
             row("/admin/slo", "GET",
                 getattr(lb, "telemetry", None) is not None),
             row("/admin/profile/kernel", "GET", prof is not None,

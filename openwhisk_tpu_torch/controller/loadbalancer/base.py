@@ -39,8 +39,13 @@ CommonLoadBalancer.scala), with the parts the TPU balancer's front needs:
     credential, `partitions_json`) and the fence stamps of
     `prepare_dispatch`.
 
-The quality plane is not here: it changes no decision. Events are counted in `counters`, rendered on the
-metric emitter's page as `openwhisk_loadbalancer_<event>` counters.
+  - the placement quality plane (`QualityPlane`, off by default): the TPU
+    balancer scores its micro-batches on the device, the CPU balancers
+    count attribution through `record_placement`; its families render
+    on /metrics while it is on.
+
+Events are counted in `counters`, rendered on the metric emitter's page
+as `openwhisk_loadbalancer_<event>` counters.
 """
 from __future__ import annotations
 
@@ -69,6 +74,7 @@ from ...ops.profiler import KernelProfiler
 from ...ops.telemetry import (OUTCOME_ERROR, OUTCOME_SUCCESS, OUTCOME_TIMEOUT)
 from .anomaly import AnomalyPlane
 from .flight_recorder import BatchRecord, FlightRecorder
+from .quality import QualityPlane
 from .telemetry import TelemetryPlane
 
 # invoker states (ref InvokerState in InvokerSupervision.scala)
@@ -210,7 +216,8 @@ class CommonLoadBalancer(LoadBalancer):
                  telemetry: Optional[TelemetryPlane] = None,
                  profiler: Optional[KernelProfiler] = None,
                  anomaly: Optional[AnomalyPlane] = None,
-                 waterfall: Optional[ActivationWaterfall] = None):
+                 waterfall: Optional[ActivationWaterfall] = None,
+                 quality: Optional[QualityPlane] = None):
         self.provider = messaging_provider
         self.controller = controller_instance
         self.logger = logger
@@ -302,6 +309,15 @@ class CommonLoadBalancer(LoadBalancer):
         self.waterfall = (waterfall if waterfall is not None
                           else GLOBAL_WATERFALL)
         self.metrics.register_renderer(self._waterfall_exposition)
+        # the placement-quality plane (same hook pattern, default OFF):
+        # per-batch regret/imbalance scoring on the device for the TPU
+        # balancer, attribution counters off record_placement for the CPU
+        # balancers, plus the shadow counterfactual diff
+        self.quality = (quality if quality is not None
+                        else QualityPlane.from_config())
+        self.quality.attach(anomaly=self.anomaly,
+                            invoker_names=self._telemetry_invoker_names)
+        self.metrics.register_renderer(self._quality_exposition)
         # the tail-sampled trace observatory (same hook pattern,
         # PROCESS-WIDE like the waterfall: spans report from layers that
         # never see a balancer — this hook attaches the reporter tee,
@@ -340,6 +356,10 @@ class CommonLoadBalancer(LoadBalancer):
 
     def _waterfall_exposition(self, openmetrics: bool = False) -> str:
         return self.waterfall.prometheus_text(openmetrics=openmetrics)
+
+    def _quality_exposition(self, openmetrics: bool = False) -> str:
+        return self.quality.prometheus_text(
+            self._telemetry_invoker_names(), openmetrics=openmetrics)
 
     # -- telemetry plane (shared hook, like the flight recorder) -----------
     def _telemetry_observe(self, entry: ActivationEntry,
@@ -889,6 +909,11 @@ class CommonLoadBalancer(LoadBalancer):
         """Record one placement decision as a one-row batch record (the TPU
         balancer records whole micro-batches itself). CPU balancers carry a
         `kernel: "cpu"` digest; callers may add backend detail."""
+        # quality plane attribution (CPU balancers; the TPU balancer
+        # scores whole micro-batches on the device instead) — independent
+        # of the flight recorder's own off-switch
+        self.quality.observe_decision(chosen >= 0, bool(forced),
+                                      bool(throttled))
         fr = self.flight_recorder
         if not fr.enabled:
             return
@@ -955,6 +980,7 @@ class CommonLoadBalancer(LoadBalancer):
         self.metrics.unregister_renderer(self._profiler_renderer)
         self.metrics.unregister_renderer(self._anomaly_renderer)
         self.metrics.unregister_renderer(self._waterfall_exposition)
+        self.metrics.unregister_renderer(self._quality_exposition)
         if self._trace_renderer is not None:
             self.metrics.unregister_renderer(self._trace_renderer)
         if self._incidents_renderer is not None:

@@ -30,7 +30,14 @@ accumulator on the card on the dispatch cadence (at least
 `TELEMETRY_FOLD_MIN` events a fold, the rest on the idle fold and the
 supervision tick), the 1 Hz supervision tick runs the telemetry burn
 rates, the anomaly step and the HBM watermarks, and the kernel profiler
-wraps the step entry points and times each dispatch phase.
+wraps the step entry points and times each dispatch phase. With the
+placement quality plane on (`CONFIG_whisk_placementQuality_enabled`,
+off by default), every `shadow_every_n`-th batch first runs a
+decision-only shadow pass (the penalized schedule of the production
+family on a copy of the books, the anomaly plane's straggler flags as
+the penalty), and every batch is scored on the post-commit books right
+after the step; the score's summary row comes back with the step's
+readback.
 
 HA rides the same path as the JAX package's: an active/standby standby
 refuses placement and journals nothing, an active stamps its fence epoch
@@ -67,13 +74,17 @@ from ...messaging.message import ActivationMessage
 from ...messaging.tcp import export_bus_gauges
 from ...models.sharding_policy import (MIN_SLOT_MB, generate_hash,
                                        pairwise_coprimes)
-from ...ops.placement import (PlacementState, init_state,
+from ...ops.anomaly import S_EWMA_MS, S_STRAGGLER_FLAG
+from ...ops.decision_quality import (S_DIVERGENT, S_IMBALANCE_COV,
+                                     S_REGRET_SUM_MS, pad_quality_state)
+from ...ops.placement import (PlacementState, empty_books_like, init_state,
                               make_fused_admit_step_packed,
                               make_fused_step_packed, make_release_packed,
-                              release_batch, release_batch_vector,
-                              resolve_device, schedule_batch,
-                              schedule_batch_repair, set_health,
-                              unpack_chosen, unpack_step_output)
+                              make_shadow_admit_step_packed,
+                              make_shadow_step_packed, release_batch,
+                              release_batch_vector, resolve_device,
+                              schedule_batch, schedule_batch_repair,
+                              set_health, unpack_chosen, unpack_step_output)
 from ...ops.placement_cuda import (schedule_batch_cuda,
                                    schedule_batch_repair_cuda,
                                    to_transposed)
@@ -229,32 +240,36 @@ def _torch_pair(placement_kernel: str):
     return auto_schedule, auto_release, "repair"
 
 
+def _sched_scan(st, batch, penalty=None):
+    """The scan kernel on the books' [N, A] view (the kernel takes the
+    [A, N] layout of the same tensors)."""
+    ts, chosen, forced = schedule_batch_cuda(to_transposed(st), batch,
+                                             penalty)
+    return to_transposed(ts), chosen, forced
+
+
+def _sched_repair(st, batch, penalty=None):
+    """The repair kernel on the books' [N, A] view."""
+    ts, chosen, forced, rounds = schedule_batch_repair_cuda(
+        to_transposed(st), batch, penalty)
+    return to_transposed(ts), chosen, forced, rounds
+
+
 def _cuda_pair(placement_kernel: str):
     """(schedule_fn, release_fn, resolved_kernel) with the schedule on the
     CUDA kernels: the counterpart of `_pallas_pair`, same scan|repair|auto
-    meaning and the same per-bucket branch. The kernels take the [A, N]
-    layout as a view of the same books; the release folds are plain torch
-    ops on the card."""
+    meaning and the same per-bucket branch. The release folds are plain
+    torch ops on the card."""
     _check_kernel(placement_kernel)
-
-    def sched_scan(st, batch):
-        ts, chosen, forced = schedule_batch_cuda(to_transposed(st), batch)
-        return to_transposed(ts), chosen, forced
-
-    def sched_repair(st, batch):
-        ts, chosen, forced, rounds = schedule_batch_repair_cuda(
-            to_transposed(st), batch)
-        return to_transposed(ts), chosen, forced, rounds
-
     if placement_kernel == "scan":
-        return sched_scan, release_batch, "scan"
+        return _sched_scan, release_batch, "scan"
     if placement_kernel == "repair":
-        return sched_repair, release_batch_vector, "repair"
+        return _sched_repair, release_batch_vector, "repair"
 
     def auto_schedule(state, batch):
         if batch.valid.shape[0] >= REPAIR_MIN_BATCH:
-            return sched_repair(state, batch)
-        return sched_scan(state, batch)
+            return _sched_repair(state, batch)
+        return _sched_scan(state, batch)
 
     _, auto_release, _ = _torch_pair("auto")
     return auto_schedule, auto_release, "repair"
@@ -265,6 +280,19 @@ def device_pair(device: torch.device, placement_kernel: str):
     CUDA kernels on the card, the plain torch versions on the CPU."""
     pair = _cuda_pair if device.type == "cuda" else _torch_pair
     return pair(placement_kernel)
+
+
+def penalized_schedule(device: torch.device, resolved: str):
+    """`schedule(state, batch, penalty)` for the quality plane's shadow
+    pass: the penalized variant of the production family, as the JAX
+    package picks it — the repair wherever the pair resolved "repair"
+    (which "auto" does, so the shadow runs the repair at every bucket),
+    else the scan. The CUDA kernel on the card, the plain version on the
+    CPU."""
+    if device.type != "cuda":
+        return schedule_batch_repair if resolved == "repair" else \
+            schedule_batch
+    return _sched_repair if resolved == "repair" else _sched_scan
 
 
 def bucket(n: int, cap: int) -> int:
@@ -489,6 +517,8 @@ class _Readback(NamedTuple):
     out: torch.Tensor          # int32[B + 1] packed decisions
     books: torch.Tensor        # int32[N] free_mb after the step
     event: Optional[object]    # torch.cuda.Event
+    #: float32[N_SUMMARY] the quality scorer's row for the step, or None
+    summary: Optional[torch.Tensor] = None
 
 
 class TpuBalancer(CommonLoadBalancer):
@@ -537,10 +567,12 @@ class TpuBalancer(CommonLoadBalancer):
                  rate_limit_per_minute: Optional[int] = None,
                  placement_kernel: str = "auto",
                  adaptive_window: bool = True, batch_publish: bool = True,
-                 device=None, metrics=None, profiler=None, anomaly=None):
+                 device=None, metrics=None, profiler=None, anomaly=None,
+                 quality=None):
         self.device = resolve_device(device)
         super().__init__(messaging_provider, controller_instance, logger,
-                         metrics=metrics, profiler=profiler, anomaly=anomaly)
+                         metrics=metrics, profiler=profiler, anomaly=anomaly,
+                         quality=quality)
         # the profiler's HBM watermarks and capture traces read this
         # balancer's device
         self.profiler.device = self.device
@@ -635,6 +667,22 @@ class TpuBalancer(CommonLoadBalancer):
         self.spillover_sink = None
         self.spillover_depth = 256
         self.spilled_rows = 0
+        #: placement-quality plane inputs, host-refreshed on the 1 Hz
+        #: supervision tick from the anomaly plane's harvested scores:
+        #: padded per-invoker cost (latency EWMA) and capacity vectors for
+        #: the scorer, and the straggler-flag penalty for the shadow
+        #: kernel (uploaded to the device only when they change)
+        self._quality_ewma_np = np.zeros(self._n_pad, np.float32)
+        self._quality_caps_np = np.zeros(self._n_pad, np.int32)
+        self._quality_ewma = None
+        self._quality_caps = None
+        self._shadow_penalty_np = np.zeros(self._n_pad, np.int32)
+        self._shadow_penalty = None
+        self._quality_batches = 0
+        #: the shadow pass's one copy of the books, shaped like the live
+        #: books (`_install_state` re-makes it when they grow)
+        self._shadow_scratch: Optional[PlacementState] = None
+        self._build_shadow_fn()
         self._init_device_state()
 
         # request queue: (req, placement future, slot key, enqueue time,
@@ -689,10 +737,70 @@ class TpuBalancer(CommonLoadBalancer):
         if self._healthy:
             health[:len(self._healthy)] = torch.tensor(self._healthy)
         self._install_state(PlacementState(st.free_mb, st.conc_free, health))
+        # placement-quality plane: the accumulator and the scorer keyed to
+        # the current invoker pad (a rebuild restarts the accumulated
+        # quality counts, like the JAX package's). The scorer reads the
+        # live [N, A] view of the books.
+        if self.quality.enabled:
+            self.quality.use_device(self._n_pad, device=self.device)
+            self._refresh_quality_signals()
 
     def _install_state(self, state: PlacementState) -> None:
         self.state = state
         self._set_books_now()
+        scratch = self._shadow_scratch
+        if self._shadow_fn is not None and (scratch is None or any(
+                s.shape != t.shape for s, t in zip(scratch, state))):
+            self._shadow_scratch = None  # free the old copy first
+            self._shadow_scratch = empty_books_like(state)
+
+    def _build_shadow_fn(self) -> None:
+        """The decision-only shadow twin of the production step (quality
+        plane): the penalized variant of the production family over the
+        same packed buffer and release/health folds, on a copy of the
+        books, so divergence measures the penalty, not a kernel change;
+        production stays bit-exact with the plane on."""
+        self._shadow_fn = None
+        if not (self.quality.enabled and self.quality.shadow_every_n > 0):
+            return
+        sched = penalized_schedule(self.device,
+                                   self.placement_kernel_resolved)
+        make = (make_shadow_admit_step_packed
+                if self.rate_limit_per_minute is not None
+                else make_shadow_step_packed)
+        self._shadow_fn = make(self._release_fn, sched)
+
+    def _refresh_quality_signals(self) -> None:
+        """Host-side refresh of the quality plane's input vectors (the
+        1 Hz supervision tick, book rebuilds and growth): the anomaly
+        plane's latency EWMAs become the scorer's cost vector, its
+        straggler flags the shadow penalty, the registry's capacities the
+        imbalance's denominator. Each vector is uploaded to the device
+        only when it changes."""
+        n = self._n_pad
+        self._refresh_partitions()
+        caps = np.zeros(n, np.int32)
+        m = min(n, len(self._caps_mb))
+        caps[:m] = np.minimum(self._caps_mb[:m], 2 ** 31 - 1)
+        ewma = np.zeros(n, np.float32)
+        pen = np.zeros(n, np.int32)
+        sc = self.anomaly._scores
+        if sc is not None:
+            k = min(n, sc.shape[1])
+            ewma[:k] = sc[S_EWMA_MS, :k]
+            pen[:k] = sc[S_STRAGGLER_FLAG, :k].astype(np.int32)
+        if (self._quality_caps is None
+                or not np.array_equal(caps, self._quality_caps_np)):
+            self._quality_caps_np = caps
+            self._quality_caps = self._to_device(caps)
+        if (self._quality_ewma is None
+                or not np.array_equal(ewma, self._quality_ewma_np)):
+            self._quality_ewma_np = ewma
+            self._quality_ewma = self._to_device(ewma)
+        if (self._shadow_penalty is None
+                or not np.array_equal(pen, self._shadow_penalty_np)):
+            self._shadow_penalty_np = pen
+            self._shadow_penalty = self._to_device(pen)
 
     def _next_books_seq(self) -> int:
         self._books_seq += 1
@@ -752,6 +860,14 @@ class TpuBalancer(CommonLoadBalancer):
         health[:n_old] = st.health
         self._n_pad = new_pad
         self._install_state(PlacementState(free, conc.T, health))
+        if self.quality.enabled:
+            # the accumulator's per-invoker rows and the scorer's and the
+            # shadow's vectors follow the books' pad (the JAX package keeps
+            # the pad they were made at, and drops attribution past it)
+            if self.quality._qstate is not None:
+                self.quality._qstate = pad_quality_state(
+                    self.quality._qstate, new_pad)
+            self._refresh_quality_signals()
         if self._journal_live():
             self._journal_append({"t": "grow", "n_pad": new_pad})
 
@@ -848,6 +964,12 @@ class TpuBalancer(CommonLoadBalancer):
         # now and its scores harvest NEXT tick (no device sync on the
         # event loop, same rule as the burn-rate math)
         self.anomaly.tick(self.metrics)
+        # the quality plane rides the same cadence: refresh its cost/
+        # penalty vectors from the scores the anomaly tick harvested, then
+        # its gauges (host aggregates only — no device sync)
+        if self.quality.enabled:
+            self._refresh_quality_signals()
+            self.quality.tick(self.metrics)
         # HBM watermark gauges ride the same 1 Hz tick (guarded no-op on
         # the CPU)
         self.profiler.refresh_memory(self.metrics)
@@ -1943,21 +2065,24 @@ class TpuBalancer(CommonLoadBalancer):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _start_readback(self, out: Optional[torch.Tensor]) -> _Readback:
+    def _start_readback(self, out: Optional[torch.Tensor],
+                        summary: Optional[torch.Tensor] = None) -> _Readback:
         """Enqueue the copies of a step's decision vector (None for a fold
-        without one) and of the books it left, right behind the step."""
+        without one), of the books it left and of its quality summary row
+        (None with the plane off), right behind the step."""
         books = self._books_ref()
         if self.device.type != "cuda":
-            return _Readback(out, books, None)
+            return _Readback(out, books, None, summary)
+        dev = (out, books, summary)
         hosts = [None if t is None else
                  torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                 for t in (out, books)]
-        for h, t in zip(hosts, (out, books)):
+                 for t in dev]
+        for h, t in zip(hosts, dev):
             if h is not None:
                 h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return _Readback(hosts[0], hosts[1], event)
+        return _Readback(hosts[0], hosts[1], event, hosts[2])
 
     @staticmethod
     def _wait(rb: _Readback) -> None:
@@ -2052,19 +2177,26 @@ class TpuBalancer(CommonLoadBalancer):
                               req_np.ravel()])
         t_assembled = time.monotonic()
         r, h = rel_np.shape[1], health_np.shape[1]
+        # one clock for both admissions: the shadow's rate-admission fold
+        # (a pure function of buckets/now) reproduces production's
+        # admitted set exactly
+        now32 = (np.float32(time.monotonic() - self._t0_mono)
+                 if rate_on else None)
         # host-observatory bracket: a GC pause landing inside this window
         # stalls the device dispatch — counting it here turns a mysterious
         # dispatch-stage outlier in the waterfall into an attributed cause
         GLOBAL_HOST_OBSERVATORY.begin_dispatch()
         try:
             dbuf = self._to_device(buf)
+            shadow_out = self._shadow_pass(dbuf, now32, r, h, bp)
             if rate_on:
-                now32 = np.float32(time.monotonic() - self._t0_mono)
                 (self.state, self._bucket_state), out = self._packed_fn(
                     (self.state, self._bucket_state), dbuf, now32, r, h, bp)
             else:
                 self.state, out = self._packed_fn(self.state, dbuf, r, h, bp)
-            rb = self._start_readback(out)
+            q_summary = self._quality_step(
+                dbuf[5 * r + 3 * h:].view(-1, bp)[:9], out, shadow_out)
+            rb = self._start_readback(out, q_summary)
         except Exception as e:  # noqa: BLE001 — a failed dispatch must not
             # leak the permit or the host conc slots, or strand publishers
             self._set_inflight(-1)
@@ -2130,6 +2262,51 @@ class TpuBalancer(CommonLoadBalancer):
         self._readbacks.add(task)
         task.add_done_callback(self._readbacks.discard)
 
+    def _shadow_pass(self, dbuf, now32, r: int, h: int, bp: int):
+        """The quality plane's shadow counterfactual, every
+        `shadow_every_n`-th batch: a decision-only pass over the SAME
+        packed buffer on the shadow copy of the books, enqueued BEFORE the
+        production step so the copy reads the pre-step books. Returns its
+        decision vector, or None. A failure is logged and swallowed: the
+        shadow is observability and never takes placement down."""
+        if self._shadow_fn is None:
+            return None
+        self._quality_batches += 1
+        k = self.quality.shadow_every_n
+        if k <= 0 or self._quality_batches % k:
+            return None
+        try:
+            if now32 is not None:
+                return self._shadow_fn(
+                    (self.state, self._bucket_state), dbuf,
+                    self._shadow_penalty, now32, r, h, bp,
+                    scratch=self._shadow_scratch)
+            return self._shadow_fn(self.state, dbuf, self._shadow_penalty,
+                                   r, h, bp, scratch=self._shadow_scratch)
+        except Exception as e:  # noqa: BLE001 — observability only
+            if self.logger:
+                self.logger.warn(None, f"shadow step failed: {e!r}",
+                                 "TpuBalancer")
+            return None
+
+    def _quality_step(self, req, out, shadow_out):
+        """Quality scoring (every batch while the plane is on): one
+        read-only pass over the POST-commit books, the decision vector
+        and the anomaly EWMAs, enqueued right behind the step; its summary
+        row comes back with the step's readback. Failures are logged and
+        swallowed, as the shadow's are."""
+        if not self.quality.enabled:
+            return None
+        try:
+            return self.quality.device_step(
+                self.state.free_mb, self.state.conc_free, self.state.health,
+                self._quality_ewma, self._quality_caps, req, out, shadow_out)
+        except Exception as e:  # noqa: BLE001 — observability only
+            if self.logger:
+                self.logger.warn(None, f"quality step failed: {e!r}",
+                                 "TpuBalancer")
+            return None
+
     def _telemetry_fold(self, due: bool) -> None:
         """Fold the buffered completion events into the device accumulator
         when `due`; a telemetry failure never takes the placement path
@@ -2181,6 +2358,25 @@ class TpuBalancer(CommonLoadBalancer):
                 rec.digest["occupancy"] = (
                     round(used / cap_total, 4) if cap_total else 0.0)
                 rec.timings["readback_ms"] = round(rb_ms, 3)
+            # quality summary: the scorer's row came back with this
+            # readback's copies
+            if rb.summary is not None:
+                try:
+                    s = rb.summary.numpy()
+                    self.quality.note_summary(s)
+                    if rec is not None:
+                        rec.digest["quality"] = {
+                            "regret_ms": round(float(s[S_REGRET_SUM_MS]), 3),
+                            "imbalance_cov": round(
+                                float(s[S_IMBALANCE_COV]), 4),
+                            "divergent": int(s[S_DIVERGENT]),
+                        }
+                except Exception as e:  # noqa: BLE001 — a failed score
+                    # readout must not fail the batch readback
+                    if self.logger:
+                        self.logger.warn(
+                            None, f"quality summary failed: {e!r}",
+                            "TpuBalancer")
             return arrs, t_r1, books_np
 
         try:
@@ -2283,6 +2479,7 @@ class TpuBalancer(CommonLoadBalancer):
         all from stamps already taken (rec.ts, dt_ms — no new clock
         reads): the per-batch `device_dispatch` span under the digest's
         trace id (the flight-recorder link the assembled tree joins on),
+        the `divergent` mark when the shadow counterfactual disagreed,
         the `exemplar` force-keep (the phase histogram just pinned this
         trace id onto a bucket line — every rendered exemplar must
         resolve), and the `forced` mark per force-placed row."""
@@ -2300,6 +2497,9 @@ class TpuBalancer(CommonLoadBalancer):
                       "batch_size": str(b)}))
             if self.profiler.enabled:
                 store.force(tid, "exemplar")
+            q = rec.digest.get("quality")
+            if q and q.get("divergent"):
+                store.mark(tid, "divergent")
         for e, f in zip(batch, forced_np):
             if f and e[6]:
                 store.mark(e[6], "forced")

@@ -35,7 +35,7 @@ slot allocator hands out [0, A).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -749,6 +749,99 @@ def make_fused_admit_step_packed(release_fn=None, schedule_fn=None):
         return (state, buckets), torch.cat([out, rounds.reshape(1).to(I32)])
 
     return packed
+
+
+def empty_books_like(state: PlacementState) -> PlacementState:
+    """Uninitialized books of `state`'s shapes and device, conc held as
+    the `.T` view of a contiguous [A, N] like `init_state`'s."""
+    return PlacementState(torch.empty_like(state.free_mb),
+                          torch.empty_like(state.conc_free.T).T,
+                          torch.empty_like(state.health))
+
+
+def shadow_books(live: PlacementState,
+                 scratch: Optional[PlacementState] = None) -> PlacementState:
+    """The shadow pass's copy of the live books: `live` copied into
+    `scratch` (see `empty_books_like`) and returned. The copies are
+    enqueued on the stream, so they read the books as every step enqueued
+    before left them. With no `scratch` one is allocated; a `scratch` of
+    other shapes or another device than `live` raises ValueError (its
+    owner re-makes it when the books change shape)."""
+    if scratch is None:
+        scratch = empty_books_like(live)
+    elif any(s.shape != t.shape or s.device != t.device
+             for s, t in zip(scratch, live)):
+        raise ValueError(
+            "shadow_books: scratch books "
+            f"{[(tuple(s.shape), str(s.device)) for s in scratch]} do not "
+            f"match the live books "
+            f"{[(tuple(t.shape), str(t.device)) for t in live]}")
+    for s, t in zip(scratch, live):
+        s.copy_(t)
+    return scratch
+
+
+def make_shadow_step_packed(release_fn=None, schedule_fn=None):
+    """The decision-only counterfactual twin of `make_fused_step_packed`:
+    the same packed buffer and the same release and health folds, then
+    `schedule_fn(state, batch, penalty)` with the augmented probe geometry
+    (`penalty` int32[N]). It runs on `shadow_books(state, scratch)`, never
+    on the live books, and returns only the B-element decision vector
+    ((chosen+1)<<2 | forced, no repair-round tail).
+
+    `schedule_fn` defaults to the scan; callers pass the penalized variant
+    of their production family, so divergence measures the penalty, not a
+    kernel change. `scratch` is the caller's preallocated copy of the
+    books (None allocates one a call)."""
+    release_fn = release_fn or release_batch
+    schedule_fn = schedule_fn or schedule_batch
+
+    def shadow(state: PlacementState, buf, penalty, R: int, H: int, B: int,
+               scratch: Optional[PlacementState] = None):
+        rel = buf[:5 * R].view(5, R)
+        health = buf[5 * R:5 * R + 3 * H].view(3, H)
+        req = buf[5 * R + 3 * H:].view(9, B)
+        st = shadow_books(state, scratch)
+        st = release_fn(st, rel[0], rel[1], rel[2], rel[3], rel[4].bool())
+        st = fold_health(st, health[0], health[1].bool(), health[2].bool())
+        batch = RequestBatch(req[0], req[1], req[2], req[3], req[4], req[5],
+                             req[6], req[7], req[8].bool())
+        out = schedule_fn(st, batch, penalty)
+        return ((out[1] + 1) << 2) | out[2].to(I32)
+
+    return shadow
+
+
+def make_shadow_admit_step_packed(release_fn=None, schedule_fn=None):
+    """Shadow twin of `make_fused_admit_step_packed` (rate limiting on):
+    the admission re-runs against the SAME bucket state and `now` as the
+    production step, so the admitted set is identical; `admit_batch` is
+    out of place and the buckets it returns are dropped, as the books'
+    copy is. Bit 1 of the output carries throttled, as there."""
+    from .throttle import admit_batch
+
+    release_fn = release_fn or release_batch
+    schedule_fn = schedule_fn or schedule_batch
+
+    def shadow(carry, buf, penalty, now, R: int, H: int, B: int,
+               scratch: Optional[PlacementState] = None):
+        state, buckets = carry
+        rel = buf[:5 * R].view(5, R)
+        health = buf[5 * R:5 * R + 3 * H].view(3, H)
+        req = buf[5 * R + 3 * H:].view(10, B)
+        valid = req[8].bool()
+        _, admitted = admit_batch(buckets, now, req[9], valid)
+        throttled = valid & ~admitted
+        st = shadow_books(state, scratch)
+        st = release_fn(st, rel[0], rel[1], rel[2], rel[3], rel[4].bool())
+        st = fold_health(st, health[0], health[1].bool(), health[2].bool())
+        batch = RequestBatch(req[0], req[1], req[2], req[3], req[4], req[5],
+                             req[6], req[7], admitted)
+        out = schedule_fn(st, batch, penalty)
+        return (((out[1] + 1) << 2) | (throttled.to(I32) << 1)
+                | out[2].to(I32))
+
+    return shadow
 
 
 def unpack_chosen(out):

@@ -20,7 +20,8 @@ optional int32[N] passed to the kernel as a nullable pointer.
 
 For a CUDA tensor a wrapper launches its kernel or raises; it takes the
 plain version only for tensors on the CPU. Each wrapper counts its
-launches in `.launches`.
+launches in `.launches`, and of them the launches that carry a penalty
+(the quality plane's shadow pass) in `.penalized_launches`.
 """
 from __future__ import annotations
 
@@ -164,6 +165,7 @@ def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
             raise RuntimeError(f"placement_scan launch failed: CUDA error "
                                f"{rc}")
         schedule_batch_cuda.launches += 1
+        schedule_batch_cuda.penalized_launches += int(penalty is not None)
         schedule_batch_cuda.cluster = {
             "blocks": shape[0], "threads": SCAN_THREADS,
             "columns_per_thread": shape[1], "register_columns": shape[2],
@@ -173,6 +175,7 @@ def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
 
 
 schedule_batch_cuda.launches = 0
+schedule_batch_cuda.penalized_launches = 0
 schedule_batch_cuda.cluster = None
 
 
@@ -210,15 +213,17 @@ def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
     if rc != 0:
         raise RuntimeError(f"placement_repair launch failed: CUDA error {rc}")
     schedule_batch_repair_cuda.launches += 1
+    schedule_batch_repair_cuda.penalized_launches += int(penalty is not None)
     schedule_batch_repair_cuda.grid = {"blocks": blocks.value,
                                        "threads": REPAIR_THREADS}
     return state, chosen, forced.bool(), rounds.reshape(())
 
 
 schedule_batch_repair_cuda.launches = 0
+schedule_batch_repair_cuda.penalized_launches = 0
 schedule_batch_repair_cuda.grid = None
 
 
 def reset_launch_counts() -> None:
-    schedule_batch_cuda.launches = 0
-    schedule_batch_repair_cuda.launches = 0
+    for fn in (schedule_batch_cuda, schedule_batch_repair_cuda):
+        fn.launches = fn.penalized_launches = 0

@@ -409,6 +409,30 @@ CUTS = {
     "edge/__init__.py": [],
     "edge/__main__.py": [],
     "edge/proxy.py": [],
+    "controller/loadbalancer/quality.py": [
+        ("the accumulator read on the host",
+         "                                     QualityState, "
+         "init_quality_state,\n"
+         "                                     make_quality_step)\n", None,
+         "                                     QualityState, host_state,\n"
+         "                                     init_quality_state, "
+         "make_quality_step)\n"),
+        ("use_device allocates on the balancer's device",
+         "    def use_device(self, n_pad: int, transposed: bool = False) "
+         "-> None:\n", None,
+         "    def use_device(self, n_pad: int, transposed: bool = False,\n"
+         "                   device=None) -> None:\n"),
+        ("the accumulator on that device",
+         "        self._qstate = init_quality_state(max(1, n_pad), "
+         "self.n_buckets)\n", None,
+         "        self._qstate = init_quality_state(max(1, n_pad), "
+         "self.n_buckets,\n"
+         "                                          device=device)\n"),
+        ("counts reads the tensors on the host",
+         "        qs = self._qstate\n        if not self.enabled or qs is "
+         "None:\n            return None\n", None,
+         "        qs = host_state(self._qstate)\n        if not self.enabled "
+         "or qs is None:\n            return None\n")],
 }
 
 
