@@ -221,7 +221,28 @@ Phases, each reported on its own line:
               step p50 from its kernel profile and its latency waterfall's
               stage medians (`/admin/latency/waterfall`), its launches, and the
               replays' launches, kernel ms and batches/s. About 20 s on
-              an NVIDIA H100 80GB HBM3 at 700 W.
+              an NVIDIA H100 80GB HBM3 at 700 W. The monitoring service
+              runs beside them as its own process (`python -m
+              openwhisk_tpu_torch.controller.monitoring --bus ...`): the
+              smoke publishes USER_EVENTS activation `EventMessage`s onto
+              the bus itself (no controller or invoker of either package
+              publishes them) and holds that its /metrics counts them.
+  9c. cold   a checkout with no build directory. First each batch bucket
+              (8 to 256) on phase 7's path (`TpuBalancer()` over phase
+              7's fleet): its first step's dispatch-to-readback ms against
+              its repeats ("buckets" line). Then the package (not the
+              repository's build/) copied into a temporary root and its
+              standalone started from there (`--cold-standalone`), twice:
+              the early build on (the default), then
+              `CONFIG_whisk_loadBalancer_prewarm=false`. Each: seconds to
+              /admin/ready, the first blocking invoke's ms, waves of 64
+              blocking invokes until both kernels launched, nvcc seconds
+              from the build census, the loop lag through the first invoke
+              and over the first 20 s. Held: every invoke 200 with its
+              echo, both kernels launched and built by nvcc in that
+              process; prewarm on, the loop lag's max under 0.25 s through
+              the first invoke (the window nvcc ran in); prewarm off, the
+              first invoke at least the scan's nvcc seconds.
  10. ha     the controller tier.
               10a (in one process, "absorb" line): three `TpuBalancer()` on
               the card over phase 7's fleet (10,000 invokers registered by
@@ -265,7 +286,21 @@ Phases, each reported on its own line:
               more, the survivors' kernels launched (SIGUSR2/SIGUSR1 as in
               phase 9). Reported: failover downtime (kill to the first 200
               of a dead owner's tenant), invokes/s, HTTP p50/p99 before
-              and after.
+              and after. The fleet observatory ("fleet" line), on by
+              default in every controller: before the kill,
+              /admin/fleet/{metrics,slo,waterfall,host,timeline} from one
+              controller (each GET timed), each 200 with 3 members and
+              none missing, the merged SLO count and waterfall `finished`
+              equal to the sums of the members' own, read directly before
+              and after; right after the kill /admin/fleet/metrics with
+              the dead controller still in the directory labels it
+              missing; the `chaos_kill` mark (this script's
+              `time.monotonic()`) merged with a survivor's
+              /admin/fleet/timeline from the mark on and split by
+              `reconstruct_phases` (detect, claim, absorb, first
+              placement): complete, its downtime at most the client's.
+              The active/standby pair's split is reported as it comes
+              back (its marks are partition marks: incomplete).
               10c ("funnel" line): 1 `--role balancer` on the card and 2
               `--role frontend --funnel-depth 64` behind the edge: 200
               blocking invokes at 16 in flight, 64 non-blocking (each
@@ -275,8 +310,8 @@ Phases, each reported on its own line:
               (`nvidia-smi --query-compute-apps`), the balancer launched
               the kernels.
  11. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
-     journal replays of 7b, phase 9's and phase 10's launches beside the
-     rest; `quality_launches` and `penalized_launches` on 7q's paths and
+     journal replays of 7b, phase 9's, 9c's and phase 10's launches beside
+     the rest; `quality_launches` and `penalized_launches` on 7q's paths and
      the kept penalized launch's numbers), then the card line, then the
      last line
      `{"ok": true, "device": {...}}`.
@@ -1625,6 +1660,9 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         blackbox_fraction=0.1, max_batch=MAX_BATCH, action_slots=A,
         initial_pad=64, rate_limit_per_minute=rate_limit,
         placement_kernel=kernel, device=None if DEVICE == "cuda" else DEVICE)
+    # the early build's warm steps (a worker thread, uncounted launches on
+    # dummy books) end before any wrapper or probe of this run is set
+    bal._await_kernels()
     _annotate_planes(bal)
     if setup is not None:
         setup(bal)
@@ -2465,6 +2503,7 @@ def _measured_replay(TB, K, bal, fn):
     """Run the replay `fn()` on `bal` with its kernel launches bracketed by
     CUDA events and its synchronisations counted: (fn's result, the
     replay's numbers)."""
+    bal._await_kernels()  # no warm step inside the timers or sync count
     timed = [time_launches(TB, k) for k in ("schedule_batch_cuda",
                                             "schedule_batch_repair_cuda")]
     K.reset_launch_counts()
@@ -4039,7 +4078,8 @@ class Deployment:
     def __init__(self, work, device_args=()):
         import os
         self.work = work
-        self.bus, self.api = _free_port(), _free_port()
+        self.bus, self.api, self.mon = _free_port(), _free_port(), \
+            _free_port()
         self.db = os.path.join(work, "whisks.db")
         self.snap = os.path.join(work, "balancer.snap")
         self.wal = os.path.join(work, "wal")
@@ -4073,6 +4113,9 @@ class Deployment:
             "--balancer-journal", self.wal, "--balancer-snapshot", self.snap,
             "--balancer-snapshot-interval", "3600", *self.device_args],
             env=DEPLOY_LIMITS)
+        self._start("monitoring", [
+            "-m", "openwhisk_tpu_torch.controller.monitoring", "--bus", bus,
+            "--port", str(self.mon)])
 
     def log(self, name):
         import os
@@ -4082,7 +4125,8 @@ class Deployment:
     def wait_up(self, timeout=DEPLOY_TIMEOUT_S):
         """Seconds from each process's start to its "up" line (polled in
         its log); raises when one has not come up within `timeout`."""
-        marks = {"broker": "listening on", "controller": " up on :"}
+        marks = {"broker": "listening on", "controller": " up on :",
+                 "monitoring": "user-events metrics on"}
         up = {}
         t0 = time.perf_counter()
         while len(up) < len(self.procs):
@@ -4122,7 +4166,8 @@ class Deployment:
         the broker; every process must exit 0 within 30 s."""
         rcs = {}
         order = ["controller"] + [n for n in self.procs
-                                  if n.startswith("invoker")] + ["broker"]
+                                  if n.startswith("invoker")] + [
+            n for n in ("monitoring",) if n in self.procs] + ["broker"]
         for name in order:
             proc, log = self.procs[name]
             if proc.poll() is None:
@@ -4252,6 +4297,43 @@ async def _deploy_traffic(dep):
     return out
 
 
+#: activation events the smoke publishes to the monitoring service
+USER_EVENTS = 64
+
+
+async def _user_events(dep):
+    """Phase 9's monitoring service: USER_EVENTS activation `EventMessage`s
+    published onto the TCP bus's `events` topic from here (no controller or
+    invoker of either package publishes them), then its /metrics read until
+    it counts them (at most 30 s). Returns (the count it shows, seconds)."""
+    import aiohttp
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.messaging import EventMessage, provider_for_bus
+    provider = provider_for_bus(f"127.0.0.1:{dep.bus}")
+    prod = provider.get_producer()
+    t0 = time.perf_counter()
+    for i in range(USER_EVENTS):
+        act = E.WhiskActivation(
+            E.EntityPath("guest"), E.EntityName("monitored"),
+            E.Subject("guest-user"), E.ActivationId.generate(), 1.0, 2.0,
+            E.ActivationResponse.success({}), duration=i)
+        await prod.send("events", EventMessage.for_activation(
+            "invoker0", act, "uuid-1", kind="python:3"))
+    await prod.close()
+    series = 'openwhisk_userevents_activations_total{action="guest/monitored"}'
+    count = None
+    async with aiohttp.ClientSession() as s:
+        while time.perf_counter() - t0 < 30:
+            async with s.get(f"http://127.0.0.1:{dep.mon}/metrics") as r:
+                text = await r.text()
+            count = next((float(ln.split()[-1]) for ln in text.splitlines()
+                          if ln.startswith(series + " ")), None)
+            if count == USER_EVENTS:
+                break
+            await asyncio.sleep(0.1)
+    return count, time.perf_counter() - t0
+
+
 def _books_match_dump(bal, doc):
     """The replayed books equal the final dump's: free memory (rows past
     the dump's are padding and must be untouched), the non-zero conc cells
@@ -4283,6 +4365,7 @@ def deploy_phase(TB, K):
         try:
             up_s = dep.wait_up()
             traffic = asyncio.run(_deploy_traffic(dep))
+            user_events, user_events_s = asyncio.run(_user_events(dep))
         except Exception:
             for name in dep.procs:
                 print(f"--- {name} log:\n{dep.log(name)[-3000:]}",
@@ -4322,7 +4405,7 @@ def deploy_phase(TB, K):
     wstatus, wf = traffic["waterfall"]
     builds = {(b["source"], b["how"]) for b in prof.get("kernel_builds", [])}
     line = dict(
-        processes=1 + DEPLOY_INVOKERS + 1, invokers=DEPLOY_INVOKERS,
+        processes=1 + DEPLOY_INVOKERS + 2, invokers=DEPLOY_INVOKERS,
         invoker_memory_mb=DEPLOY_MEMORY_MB, up_s=up_s,
         fleet_up_s=traffic["fleet_up_s"],
         first_invoke_ms=traffic["first_invoke_ms"],
@@ -4338,6 +4421,8 @@ def deploy_phase(TB, K):
         kernel_builds=prof.get("kernel_builds"),
         compiles=prof.get("compiles", {}).get("unexpected"),
         ready=ready, rcs=rcs,
+        user_events=dict(published=USER_EVENTS, counted=user_events,
+                         s=user_events_s),
         final_dump=dict(journal_seq=doc["journal_seq"],
                         registry=len(doc["registry"]),
                         conc_cells=len(doc["conc_nonzero"])),
@@ -4361,6 +4446,9 @@ def deploy_phase(TB, K):
             f"deploy: the controller launched both kernels: {lc}")
     require(status == 200 and ready["journal"]["attached"],
             f"deploy: /admin/ready answers 200 with the journal: {ready}")
+    require(user_events == USER_EVENTS,
+            f"deploy: the monitoring service counted the {USER_EVENTS} "
+            f"activation events: {user_events}")
     require(pstatus == 200 and prof["compiles"]["unexpected"] == 0,
             "deploy: the kernel profile shows no churn")
     require(wstatus == 200 and wf["finished"] >= traffic["invokes"],
@@ -5102,10 +5190,15 @@ async def _effect_invoke(s, base, ident, n, dep):
     return ok, (time.perf_counter() - t) * 1e3
 
 
-async def _open_loop_burst(s, base, idents, dep, n0, kill):
+async def _open_loop_burst(s, base, idents, dep, n0, kill, chaos,
+                           after_kill=None):
     """HA_RATE invokes a second for HA_DURATION_S over the tenants, open
-    loop and without retries; `kill()` runs HA_KILL_S in. Returns the
-    rows (tenant, sent, done, ok, ms) and the kill's time."""
+    loop and without retries; `kill()` runs HA_KILL_S in, and `await
+    after_kill()` right after it. `chaos` gets the kill's `chaos_kill`
+    mark: `time.monotonic()` (CLOCK_MONOTONIC, one clock for every process
+    of the host, as the controllers' event logs stamp `mono`) and the wall
+    clock. Returns the rows (tenant, sent, done, ok, ms) and the kill's
+    time."""
     rows, t_kill = [], [None]
     t0 = time.perf_counter()
 
@@ -5118,7 +5211,11 @@ async def _open_loop_burst(s, base, idents, dep, n0, kill):
     async def killer():
         await asyncio.sleep(HA_KILL_S)
         t_kill[0] = time.perf_counter()
+        chaos.update(kind="chaos_kill", mono=time.monotonic(),
+                     ts=time.time(), seq=-1)
         await asyncio.to_thread(kill)
+        if after_kill is not None:
+            await after_kill()
 
     tasks = [asyncio.ensure_future(killer())]
     for i in range(int(HA_RATE * HA_DURATION_S)):
@@ -5157,6 +5254,66 @@ async def _put_effect_action(s, base, idents):
                                      f"{await r.text()}")
 
 
+#: the fleet observatory's merged views read in 10b before the kill
+FLEET_VIEWS = ("metrics", "slo", "waterfall", "host", "timeline")
+
+
+async def _own_counts(s, ports):
+    """Each controller's own SLO count and finished waterfall rows, read
+    directly."""
+    slo, fin = [], []
+    for p in ports:
+        st, d = await _json_get(s, f"http://127.0.0.1:{p}/admin/slo")
+        wst, w = await _json_get(
+            s, f"http://127.0.0.1:{p}/admin/latency/waterfall")
+        require(st == 200 and wst == 200,
+                f"fleet: :{p} /admin/slo {st}, waterfall {wst}")
+        slo.append(d["global"]["count"])
+        fin.append(w["finished"])
+    return slo, fin
+
+
+async def _fleet_views(s, ports):
+    """10b's fleet read, no traffic in flight: each /admin/fleet/* view
+    of FLEET_VIEWS from the first controller with the run's credential
+    (each GET timed on this clock), between two direct reads of every
+    member's own SLO count and waterfall finished count."""
+    slo0, fin0 = await _own_counts(s, ports)
+    views, ms = {}, {}
+    for v in FLEET_VIEWS:
+        t = time.perf_counter()
+        views[v] = await _json_get(
+            s, f"http://127.0.0.1:{ports[0]}/admin/fleet/{v}")
+        ms[v] = (time.perf_counter() - t) * 1e3
+    slo1, fin1 = await _own_counts(s, ports)
+    return dict(
+        ms=ms, status={v: st for v, (st, _b) in views.items()},
+        members={v: len(b.get("members", [])) for v, (_st, b)
+                 in views.items()},
+        missing={v: b.get("members_missing") for v, (_st, b)
+                 in views.items() if v != "timeline"},
+        slo_merged=views["slo"][1].get("global", {}).get("count"),
+        slo_members=slo0, slo_members_after=slo1,
+        finished_merged=views["waterfall"][1].get("finished"),
+        finished_members=fin0, finished_members_after=fin1,
+        timeline_events=views["timeline"][1].get("count"))
+
+
+async def _failover_phases(s, port, chaos):
+    """The merged timeline of the controller on `port` from the chaos mark
+    on, with the mark, split by `reconstruct_phases` (marks before the
+    kill must not open the outage)."""
+    from openwhisk_tpu_torch.controller.monitoring import reconstruct_phases
+    st, tl = await _json_get(
+        s, f"http://127.0.0.1:{port}/admin/fleet/timeline")
+    require(st == 200, f"fleet: the survivor's timeline answers {st}")
+    events = [e for e in tl.get("events", [])
+              if e.get("mono", 0.0) >= chaos["mono"]]
+    out = reconstruct_phases([dict(chaos)] + events)
+    out["kinds_after_kill"] = sorted({e.get("kind") for e in events})
+    return out
+
+
 async def _aa_traffic(dep, ports, idents, ring):
     import aiohttp
     conn = aiohttp.TCPConnector(limit=256)
@@ -5187,14 +5344,31 @@ async def _aa_traffic(dep, ports, idents, ring):
         for k, ident in enumerate(idents):  # warm: each tenant served once
             ok, _ms = await _effect_invoke(s, base, ident, 900_000 + k, dep)
             require(ok, f"ha: tenant {k} served before the burst")
+        out["fleet"] = await _fleet_views(s, ports)
         survivors = [f"controller{i}" for i in AA_INSTANCES
                      if i != AA_KILLED]
         for name in survivors:
             dep.launches_of(name, signal.SIGUSR2)
+        chaos = {}
+
+        async def dead_in_directory():
+            # the dead controller is still in the survivors' directory
+            # (membership's 5 s silence window): the merged view labels it
+            t = time.perf_counter()
+            st, body = await _json_get(
+                s, f"http://127.0.0.1:{ports[0]}/admin/fleet/metrics")
+            out["missing_after_kill"] = dict(
+                status=st, members_missing=body.get("members_missing"),
+                members=len(body.get("members", [])),
+                ms=(time.perf_counter() - t) * 1e3,
+                s_after_kill=time.monotonic() - chaos["mono"])
+
         rows, t_kill, wall = await _open_loop_burst(
             s, base, idents, dep, 0,
-            lambda: dep.kill(f"controller{AA_KILLED}"))
+            lambda: dep.kill(f"controller{AA_KILLED}"), chaos,
+            dead_in_directory)
         out["burst"] = _burst_report(rows, t_kill, wall, tenants_of_dead)
+        out["phases"] = await _failover_phases(s, ports[0], chaos)
         out["confirm"] = [(await _effect_invoke(
             s, base, ident, 800_000 + k, dep))[0]
             for k, ident in enumerate(idents)]
@@ -5245,11 +5419,14 @@ async def _as_traffic(dep, ports, idents):
             ok, _ms = await _effect_invoke(s, base, ident, 700_000 + k, dep)
             require(ok, f"ha: tenant {k} served by the active")
         dep.launches_of(f"controller{standby}", signal.SIGUSR2)
+        chaos = {}
         rows, t_kill, wall = await _open_loop_burst(
             s, base, idents, dep, 100_000,
-            lambda: dep.kill(f"controller{act}"))
+            lambda: dep.kill(f"controller{act}"), chaos)
         out["burst"] = _burst_report(rows, t_kill, wall,
                                      set(range(len(idents))))
+        out["phases"] = await _failover_phases(
+            s, ports[AS_INSTANCES.index(standby)], chaos)
         out["confirm"] = [(await _effect_invoke(
             s, base, ident, 600_000 + k, dep))[0]
             for k, ident in enumerate(idents)]
@@ -5499,6 +5676,30 @@ def ha_phase():
         phase_s=time.perf_counter() - t_phase,
         **{k: v for k, v in lines.items() if k != "funnel"})
     say("funnel", **fn)
+    fl, ph, miss = aa["fleet"], aa["phases"], aa["missing_after_kill"]
+    say("fleet", views=fl, missing_after_kill=miss,
+        active_active=dict(phases=ph, client_downtime_s=aa["burst"][
+            "downtime_s"]),
+        active_standby=dict(phases=st["phases"], client_downtime_s=st[
+            "burst"]["downtime_s"]))
+    require(all(v == 200 for v in fl["status"].values())
+            and all(n == len(AA_INSTANCES) for n in fl["members"].values())
+            and all(m == [] for m in fl["missing"].values()),
+            f"fleet: every view 200 with {len(AA_INSTANCES)} members, none "
+            f"missing: {fl}")
+    require(fl["slo_merged"] == sum(fl["slo_members"])
+            == sum(fl["slo_members_after"]),
+            f"fleet: the merged SLO count is the members' sum: {fl}")
+    require(fl["finished_merged"] == sum(fl["finished_members"])
+            == sum(fl["finished_members_after"]),
+            f"fleet: the merged waterfall's finished is the members' sum: "
+            f"{fl}")
+    require(miss["status"] == 200 and miss["members_missing"] == [AA_KILLED],
+            f"fleet: the dead controller is labeled missing: {miss}")
+    require(ph["complete"] and ph["downtime_s"] is not None
+            and ph["downtime_s"] <= aa["burst"]["downtime_s"],
+            f"fleet: the failover's phases are complete and within the "
+            f"client's downtime {aa['burst']['downtime_s']}: {ph}")
     require(executed > 0 and twice == 0,
             f"ha: zero double executions ({twice} of {executed})")
     require(all(aa["confirm"]) and all(st["confirm"]),
@@ -5547,6 +5748,275 @@ def ha_phase():
     return lines
 
 
+# --------------------------------------------------------------- phase 9c
+#: the buckets whose first step is held against a repeat, the steps a
+#: bucket, and the cold standalone's geometry and window
+BUCKETS, BUCKET_REPS = (8, 16, 32, 64, 128, 256), 4
+COLD_MEMORY_MB, COLD_WAVE, COLD_WINDOW_S, COLD_TIMEOUT_S = 4_096, 64, 20.0, 180
+
+
+async def _bucket_steps(TB):
+    """Each batch bucket's first step against its repeats on phase 7's
+    path: `TpuBalancer()` on the card over phase 7's fleet (10,000
+    invokers by pings, N = 16,384, A = 4,096), BUCKET_REPS waves of
+    exactly B rows of phase 7's mix a bucket, one step each (nothing is
+    acked: no release rows), each step's dispatch-to-readback ms."""
+    from openwhisk_tpu_torch.core import entity as E
+    ctrl = E.ControllerInstanceId("40")
+    fleet = Fleet(seed=11)
+    fleet.start()
+    bal = TB.TpuBalancer(
+        fleet.provider, ctrl, managed_fraction=0.9, blackbox_fraction=0.1,
+        max_batch=MAX_BATCH, action_slots=A, initial_pad=64,
+        device=None if DEVICE == "cuda" else DEVICE)
+    bal._await_kernels()  # the early build is no step of a bucket's
+    await bal.start()
+    out = {}
+    try:
+        await fleet.ping(bal.supervision, list(range(N_INV)))
+        bal._arm_flush()
+        await _drain_front(bal)
+        mix = ActionMix(seed=5, ctrl=ctrl)
+        for b in BUCKETS:
+            ms, buckets = [], []
+            for _ in range(BUCKET_REPS):
+                n0, s0 = len(bal.step_ms), bal.counters["steps"]
+                futs = bal.publish_many(mix.pairs(b))
+                await asyncio.gather(*futs)
+                while bal._readbacks or bal._inflight_steps:
+                    await asyncio.sleep(0.001)
+                require(bal.counters["steps"] == s0 + 1,
+                        f"buckets: {b} rows took one step")
+                ms.append(bal.step_ms[n0])
+            rep_ms = float(np.median(ms[1:]))
+            out[str(b)] = dict(first_ms=ms[0], repeat_ms=rep_ms,
+                               first_minus_repeat_ms=ms[0] - rep_ms,
+                               ms=ms)
+    finally:
+        await bal.close()
+        await fleet.stop()
+    return out
+
+
+def cold_standalone(root, counts_path, port):
+    """`--cold-standalone ROOT COUNTS PORT`: the standalone of the package
+    copied under ROOT (its build directory empty), unthrottled, on the
+    card; the kernel wrappers' launch counts go to COUNTS on SIGUSR1, as
+    phase 9's controller writes them."""
+    import os
+    sys.path.insert(0, root)
+    from openwhisk_tpu_torch import standalone as S
+    from openwhisk_tpu_torch.ops import _build
+    from openwhisk_tpu_torch.ops import placement_cuda as K
+    from openwhisk_tpu_torch.utils.tasks import wait_for_shutdown
+    require(S.__file__.startswith(root) and not any(
+        _build.BUILD_DIR.glob("*.so")),
+        f"cold: the copy's package with an empty build directory: "
+        f"{S.__file__} {_build.BUILD_DIR}")
+
+    def dump(*_):
+        tmp = f"{counts_path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"scan": K.schedule_batch_cuda.launches,
+                       "repair": K.schedule_batch_repair_cuda.launches}, f)
+        os.replace(tmp, counts_path)
+
+    signal.signal(signal.SIGUSR1, dump)
+
+    async def run():
+        ctrl = await S.make_standalone(
+            port=port, balancer="tpu", ui=False,
+            user_memory_mb=COLD_MEMORY_MB, **UNTHROTTLED,
+            **_standalone_kw())
+        print(f"cold standalone up on :{port}", flush=True)
+        try:
+            await wait_for_shutdown()
+        finally:
+            await ctrl.stop()
+
+    asyncio.run(run())
+    return 0
+
+
+async def _cold_traffic(port, counts, proc, t_start):
+    """Drive one cold standalone: /admin/ready, the echo action, one
+    blocking invoke, then waves of COLD_WAVE blocking invokes at once
+    until both kernels were launched (at most three), the host profile
+    at COLD_WINDOW_S from the process's start, the kernel profile."""
+    import aiohttp
+    import os
+    from openwhisk_tpu_torch import standalone as S
+    out, bad = {}, []
+    base = f"http://127.0.0.1:{port}"
+    async with aiohttp.ClientSession(
+            auth=aiohttp.BasicAuth(S.GUEST_UUID, S.GUEST_KEY),
+            timeout=aiohttp.ClientTimeout(total=120)) as s:
+        while True:
+            require(proc.poll() is None, "cold: the standalone exited")
+            require(time.perf_counter() - t_start < COLD_TIMEOUT_S,
+                    "cold: /admin/ready within the limit")
+            st, _ = await _json_get(s, f"{base}/admin/ready",
+                                    auth=aiohttp.BasicAuth(S.GUEST_UUID,
+                                                           S.GUEST_KEY))
+            if st == 200:
+                break
+            await asyncio.sleep(0.05)
+        out["ready_s"] = time.perf_counter() - t_start
+        while True:  # the in-process invoker's first ping
+            st, inv = await _json_get(s, f"{base}/invokers")
+            if st == 200 and "up" in inv.values():
+                break
+            require(time.perf_counter() - t_start < COLD_TIMEOUT_S,
+                    f"cold: the invoker is up: {inv}")
+            await asyncio.sleep(0.05)
+        out["invoker_up_s"] = time.perf_counter() - t_start
+        _st, prof = await _json_get(s, f"{base}/admin/profile/kernel")
+        out["nvcc_done_at_invoker_up"] = sorted(
+            b["source"] for b in prof.get("kernel_builds", [])
+            if b["how"] == "nvcc")
+        api = f"{base}/api/v1/namespaces/_"
+        async with s.put(f"{api}/actions/echo?overwrite=true", json={
+                "exec": {"kind": "python:3", "code": ECHO_CODE},
+                "limits": {"memory": DEPLOY_ACTION_MB}}) as r:
+            require(r.status == 200, f"cold: PUT echo {r.status}")
+
+        async def invoke(n):
+            t = time.perf_counter()
+            async with s.post(f"{api}/actions/echo?blocking=true&result=true",
+                              json={"n": n}) as r:
+                body = await r.json(content_type=None)
+            if r.status != 200 or body != {"n": n}:
+                bad.append((n, r.status, body))
+            return (time.perf_counter() - t) * 1e3
+
+        out["first_invoke_ms"] = await invoke(-1)
+        out["first_invoke_done_s"] = time.perf_counter() - t_start
+        # the loop's lag from the observatory's install to here: the
+        # window in which nvcc ran (the first invoke waits for the build)
+        _st, host = await _json_get(
+            s, f"{base}/admin/profile/host?collapsed=1")
+        lag = host.get("loop_lag", {})
+        # the sampler's heaviest loop-thread stacks so far (their last
+        # frames): where a stall sat
+        stacks = [ln.rsplit(" ", 1) for ln in
+                  str(host.get("collapsed", "")).splitlines() if " " in ln]
+        out["stacks_top"] = [[";".join(st.split(";")[-8:]), int(n)]
+                             for st, n in stacks[:5]]
+        out["loop_lag_through_first_invoke_ms"] = {
+            k: lag.get(k) for k in ("max_ms", "p99_ms", "ticks")}
+        # where the loop stalled: the observatory's worst coroutine
+        # resumptions through the first invoke
+        out["stalls_worst"] = host.get("stalls", {}).get("worst", [])[:4]
+        launches, waves = {}, 0
+        while waves < 3:
+            waves += 1
+            await asyncio.gather(*[invoke(waves * 1000 + n)
+                                   for n in range(COLD_WAVE)])
+            stamp = os.path.getmtime(counts) if os.path.exists(counts) \
+                else None
+            proc.send_signal(signal.SIGUSR1)
+            for _ in range(500):
+                if os.path.exists(counts) and \
+                        os.path.getmtime(counts) != stamp:
+                    time.sleep(0.02)
+                    with open(counts) as f:
+                        launches = json.load(f)
+                    break
+                await asyncio.sleep(0.01)
+            if launches.get("scan") and launches.get("repair"):
+                break
+        out.update(waves=waves, invokes=1 + waves * COLD_WAVE,
+                   launches=launches, bad=bad[:5], n_bad=len(bad))
+        wait = t_start + COLD_WINDOW_S - time.perf_counter()
+        if wait > 0:
+            await asyncio.sleep(wait)
+        out["host_window_s"] = time.perf_counter() - t_start
+        _st, host = await _json_get(s, f"{base}/admin/profile/host")
+        lag = host.get("loop_lag", {})
+        out["loop_lag_ms"] = {k: lag.get(k) for k in ("max_ms", "p99_ms",
+                                                      "ticks")}
+        _st, prof = await _json_get(s, f"{base}/admin/profile/kernel")
+        out["kernel_builds"] = prof.get("kernel_builds", [])
+    return out
+
+
+def cold_phase(TB):
+    """9c: a checkout with no build directory. The bucket ladder's
+    measurement first (in this process), then the package copied (not the
+    build directory) into a temporary root and its standalone started
+    from there twice: the early build on, then
+    `CONFIG_whisk_loadBalancer_prewarm=false`."""
+    import os
+    import shutil
+    import tempfile
+    buckets = asyncio.run(_bucket_steps(TB))
+    say("buckets", buckets=buckets)
+    runs = {}
+    for label, env in (("prewarm_on", {}),
+                       ("prewarm_off",
+                        {"CONFIG_whisk_loadBalancer_prewarm": "false"})):
+        root = tempfile.mkdtemp(prefix="chip-smoke-cold-")
+        try:
+            shutil.copytree(
+                os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "openwhisk_tpu_torch"),
+                os.path.join(root, "openwhisk_tpu_torch"),
+                ignore=shutil.ignore_patterns("__pycache__"))
+            port, counts = _free_port(), os.path.join(root, "launches.json")
+            log_path = os.path.join(root, "standalone.log")
+            t_start = time.perf_counter()
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cold-standalone", root, counts, str(port)],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=root,
+                    env=dict(os.environ, PYTHONUNBUFFERED="1", **env))
+                try:
+                    run = asyncio.run(_cold_traffic(port, counts, proc,
+                                                    t_start))
+                except Exception:
+                    with open(log_path) as f:
+                        print(f"--- cold {label} log:\n{f.read()[-3000:]}",
+                              file=sys.stderr)
+                    raise
+                finally:
+                    if proc.poll() is None:
+                        proc.send_signal(signal.SIGTERM)
+                    try:
+                        run_rc = proc.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        run_rc = proc.wait()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        nvcc = {b["source"]: b["seconds"] for b in run["kernel_builds"]
+                if b["how"] == "nvcc"}
+        run.update(rc=run_rc, nvcc_s=nvcc,
+                   nvcc_s_max=max(nvcc.values(), default=None))
+        runs[label] = run
+    say("cold", **runs)
+    for label, run in runs.items():
+        require(run["rc"] == 0 and run["n_bad"] == 0,
+                f"cold {label}: every invoke answered 200 with its echo, "
+                f"exit 0: {run['rc']} {run['bad']}")
+        require(run["launches"].get("scan", 0) > 0
+                and run["launches"].get("repair", 0) > 0,
+                f"cold {label}: both kernels launched: {run['launches']}")
+        require(set(run["nvcc_s"]) == set(("placement_scan",
+                                           "placement_repair")),
+                f"cold {label}: both kernels built by nvcc in the "
+                f"standalone: {run['kernel_builds']}")
+    on, off = runs["prewarm_on"], runs["prewarm_off"]
+    lag_on = on["loop_lag_through_first_invoke_ms"]
+    require(lag_on["max_ms"] < 250.0,
+            f"cold: with prewarm on the loop lag stays under 0.25 s while "
+            f"nvcc runs: {lag_on} (nvcc {on['nvcc_s']})")
+    require(off["first_invoke_ms"] >= 1e3 * off["nvcc_s"]["placement_scan"],
+            f"cold: with prewarm off the first invoke waits for nvcc: "
+            f"{off['first_invoke_ms']} ms, nvcc {off['nvcc_s']}")
+    return dict(buckets=buckets, **runs)
+
+
 def leg():
     """`--leg`: one leg of a parent/change comparison inside one call, run
     from the root of each tree: phase 7's main run without the profile
@@ -5578,6 +6048,8 @@ def main():
         return leg()
     if sys.argv[1:2] == ["--deploy-controller"]:
         return deploy_controller(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--cold-standalone"]:
+        return cold_standalone(sys.argv[2], sys.argv[3], int(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -5656,6 +6128,9 @@ def main():
     deploy = deploy_phase(TB, K)
     say("deploy_phase", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    cold = cold_phase(TB)
+    say("cold_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     absorb = absorb_phase(TB, K, P)
     say("absorb_phase", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -5706,6 +6181,8 @@ def main():
          "funnel_launches": ha["funnel"]["launches"][
              f"controller{FUNNEL_INSTANCES[0]}"]["scan"],
          "quality_launches": quality["launches"]["scan"],
+         "cold_launches": {lbl: cold[lbl]["launches"]["scan"]
+                           for lbl in ("prewarm_on", "prewarm_off")},
          "penalized_launches": quality["penalized_launches"]["scan"],
          "quality_penalized": quality["scan_pinned"]["kernel"]},
         {"name": "placement_repair", "route": "cuda",
@@ -5740,6 +6217,8 @@ def main():
          "funnel_launches": ha["funnel"]["launches"][
              f"controller{FUNNEL_INSTANCES[0]}"]["repair"],
          "quality_launches": quality["launches"]["repair"],
+         "cold_launches": {lbl: cold[lbl]["launches"]["repair"]
+                           for lbl in ("prewarm_on", "prewarm_off")},
          "penalized_launches": quality["penalized_launches"]["repair"],
          "quality_penalized": quality["auto"]["kernel"]},
     ]

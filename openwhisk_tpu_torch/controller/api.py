@@ -1,13 +1,8 @@
 """Controller REST API: /api/v1 route tree.
 
-A copy of `openwhisk_tpu/controller/api.py` with every /api/v1 route,
-/ping, /invokers and /metrics. Of its /admin surface the port serves the
-flight recorder, the occupancy books, the placement quality report, the
-SLO report, the kernel profiler and its capture window, the host
-observatory, the alerts and anomaly scores, the latency waterfall, the
-trace store, the incident recorder, the readiness probe and the index;
-the routes of the plane not ported yet (the fleet federation) answer 404
-naming the plane.
+A copy of `openwhisk_tpu/controller/api.py`: every /api/v1 route, /ping,
+/invokers, /metrics and the whole /admin surface, the fleet observatory's
+federated /admin/fleet/* views and /admin/metrics/raw included.
 
 Rebuild of core/controller/.../controller/RestAPIs.scala:160-228 (versioned
 route tree + auth directive) with the per-collection APIs:
@@ -126,9 +121,10 @@ class ControllerApi:
         r.add_get("/admin/placement/explain/{activation_id}",
                   self.placement_explain)
         r.add_get("/admin/placement/occupancy", self.placement_occupancy)
-        # placement quality plane: regret / imbalance / attribution and
-        # the shadow counterfactual diff, auth-gated; 404 while the plane
-        # is disabled
+        # placement quality observatory: on-device regret /
+        # imbalance scoring plus the shadow-counterfactual diff, and its
+        # fleet-federated fold. 404 while
+        # CONFIG_whisk_placementQuality_enabled=false (true no-op).
         r.add_get("/admin/placement/quality", self.placement_quality)
         # SLO plane: compliance / budget / burn rates from the balancer's
         # telemetry accumulator, auth-gated like the placement endpoints
@@ -150,26 +146,45 @@ class ControllerApi:
         # tail budget breakdown and slowest-activation exemplars joined to
         # flight-recorder trace ids (auth-gated; host-side reads only)
         r.add_get("/admin/latency/waterfall", self.latency_waterfall)
+        # HA readiness: per-partition role/epoch/replay-state (active/
+        # active), global role (active/standby), journal stall state —
+        # 200 iff this controller is placing for something (auth-gated)
         r.add_get("/admin/ready", self.admin_ready)
-        # trace observatory: the tail-sampled kept-trace read side.
-        # `local` (a peer-scrape leaf) must register before the assembling
-        # route — aiohttp matches in registration order. Auth-gated; every
-        # handler 404s while CONFIG_whisk_tracing_tail_enabled=false.
+        # fleet observatory: the raw exact-merge exports
+        # (integer bucket counts, never percentiles) plus the federated
+        # cross-process views scraped from the live peer directory.
+        # Auth-gated like the rest of /admin; every handler answers 404
+        # while CONFIG_whisk_fleetObservatory_enabled=false.
+        r.add_get("/admin/metrics/raw", self.metrics_raw)
+        r.add_get("/admin/fleet/metrics", self.fleet_metrics)
+        r.add_get("/admin/fleet/waterfall", self.fleet_waterfall)
+        r.add_get("/admin/fleet/slo", self.fleet_slo)
+        r.add_get("/admin/fleet/host", self.fleet_host)
+        r.add_get("/admin/fleet/quality", self.fleet_quality)
+        r.add_get("/admin/fleet/timeline", self.fleet_timeline)
+        # trace observatory: the tail-sampled kept-trace read
+        # side. `local` (a peer-scrape leaf) must register before the
+        # assembling route — aiohttp matches in registration order.
+        # Auth-gated; every handler 404s while
+        # CONFIG_whisk_tracing_tail_enabled=false.
         r.add_get("/admin/traces", self.traces_list)
         r.add_get("/admin/trace/local/{trace_id}", self.trace_local)
         r.add_get("/admin/trace/{trace_id}", self.trace_assembled)
+        # admin surface index: every /admin route
+        # with its config-knob state — the surface is past 20 routes with
+        # zero discoverability. Auth-gated like everything under /admin.
         r.add_get("/admin", self.admin_index)
-        # incident forensics observatory: alert-triggered black-box
-        # bundles (utils/blackbox.py). The `local` leaf must register
-        # before the parameterized route (aiohttp registration order, same
-        # as traces). Every handler 404s while
-        # CONFIG_whisk_incidents_enabled=false.
+        # incident forensics observatory: alert-triggered
+        # black-box bundles (utils/blackbox.py). The `local` leaf must
+        # register before the parameterized route (aiohttp registration
+        # order, same as traces); the fleet view federates peers'
+        # summaries through the fleet scraper with member provenance.
+        # Every handler 404s while CONFIG_whisk_incidents_enabled=false.
         r.add_get("/admin/incidents", self.incidents_list)
         r.add_get("/admin/incident/local/{incident_id}",
                   self.incident_local)
         r.add_get("/admin/incident/{incident_id}", self.incident_get)
-        # the planes not ported yet answer 404 naming the plane
-        self._add_unported_admin_routes(r)
+        r.add_get("/admin/fleet/incidents", self.fleet_incidents)
         return app
 
     # ----------------------------------------------------------- middleware
@@ -455,6 +470,111 @@ class ControllerApi:
                                 "incident_ids": incident_ids}
         return web.json_response(found)
 
+    async def slo_report(self, request):
+        """Is the fleet meeting its latency/error SLOs, and which invokers
+        or tenants are burning the budget: the telemetry plane's evaluation
+        of the `CONFIG_whisk_slo_*` targets against the accumulated
+        per-invoker / per-namespace latency buckets."""
+        tp = getattr(self.c.load_balancer, "telemetry", None)
+        if tp is None:
+            return _error(404, "this balancer has no telemetry plane",
+                          request.get("transid"))
+        names = []
+        lb = self.c.load_balancer
+        if hasattr(lb, "_telemetry_invoker_names"):
+            names = lb._telemetry_invoker_names()
+        # ?raw=1: the label-keyed exact-merge export the fleet federation
+        # scrapes (integer bucket/outcome counts, no verdicts)
+        raw = request.query.get("raw", "").lower() in ("1", "true", "yes")
+        fn = tp.raw_counts if raw else tp.slo_report
+        if tp.SYNCS_DEVICE:
+            # reading device counts forces a device sync — worker thread,
+            # same policy as the occupancy endpoint
+            report = await asyncio.to_thread(fn, names)
+        else:
+            report = fn(names)
+        return web.json_response(report)
+
+    async def placement_quality(self, request):
+        """How good are the placement kernel's decisions: per-row regret
+        (chosen invoker's predicted latency vs the best feasible
+        alternative under the same capacity/permit constraints), fleet
+        occupancy imbalance, forced/overflow/cold-start attribution, and
+        the shadow counterfactual diff against the anomaly-penalized
+        probe geometry. 404 while the plane is disabled — disabled is a
+        true no-op, there is nothing to report."""
+        qp = getattr(self.c.load_balancer, "quality", None)
+        if qp is None or not qp.enabled:
+            return _error(
+                404, "the placement quality plane is disabled "
+                "(CONFIG_whisk_placementQuality_enabled=false)",
+                request.get("transid"))
+        names = []
+        lb = self.c.load_balancer
+        if hasattr(lb, "_telemetry_invoker_names"):
+            names = lb._telemetry_invoker_names()
+        # ?raw=1: the exact-merge export the fleet federation scrapes
+        # (integer bucket counts + label-keyed per-invoker series)
+        raw = request.query.get("raw", "").lower() in ("1", "true", "yes")
+        fn = qp.raw_counts if raw else qp.quality_report
+        if qp.SYNCS_DEVICE:
+            # reading the device QualityState forces a device sync —
+            # worker thread, same policy as /admin/slo
+            report = await asyncio.to_thread(fn, names)
+        else:
+            report = fn(names)
+        return web.json_response(report)
+
+    async def profile_kernel(self, request):
+        """The kernel profiling observatory: compile log + classification,
+        cache-key census, per-phase p50/p99 over the last N batches, HBM /
+        memory stats, and capture-window status — the same payload shape
+        from the TPU balancer and the CPU twins (`kernel: "cpu"`). Reads
+        are host-side only (no device array sync), so this runs inline."""
+        lb = self.c.load_balancer
+        if getattr(lb, "profiler", None) is None:
+            return _error(404, "this balancer has no kernel profiler",
+                          request.get("transid"))
+        if hasattr(lb, "kernel_profile"):
+            return web.json_response(lb.kernel_profile())
+        return web.json_response(lb.profiler.profile_json())
+
+    async def profile_capture(self, request):
+        """Arm a bounded capture window: `{"steps": N}` records the next N
+        dispatch steps at full detail (capped at the configured limit);
+        `"trace_dir"` additionally wraps a server-side `jax.profiler`
+        trace when the real profiler is importable; `"tail_threshold_ms"`
+        re-targets the tail sampler (0 disables it)."""
+        lb = self.c.load_balancer
+        prof = getattr(lb, "profiler", None)
+        if prof is None:
+            return _error(404, "this balancer has no kernel profiler",
+                          request.get("transid"))
+        if not prof.enabled:
+            return _error(409, "kernel profiling is disabled "
+                          "(CONFIG_whisk_profiling_enabled=false)",
+                          request.get("transid"))
+        body = (await request.json()) if request.can_read_body else {}
+        if not isinstance(body, dict):
+            return _error(400, "capture request body must be a JSON object",
+                          request.get("transid"))
+        try:
+            steps = int(body.get("steps", 16))
+            ttl = body.get("tail_threshold_ms")
+            ttl = float(ttl) if ttl is not None else None
+        except (TypeError, ValueError):
+            return _error(400, "steps must be an integer and "
+                          "tail_threshold_ms a number",
+                          request.get("transid"))
+        if steps < 1:
+            return _error(400, "steps must be >= 1", request.get("transid"))
+        trace_dir = body.get("trace_dir")
+        if trace_dir is not None and not isinstance(trace_dir, str):
+            return _error(400, "trace_dir must be a string",
+                          request.get("transid"))
+        return web.json_response(prof.arm_capture(
+            steps, trace_dir=trace_dir, tail_threshold_ms=ttl))
+
     async def profile_host(self, request):
         """The host hot-loop observatory snapshot (utils/hostprof.py):
         event-loop lag percentiles (measured from each probe tick's
@@ -508,6 +628,321 @@ class ControllerApi:
             # between the check above and the arm)
             return _error(409, str(e), request.get("transid"))
 
+    async def admin_ready(self, request):
+        """Ops/chaos readiness probe: which placement role this
+        controller holds RIGHT NOW, without scraping /metrics.
+
+        Body: `mode` (single | active_standby | active_active), `ready`,
+        per-partition `{partition, epoch, role, replay}` rows in
+        active/active mode, and the journal's durability state (lag +
+        whether the built-in `journal_stall` alert is firing). Status is
+        200 when this controller is placing for at least one partition
+        (or is the global active / a non-HA single); a standby-for-all
+        answers 503 so load checks and the chaos riders read ownership
+        from the status code alone."""
+        lb = self.c.load_balancer
+        ring = getattr(lb, "partition_ring", None)
+        doc = {}
+        if ring is not None:
+            parts = lb.partitions_json()
+            owned = sum(1 for p in parts if p["role"] == "active")
+            doc.update(mode="active_active", partitions=parts,
+                       owned_partitions=owned,
+                       n_partitions=ring.n_partitions,
+                       ready=owned > 0)
+        elif getattr(lb, "fence_epoch", None) is not None \
+                or getattr(lb, "ha_standby", False):
+            active = not lb.ha_standby
+            doc.update(mode="active_standby",
+                       role="active" if active else "standby",
+                       epoch=lb.fence_epoch or 0, ready=active)
+        else:
+            doc.update(mode="single", ready=True)
+        journal = getattr(lb, "journal", None)
+        jdoc = {"attached": journal is not None}
+        if journal is not None:
+            jdoc["lag_batches"] = journal.lag_batches
+        plane = getattr(lb, "anomaly", None)
+        if plane is not None:
+            jdoc["stall_firing"] = any(
+                name == "journal_stall"
+                for (name, _sev) in plane.engine.firing_counts())
+        doc["journal"] = jdoc
+        mem = self.c.membership
+        if mem is not None:
+            doc["cluster_size"] = mem.cluster_size
+        return web.json_response(doc, status=200 if doc["ready"] else 503)
+
+    async def alerts_report(self, request):
+        """The alert plane: configured rules, active (pending + firing)
+        alerts, and the recent transition log from the alert ring.
+        `?limit=N` bounds the transition history (default 50)."""
+        plane = getattr(self.c.load_balancer, "anomaly", None)
+        if plane is None:
+            return _error(404, "this balancer has no anomaly plane",
+                          request.get("transid"))
+        try:
+            limit = max(0, int(request.query.get("limit", 50)))
+        except ValueError:
+            return _error(400, "limit must be an integer",
+                          request.get("transid"))
+        return web.json_response(plane.alerts_report(limit))
+
+    async def anomalies_report(self, request):
+        """Per-invoker anomaly scores (straggler / error-spike /
+        timeout-spike), flags, and evidence — which latency buckets moved
+        since the last detection tick. Device-path evidence forces a
+        device->host sync, so the report runs on a worker thread then
+        (same policy as /admin/slo)."""
+        lb = self.c.load_balancer
+        plane = getattr(lb, "anomaly", None)
+        if plane is None:
+            return _error(404, "this balancer has no anomaly plane",
+                          request.get("transid"))
+        names = None
+        if hasattr(lb, "_telemetry_invoker_names"):
+            names = lb._telemetry_invoker_names()
+        if plane.SYNCS_DEVICE:
+            report = await asyncio.to_thread(plane.anomalies_report, names)
+        else:
+            report = plane.anomalies_report(names)
+        return web.json_response(report)
+
+    async def latency_waterfall(self, request):
+        """Where does the end-to-end latency live: per-stage p50/p90/p99
+        from the waterfall plane's log2 histograms, the stage-median budget
+        against the measured e2e median, dominant-stage tail attribution,
+        and the slowest-activation exemplar rows — each joined to the
+        flight recorder when its placement batch is still in the ring.
+        The plane is host-side numpy only, so this NEVER forces a device
+        sync and runs inline on the event loop. `?recent=N` adds the last
+        N completed rows."""
+        wf = getattr(self.c.load_balancer, "waterfall", None)
+        if wf is None:
+            return _error(404, "this balancer has no latency waterfall",
+                          request.get("transid"))
+        try:
+            recent = max(0, int(request.query.get("recent", 0)))
+            rows = max(0, int(request.query.get("rows", 0)))
+        except ValueError:
+            return _error(400, "recent/rows must be integers",
+                          request.get("transid"))
+        if request.query.get("raw", "").lower() in ("1", "true", "yes"):
+            # exact-merge export: bucket counts + ring rows (the fleet
+            # merger joins spill_forward halves from the rows)
+            return web.json_response(wf.raw_counts(rows=rows))
+        report = wf.report(recent=recent)
+        fr = self._flight_recorder()
+        if fr is not None and report.get("enabled"):
+            for row in report.get("slowest", []):
+                found = fr.explain(row["activation_id"])
+                if found is not None:
+                    batch = found["batch"]
+                    row["placement"] = {
+                        "seq": batch["seq"],
+                        "kernel": batch["digest"].get("kernel"),
+                        "queue_depth": batch["digest"].get("queue_depth"),
+                        "trace_id": batch["digest"].get("trace_id"),
+                        "timings": batch.get("timings", {}),
+                    }
+        return web.json_response(report)
+
+    # ------------------------------------------------- fleet observatory
+    #: ring rows each member ships for the spill_forward join — enough to
+    #: pair both halves of recent spilled activations without making the
+    #: scrape payload unbounded
+    FLEET_WATERFALL_ROWS = 256
+
+    def _fleet_cfg(self):
+        cfg = getattr(self.c, "fleet_config", None)
+        return cfg if (cfg is not None and cfg.enabled) else None
+
+    def _fleet_disabled(self, request):
+        return _error(404, "the fleet observatory is disabled "
+                      "(CONFIG_whisk_fleetObservatory_enabled=false)",
+                      request.get("transid"))
+
+    async def _fleet_scrape(self, request, cfg, path, extra=None):
+        """Scrape `path` from every live peer (+ `extra` static members).
+        The caller's Authorization header travels with the scrape: the
+        controllers share the auth store, so the credential that opened
+        this endpoint opens the peers'."""
+        from .fleet import FleetScraper
+        members = {}
+        mem = self.c.membership
+        if mem is not None:
+            members.update(mem.peer_directory())
+        if extra:
+            members.update(extra)
+        return await FleetScraper(cfg).scrape(
+            members, path, request.headers.get("Authorization"))
+
+    async def metrics_raw(self, request):
+        """The MetricEmitter snapshot in the federation wire shape —
+        counters/gauges/histogram-lifetime rows with serialized series
+        keys (what /admin/fleet/metrics scrapes from each peer)."""
+        if self._fleet_cfg() is None:
+            return self._fleet_disabled(request)
+        from ..utils.eventlog import identity
+        from .monitoring import metrics_raw
+        return web.json_response(
+            metrics_raw(self.c.metrics.snapshot(), identity()))
+
+    async def fleet_metrics(self, request):
+        """Fleet-merged metrics: counters sum across the live peer
+        directory (plus the configured edge proxy), histogram lifetime
+        count/sum merge, gauges stay per-member. Partial results are
+        labeled via `members_missing`, never a non-200."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        from ..utils.eventlog import identity
+        from .monitoring import merged_metrics, metrics_raw
+        local = metrics_raw(self.c.metrics.snapshot(), identity())
+        peers, missing = await self._fleet_scrape(
+            request, cfg, "/admin/metrics/raw")
+        raws = [local] + [peers[k] for k in sorted(peers)]
+        if cfg.edge_url:
+            # the edge is one more member: its /admin/edge/stats exports
+            # the same counter-row wire shape (plus human-readable extras
+            # the merge ignores)
+            eres, emiss = await self._fleet_scrape(
+                request, cfg, "/admin/edge/stats",
+                extra={"edge": cfg.edge_url})
+            raws += [eres[k] for k in sorted(eres) if k == "edge"]
+            missing += [k for k in emiss if k == "edge"]
+        body = merged_metrics(raws)
+        body["members_missing"] = missing
+        return web.json_response(body)
+
+    async def fleet_waterfall(self, request):
+        """Fleet-merged latency waterfall: per-stage log2 histograms sum
+        bucket-wise bit-exactly, spilled activations' origin/peer ring
+        rows join into one telescoping row, then the ordinary waterfall
+        report renders over the merged counts. `?recent=N` as on the
+        per-process endpoint."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        from .monitoring import merged_waterfall_report
+        try:
+            recent = max(0, int(request.query.get("recent", 0)))
+        except ValueError:
+            return _error(400, "recent must be an integer",
+                          request.get("transid"))
+        raws = []
+        wf = getattr(self.c.load_balancer, "waterfall", None)
+        if wf is not None:
+            raws.append(wf.raw_counts(rows=self.FLEET_WATERFALL_ROWS))
+        peers, missing = await self._fleet_scrape(
+            request, cfg,
+            f"/admin/latency/waterfall?raw=1&rows={self.FLEET_WATERFALL_ROWS}")
+        raws += [peers[k] for k in sorted(peers)]
+        body = merged_waterfall_report(raws, recent=recent)
+        body["members_missing"] = missing
+        return web.json_response(body)
+
+    async def fleet_slo(self, request):
+        """Fleet-merged SLO verdicts: per-namespace / per-invoker bucket
+        and outcome counts merge by label across members, then the SAME
+        judge math as the per-process plane re-judges burn and budget
+        over the MERGED histograms — a fleet-level p99 from counts, not
+        an average of per-process p99s."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        from .monitoring import merged_slo_report
+        raws = []
+        lb = self.c.load_balancer
+        tp = getattr(lb, "telemetry", None)
+        if tp is not None:
+            names = []
+            if hasattr(lb, "_telemetry_invoker_names"):
+                names = lb._telemetry_invoker_names()
+            if tp.SYNCS_DEVICE:
+                raws.append(await asyncio.to_thread(tp.raw_counts, names))
+            else:
+                raws.append(tp.raw_counts(names))
+        peers, missing = await self._fleet_scrape(
+            request, cfg, "/admin/slo?raw=1")
+        raws += [peers[k] for k in sorted(peers)]
+        body = merged_slo_report(raws)
+        body["members_missing"] = missing
+        return web.json_response(body)
+
+    async def fleet_host(self, request):
+        """Fleet-merged host observatory: loop-lag / GC histograms sum
+        bucket-wise, stall/task/serde counters sum, percentiles
+        re-derive from the merged counts."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
+        from .monitoring import merged_host_report
+        raws = [obs.raw_counts()]
+        peers, missing = await self._fleet_scrape(
+            request, cfg, "/admin/profile/host?raw=1")
+        raws += [peers[k] for k in sorted(peers)]
+        body = merged_host_report(raws)
+        body["members_missing"] = missing
+        return web.json_response(body)
+
+    async def fleet_quality(self, request):
+        """Fleet-merged placement quality: regret histograms and
+        attribution counters sum positionally bit-exactly, per-invoker
+        divergence series merge by label, then the fleet regret p99
+        re-derives from the MERGED histogram — counts, not an average of
+        per-member p99s. Imbalance stays per-member (it is a shape
+        statistic over each member's own partition)."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        from .monitoring import merged_quality_report
+        raws = []
+        lb = self.c.load_balancer
+        qp = getattr(lb, "quality", None)
+        if qp is not None and qp.enabled:
+            names = []
+            if hasattr(lb, "_telemetry_invoker_names"):
+                names = lb._telemetry_invoker_names()
+            if qp.SYNCS_DEVICE:
+                raws.append(await asyncio.to_thread(qp.raw_counts, names))
+            else:
+                raws.append(qp.raw_counts(names))
+        peers, missing = await self._fleet_scrape(
+            request, cfg, "/admin/placement/quality?raw=1")
+        raws += [peers[k] for k in sorted(peers)]
+        body = merged_quality_report(raws)
+        body["members_missing"] = missing
+        return web.json_response(body)
+
+    async def fleet_timeline(self, request):
+        """The merged causal cluster event timeline: this controller's
+        event log plus every peer's records folded from the `ctrlevents`
+        topic (bus-fed, no scrape), ordered by wall clock with (mono,
+        seq) tie-breaks. `?limit=N` keeps the newest N events."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        from ..utils.eventlog import GLOBAL_EVENT_LOG
+        from .monitoring import merged_timeline
+        try:
+            limit = max(0, int(request.query.get("limit", 0)))
+        except ValueError:
+            return _error(400, "limit must be an integer",
+                          request.get("transid"))
+        fe = getattr(self.c, "fleet_events", None)
+        if fe is not None:
+            events = fe.events_by_member()
+        else:
+            inst = getattr(getattr(self.c, "instance", None), "instance", None)
+            events = {inst if inst is not None else "local":
+                      GLOBAL_EVENT_LOG.recent()}
+        body = merged_timeline(events, limit=limit)
+        body["evicted"] = GLOBAL_EVENT_LOG.evicted
+        return web.json_response(body)
+
+    # ------------------------------------------------- trace observatory
     def _trace_store(self):
         from ..utils.tracestore import GLOBAL_TRACE_STORE
         return GLOBAL_TRACE_STORE if GLOBAL_TRACE_STORE.enabled else None
@@ -550,11 +985,12 @@ class ControllerApi:
                                   "entry": entry})
 
     async def trace_assembled(self, request):
-        """ONE causal span tree for a trace id, assembled from the halves
-        this process kept (the peers' `/admin/trace/local/{id}` leaves
-        come with the fleet observatory's directory), clock-aligned at the
-        bus handoff pairs and telescoping to the measured e2e. Answers 200
-        with whatever halves there are, never a 500."""
+        """ONE causal span tree for a trace id, assembled from every
+        process that kept a half: the local store plus the live peer
+        directory's `/admin/trace/local/{id}` leaves, clock-aligned at
+        the bus handoff pairs and telescoping to the measured e2e.
+        Per-peer failures degrade to `members_missing` — this endpoint
+        answers 200 with whatever halves arrived, never a 500."""
         store = self._trace_store()
         if store is None:
             return self._trace_disabled(request)
@@ -564,9 +1000,17 @@ class ControllerApi:
         local = store.get(tid)
         if local is not None:
             halves.append(local)
-        # the peers' halves come with the fleet observatory's directory
+        missing = []
+        cfg = self._fleet_cfg()
+        if cfg is not None:
+            peers, missing = await self._fleet_scrape(
+                request, cfg, f"/admin/trace/local/{tid}")
+            for k in sorted(peers):
+                body = peers[k] or {}
+                if body.get("found") and body.get("entry"):
+                    halves.append(body["entry"])
         return web.json_response(
-            assemble_trace(tid, halves, members_missing=[]))
+            assemble_trace(tid, halves, members_missing=missing))
 
     # --------------------------------------------- incident forensics
     def _incidents(self):
@@ -606,9 +1050,10 @@ class ControllerApi:
                                   "incident": payload})
 
     async def incident_get(self, request):
-        """One full forensic bundle. Local bundles answer directly (the
-        peers' `local` leaves come with the fleet observatory's
-        directory)."""
+        """One full forensic bundle. Local bundles answer directly; an id
+        this process never captured falls through to the live peer
+        directory's `local` leaves (per-peer failures degrade to
+        `members_missing`, never a 500)."""
         rec = self._incidents()
         if rec is None:
             return self._incidents_disabled(request)
@@ -617,309 +1062,133 @@ class ControllerApi:
         if payload is not None:
             return web.json_response({"incident": payload,
                                       "member": "local"})
+        cfg = self._fleet_cfg()
+        if cfg is not None:
+            peers, missing = await self._fleet_scrape(
+                request, cfg, f"/admin/incident/local/{iid}")
+            for k in sorted(peers):
+                body = peers[k] or {}
+                if body.get("found") and body.get("incident"):
+                    return web.json_response(
+                        {"incident": body["incident"], "member": k,
+                         "members_missing": missing})
         return _error(404, "incident not found (unknown id, pruned by "
                       "retention, or corrupt bundle)",
                       request.get("transid"))
 
-    # ------------------------------------------------------- admin surface
-    #: the admin routes of the JAX package's API whose plane this package
-    #: does not carry yet, by plane: each answers 404 naming its plane
-    UNPORTED_ADMIN = (
-        ("fleet observatory", (
-            ("GET", "/admin/metrics/raw"),
-            ("GET", "/admin/fleet/metrics"),
-            ("GET", "/admin/fleet/waterfall"),
-            ("GET", "/admin/fleet/slo"),
-            ("GET", "/admin/fleet/host"),
-            ("GET", "/admin/fleet/quality"),
-            ("GET", "/admin/fleet/timeline"),
-            ("GET", "/admin/fleet/incidents"))),
-    )
+    async def fleet_incidents(self, request):
+        """Fleet-wide incident list with member provenance: this
+        process's summary rows plus every live peer's, newest first.
+        A dead (or incidents-disabled) peer degrades to
+        `members_missing` — this endpoint answers 200 with whatever
+        arrived, never a 500."""
+        cfg = self._fleet_cfg()
+        if cfg is None:
+            return self._fleet_disabled(request)
+        # same key space as the peer directory (instance ints), so a
+        # reader can join rows against /admin/fleet/metrics members
+        inst = getattr(getattr(self.c, "instance", None), "instance", None)
+        me = inst if inst is not None else "local"
+        rows = []
+        rec = self._incidents()
+        if rec is not None:
+            for row in rec.list_incidents():
+                rows.append({**row, "member": me})
+        peers, missing = await self._fleet_scrape(
+            request, cfg, "/admin/incidents")
+        for k in sorted(peers):
+            body = peers[k] or {}
+            for row in body.get("incidents") or ():
+                if isinstance(row, dict):
+                    rows.append({**row, "member": k})
+        rows.sort(key=lambda r: r.get("ts") or 0.0, reverse=True)
+        return web.json_response({"incidents": rows,
+                                  "members_missing": missing})
 
-    def _add_unported_admin_routes(self, router) -> None:
-        for plane, routes in self.UNPORTED_ADMIN:
-            async def not_ported(request, plane=plane):
-                return _error(404, f"the {plane} is not ported to "
-                              "openwhisk_tpu_torch yet",
-                              request.get("transid"))
-            for method, path in routes:
-                router.add_route(method, path, not_ported)
-
-    async def placement_quality(self, request):
-        """How good are the placement kernel's decisions: per-row regret
-        (chosen invoker's predicted latency vs the best feasible
-        alternative under the same capacity/permit constraints), fleet
-        occupancy imbalance, forced/overflow/cold-start attribution, and
-        the shadow counterfactual diff against the anomaly-penalized
-        probe geometry. 404 while the plane is disabled — disabled is a
-        true no-op, there is nothing to report."""
-        qp = getattr(self.c.load_balancer, "quality", None)
-        if qp is None or not qp.enabled:
-            return _error(
-                404, "the placement quality plane is disabled "
-                "(CONFIG_whisk_placementQuality_enabled=false)",
-                request.get("transid"))
-        names = []
-        lb = self.c.load_balancer
-        if hasattr(lb, "_telemetry_invoker_names"):
-            names = lb._telemetry_invoker_names()
-        # ?raw=1: the exact-merge export the fleet federation scrapes
-        # (integer bucket counts + label-keyed per-invoker series)
-        raw = request.query.get("raw", "").lower() in ("1", "true", "yes")
-        fn = qp.raw_counts if raw else qp.quality_report
-        if qp.SYNCS_DEVICE:
-            # reading the device QualityState forces a device sync —
-            # worker thread, same policy as /admin/slo
-            report = await asyncio.to_thread(fn, names)
-        else:
-            report = fn(names)
-        return web.json_response(report)
-
-    async def slo_report(self, request):
-        """Is the fleet meeting its latency/error SLOs, and which invokers
-        or tenants are burning the budget: the telemetry plane's evaluation
-        of the `CONFIG_whisk_slo_*` targets against the accumulated
-        per-invoker / per-namespace latency buckets."""
-        tp = getattr(self.c.load_balancer, "telemetry", None)
-        if tp is None:
-            return _error(404, "this balancer has no telemetry plane",
-                          request.get("transid"))
-        names = []
-        lb = self.c.load_balancer
-        if hasattr(lb, "_telemetry_invoker_names"):
-            names = lb._telemetry_invoker_names()
-        # ?raw=1: the label-keyed exact-merge export the fleet federation
-        # scrapes (integer bucket/outcome counts, no verdicts)
-        raw = request.query.get("raw", "").lower() in ("1", "true", "yes")
-        fn = tp.raw_counts if raw else tp.slo_report
-        if tp.SYNCS_DEVICE:
-            # reading device counts forces a device sync — worker thread,
-            # same policy as the occupancy endpoint
-            report = await asyncio.to_thread(fn, names)
-        else:
-            report = fn(names)
-        return web.json_response(report)
-
-    async def profile_kernel(self, request):
-        """The kernel profiling observatory: compile log + classification,
-        cache-key census, kernel builds, per-phase p50/p99 over the last N
-        batches, HBM / memory stats, and capture-window status. Reads are
-        host-side only (no device sync), so this runs inline."""
-        lb = self.c.load_balancer
-        if getattr(lb, "profiler", None) is None:
-            return _error(404, "this balancer has no kernel profiler",
-                          request.get("transid"))
-        if hasattr(lb, "kernel_profile"):
-            return web.json_response(lb.kernel_profile())
-        return web.json_response(lb.profiler.profile_json())
-
-    async def profile_capture(self, request):
-        """Arm a bounded capture window: `{"steps": N}` records the next N
-        dispatch steps at full detail (capped at the configured limit);
-        `"trace_dir"` additionally runs a server-side `torch.profiler`
-        session whose Chrome trace lands there; `"tail_threshold_ms"`
-        re-targets the tail sampler (0 disables it)."""
-        lb = self.c.load_balancer
-        prof = getattr(lb, "profiler", None)
-        if prof is None:
-            return _error(404, "this balancer has no kernel profiler",
-                          request.get("transid"))
-        if not prof.enabled:
-            return _error(409, "kernel profiling is disabled "
-                          "(CONFIG_whisk_profiling_enabled=false)",
-                          request.get("transid"))
-        body = (await request.json()) if request.can_read_body else {}
-        if not isinstance(body, dict):
-            return _error(400, "capture request body must be a JSON object",
-                          request.get("transid"))
-        try:
-            steps = int(body.get("steps", 16))
-            ttl = body.get("tail_threshold_ms")
-            ttl = float(ttl) if ttl is not None else None
-        except (TypeError, ValueError):
-            return _error(400, "steps must be an integer and "
-                          "tail_threshold_ms a number",
-                          request.get("transid"))
-        if steps < 1:
-            return _error(400, "steps must be >= 1", request.get("transid"))
-        trace_dir = body.get("trace_dir")
-        if trace_dir is not None and not isinstance(trace_dir, str):
-            return _error(400, "trace_dir must be a string",
-                          request.get("transid"))
-        return web.json_response(prof.arm_capture(
-            steps, trace_dir=trace_dir, tail_threshold_ms=ttl))
-
-    async def alerts_report(self, request):
-        """The alert plane: configured rules, active (pending + firing)
-        alerts, and the recent transition log from the alert ring.
-        `?limit=N` bounds the transition history (default 50)."""
-        plane = getattr(self.c.load_balancer, "anomaly", None)
-        if plane is None:
-            return _error(404, "this balancer has no anomaly plane",
-                          request.get("transid"))
-        try:
-            limit = max(0, int(request.query.get("limit", 50)))
-        except ValueError:
-            return _error(400, "limit must be an integer",
-                          request.get("transid"))
-        return web.json_response(plane.alerts_report(limit))
-
-    async def anomalies_report(self, request):
-        """Per-invoker anomaly scores (straggler / error-spike /
-        timeout-spike), flags, and evidence — which latency buckets moved
-        since the last detection tick. Device-path evidence forces a
-        device->host sync, so the report runs on a worker thread then
-        (same policy as /admin/slo)."""
-        lb = self.c.load_balancer
-        plane = getattr(lb, "anomaly", None)
-        if plane is None:
-            return _error(404, "this balancer has no anomaly plane",
-                          request.get("transid"))
-        names = None
-        if hasattr(lb, "_telemetry_invoker_names"):
-            names = lb._telemetry_invoker_names()
-        if plane.SYNCS_DEVICE:
-            report = await asyncio.to_thread(plane.anomalies_report, names)
-        else:
-            report = plane.anomalies_report(names)
-        return web.json_response(report)
-
-    async def admin_ready(self, request):
-        """Ops/chaos readiness probe: which placement role this controller
-        holds RIGHT NOW, without scraping /metrics.
-
-        Body: `mode` (single | active_standby | active_active), `ready`,
-        per-partition `{partition, epoch, role, replay}` rows in
-        active/active mode, and the journal's durability state (lag +
-        whether the built-in `journal_stall` alert is firing); a
-        controller in the membership protocol adds the live cluster size.
-        Status is 200 when this controller is placing for at least one
-        partition (or is the global active / a non-HA single); a
-        standby-for-all answers 503 so load checks and the chaos riders
-        read ownership from the status code alone."""
-        lb = self.c.load_balancer
-        ring = getattr(lb, "partition_ring", None)
-        doc = {}
-        if ring is not None:
-            parts = lb.partitions_json()
-            owned = sum(1 for p in parts if p["role"] == "active")
-            doc.update(mode="active_active", partitions=parts,
-                       owned_partitions=owned,
-                       n_partitions=ring.n_partitions,
-                       ready=owned > 0)
-        elif getattr(lb, "fence_epoch", None) is not None \
-                or getattr(lb, "ha_standby", False):
-            active = not lb.ha_standby
-            doc.update(mode="active_standby",
-                       role="active" if active else "standby",
-                       epoch=lb.fence_epoch or 0, ready=active)
-        else:
-            doc.update(mode="single", ready=True)
-        journal = getattr(lb, "journal", None)
-        jdoc = {"attached": journal is not None}
-        if journal is not None:
-            jdoc["lag_batches"] = journal.lag_batches
-        plane = getattr(lb, "anomaly", None)
-        if plane is not None:
-            jdoc["stall_firing"] = any(
-                name == "journal_stall"
-                for (name, _sev) in plane.engine.firing_counts())
-        doc["journal"] = jdoc
-        mem = self.c.membership
-        if mem is not None:
-            doc["cluster_size"] = mem.cluster_size
-        return web.json_response(doc, status=200 if doc["ready"] else 503)
-
-    async def latency_waterfall(self, request):
-        """Where does the end-to-end latency live: per-stage p50/p90/p99
-        from the waterfall plane's log2 histograms, the stage-median budget
-        against the measured e2e median, dominant-stage tail attribution,
-        and the slowest-activation exemplar rows. Host-side numpy only, so
-        it runs inline on the event loop. `?recent=N` adds the last N
-        completed rows."""
-        wf = getattr(self.c.load_balancer, "waterfall", None)
-        if wf is None:
-            return _error(404, "this balancer has no latency waterfall",
-                          request.get("transid"))
-        try:
-            recent = max(0, int(request.query.get("recent", 0)))
-            rows = max(0, int(request.query.get("rows", 0)))
-        except ValueError:
-            return _error(400, "recent/rows must be integers",
-                          request.get("transid"))
-        if request.query.get("raw", "").lower() in ("1", "true", "yes"):
-            return web.json_response(wf.raw_counts(rows=rows))
-        return web.json_response(wf.report(recent=recent))
-
+    # --------------------------------------------- admin surface index
     async def admin_index(self, request):
-        """Every /admin route of the JAX package's surface with its state
-        here: `enabled: false` rows answer 404, and `plane` names what is
-        not ported yet."""
+        """Every documented /admin route with its config-knob state.
+        `enabled: false` rows answer 404 with a
+        `disabled (CONFIG_...)` message when probed — the conformance
+        suite (tests/test_admin_conformance.py) holds the surface to
+        exactly this contract."""
         return web.json_response({"routes": self._admin_routes()})
 
     def _admin_routes(self) -> list:
         lb = self.c.load_balancer
-
         fr = self._flight_recorder()
         qp = getattr(lb, "quality", None)
         prof = getattr(lb, "profiler", None)
         from ..utils.hostprof import GLOBAL_HOST_OBSERVATORY as obs
+        fleet_on = self._fleet_cfg() is not None
         traces_on = self._trace_store() is not None
         incidents_on = self._incidents() is not None
 
-        def row(path, method, enabled, plane=None, knob=None):
+        def row(path, method, knob, enabled):
             return {"path": path, "method": method, "knob": knob,
-                    "enabled": bool(enabled), "plane": plane}
+                    "enabled": bool(enabled)}
 
-        rows = [
-            row("/admin", "GET", True),
-            row("/admin/placement/recent", "GET", fr is not None,
-                knob="CONFIG_whisk_loadBalancer_flightRecorder_enabled"),
+        return [
+            row("/admin", "GET", None, True),
+            row("/admin/placement/recent", "GET",
+                "CONFIG_whisk_loadBalancer_flightRecorder_enabled",
+                fr is not None),
             row("/admin/placement/explain/{activation_id}", "GET",
-                fr is not None,
-                knob="CONFIG_whisk_loadBalancer_flightRecorder_enabled"),
-            row("/admin/placement/occupancy", "GET", lb is not None),
+                "CONFIG_whisk_loadBalancer_flightRecorder_enabled",
+                fr is not None),
+            row("/admin/placement/occupancy", "GET", None,
+                lb is not None),
             row("/admin/placement/quality", "GET",
-                qp is not None and qp.enabled,
-                knob="CONFIG_whisk_placementQuality_enabled"),
-            row("/admin/slo", "GET",
+                "CONFIG_whisk_placementQuality_enabled",
+                qp is not None and qp.enabled),
+            row("/admin/slo", "GET", None,
                 getattr(lb, "telemetry", None) is not None),
-            row("/admin/profile/kernel", "GET", prof is not None,
-                knob="CONFIG_whisk_profiling_enabled"),
+            row("/admin/profile/kernel", "GET",
+                "CONFIG_whisk_profiling_enabled", prof is not None),
             row("/admin/profile/capture", "POST",
-                prof is not None and prof.enabled,
-                knob="CONFIG_whisk_profiling_enabled"),
-            row("/admin/profile/host", "GET", True,
-                knob="CONFIG_whisk_hostProfiling_enabled"),
+                "CONFIG_whisk_profiling_enabled",
+                prof is not None and prof.enabled),
+            row("/admin/profile/host", "GET",
+                "CONFIG_whisk_hostProfiling_enabled", True),
             row("/admin/profile/host/capture", "POST",
-                obs.enabled and obs.sampler_running,
-                knob="CONFIG_whisk_hostProfiling_enabled"),
-            row("/admin/alerts", "GET",
-                getattr(lb, "anomaly", None) is not None,
-                knob="CONFIG_whisk_anomaly_enabled"),
-            row("/admin/anomalies", "GET",
-                getattr(lb, "anomaly", None) is not None,
-                knob="CONFIG_whisk_anomaly_enabled"),
-            row("/admin/latency/waterfall", "GET",
+                "CONFIG_whisk_hostProfiling_enabled",
+                obs.enabled and obs.sampler_running),
+            row("/admin/alerts", "GET", "CONFIG_whisk_anomaly_enabled",
+                getattr(lb, "anomaly", None) is not None),
+            row("/admin/anomalies", "GET", "CONFIG_whisk_anomaly_enabled",
+                getattr(lb, "anomaly", None) is not None),
+            row("/admin/latency/waterfall", "GET", None,
                 getattr(lb, "waterfall", None) is not None),
-            row("/admin/ready", "GET", True),
-            row("/admin/traces", "GET", traces_on,
-                knob="CONFIG_whisk_tracing_tail_enabled"),
-            row("/admin/trace/local/{trace_id}", "GET", traces_on,
-                knob="CONFIG_whisk_tracing_tail_enabled"),
-            row("/admin/trace/{trace_id}", "GET", traces_on,
-                knob="CONFIG_whisk_tracing_tail_enabled"),
-            row("/admin/incidents", "GET", incidents_on,
-                knob="CONFIG_whisk_incidents_enabled"),
-            row("/admin/incident/local/{incident_id}", "GET", incidents_on,
-                knob="CONFIG_whisk_incidents_enabled"),
-            row("/admin/incident/{incident_id}", "GET", incidents_on,
-                knob="CONFIG_whisk_incidents_enabled"),
+            row("/admin/ready", "GET", None, True),
+            row("/admin/metrics/raw", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/fleet/metrics", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/fleet/waterfall", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/fleet/slo", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/fleet/host", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/fleet/quality", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/fleet/timeline", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
+            row("/admin/traces", "GET",
+                "CONFIG_whisk_tracing_tail_enabled", traces_on),
+            row("/admin/trace/local/{trace_id}", "GET",
+                "CONFIG_whisk_tracing_tail_enabled", traces_on),
+            row("/admin/trace/{trace_id}", "GET",
+                "CONFIG_whisk_tracing_tail_enabled", traces_on),
+            row("/admin/incidents", "GET",
+                "CONFIG_whisk_incidents_enabled", incidents_on),
+            row("/admin/incident/local/{incident_id}", "GET",
+                "CONFIG_whisk_incidents_enabled", incidents_on),
+            row("/admin/incident/{incident_id}", "GET",
+                "CONFIG_whisk_incidents_enabled", incidents_on),
+            row("/admin/fleet/incidents", "GET",
+                "CONFIG_whisk_fleetObservatory_enabled", fleet_on),
         ]
-        for plane, routes in self.UNPORTED_ADMIN:
-            rows += [row(path, method, False, plane)
-                     for method, path in routes]
-        return rows
 
     async def placement_occupancy(self, request):
         """Per-invoker slots-in-use/capacity derived from the balancer

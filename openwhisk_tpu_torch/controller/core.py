@@ -1,20 +1,23 @@
 """Controller assembly: wires stores, balancer, entitlement, APIs.
 
 A copy of `openwhisk_tpu/controller/core.py` (rebuild of
-core/controller/.../controller/Controller.scala:74-166) for one controller:
-it boots the HTTP service, resolves the load balancer, entitlement,
-authentication and stores, and exposes /invokers and /metrics. Rule status
+core/controller/.../controller/Controller.scala:74-166): it boots the HTTP
+service, resolves the SPIs (load balancer, entitlement, authentication,
+stores), ensures bus topics, exposes /invokers and /metrics. Rule status
 lives on the trigger document exactly as in the reference (Rules.scala).
+
 `start` installs the host observatory on the controller's loop (and the
-opt-in GC tuning) and keeps the event log on while an incident recorder is
-armed; `stop` uninstalls the observatory. A clustering balancer (one that
-overrides `update_cluster`, as the TPU and sharding balancers do) joins the
-controller membership protocol at `start` and leaves it at `stop`, as in
-the reference, with the HA failover, partition ring, partition callback
-and spillover load hint an assembler set before `start`; a spillover or
-funnel receiver it attached starts and stops with the controller. The
-fleet observatory (its identity block, admin address and fleet events) is
-not ported yet.
+opt-in GC tuning). With the fleet observatory on (the default;
+`CONFIG_whisk_fleetObservatory_enabled`) it sets this process's identity
+block, turns the event log on, announces the controller's admin address
+in its membership heartbeats and starts `FleetEvents` (the `ctrlevents`
+publisher and consumer); an armed incident recorder keeps the event log on
+with the fleet off. A clustering balancer (one that overrides
+`update_cluster`, as the TPU and sharding balancers do) joins the
+controller membership protocol at `start` and leaves it at `stop`, with
+the HA failover, partition ring, partition callback and spillover load
+hint an assembler set before `start`; a spillover or funnel receiver it
+attached starts and stops with the controller.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Optional
 
 from aiohttp import web
 
+from .. import spi
 from ..containerpool.logstore import ContainerLogStore
 from ..core.entity import (ACTIVE, ControllerInstanceId, INACTIVE, ReducedRule)
 from ..database import (ArtifactActivationStore, AuthStore, EntityStore,
@@ -30,10 +34,10 @@ from ..database import (ArtifactActivationStore, AuthStore, EntityStore,
 from ..utils.logging import Logging, MetricEmitter
 from .api import ControllerApi
 from .cors import CorsSettings
+from .loadbalancer.base import LoadBalancer
 from .authentication import BasicAuthenticationProvider
 from .entitlement import LocalEntitlementProvider
 from .invoke import ActionInvoker
-from .loadbalancer.base import LoadBalancer
 from .routemgmt import ApiRouteManager
 from .sequences import SequenceInvoker
 from .triggers_service import TriggerService
@@ -92,6 +96,15 @@ class Controller:
         self.api = ControllerApi(self)
         self._runner: Optional[web.AppRunner] = None
         self.membership = None
+        # (method, path, handler) triples mounted beside /api/v1 at start —
+        # the seam the standalone playground UI plugs into. These are
+        # operator-mounted dev/ops pages, served without platform auth (the
+        # playground page authenticates its own API calls)
+        self.extra_routes = list(extra_routes or [])
+        self.public_extra_paths = {path for _, path, _ in self.extra_routes}
+        # resources an assembler (e.g. standalone) co-locates with this
+        # controller; each must expose an async stop()
+        self.owned_resources: list = []
         # HA failover (loadbalancer/membership.py leadership): assemblers
         # set these BEFORE start() to run the epoch-fenced active/standby
         # protocol on the membership heartbeats. on_leadership(epoch,
@@ -107,21 +120,19 @@ class Controller:
         self.ha_partition_ring = None
         self.on_partitions = None
         self.spillover_receiver = None
-        # admission funnel (loadbalancer/funnel.py): the balancer-role
-        # assembler attaches a FunnelReceiver BEFORE start(); started/
-        # stopped with the controller like spillover. None (the default
-        # and the --role all path) keeps the single-process behavior
-        # bit-exact.
+        # admission funnel (loadbalancer/funnel.py): the
+        # balancer-role assembler attaches a FunnelReceiver BEFORE
+        # start(); started/stopped with the controller like spillover.
+        # None (the default and the --role all path) keeps today's
+        # single-process behavior bit-exact.
         self.funnel_receiver = None
-        # (method, path, handler) triples mounted beside /api/v1 at start —
-        # the seam the standalone playground UI plugs into. These are
-        # operator-mounted dev/ops pages, served without platform auth (the
-        # playground page authenticates its own API calls)
-        self.extra_routes = list(extra_routes or [])
-        self.public_extra_paths = {path for _, path, _ in self.extra_routes}
-        # resources an assembler (e.g. standalone) co-locates with this
-        # controller; each must expose an async stop()
-        self.owned_resources: list = []
+        # fleet observatory: resolved once at assembly; start()
+        # wires the admin-address announcement, the identity block and the
+        # ctrlevents publisher only when enabled, so disabled stays a TRUE
+        # no-op (byte-exact heartbeats, no topic, endpoints 404)
+        from ..utils.eventlog import fleet_config
+        self.fleet_config = fleet_config()
+        self.fleet_events = None
 
     # -- rule status handling (status lives on the trigger doc) ------------
     async def rule_status(self, rule) -> str:
@@ -151,13 +162,29 @@ class Controller:
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self, host: str = "127.0.0.1", port: int = 3233) -> None:
-        from ..utils.eventlog import GLOBAL_EVENT_LOG
+        # fleet observatory identity: who this process is in every
+        # snapshot the federation merges (partitions resolve live from
+        # the balancer so the block tracks ownership changes)
+        from ..utils.eventlog import GLOBAL_EVENT_LOG, set_identity
+        fleet_on = self.fleet_config.enabled
         # an armed incident recorder (utils/blackbox.py) forces the event
-        # log on — its structural-distress triggers arrive through it
+        # log on — its structural-distress triggers arrive through it —
+        # so a fleet-off deployment must not disarm it here
         from ..utils.blackbox import GLOBAL_INCIDENTS
         incidents_armed = GLOBAL_INCIDENTS.stats()["installed"]
-        if incidents_armed:
-            GLOBAL_EVENT_LOG.enabled = True
+        GLOBAL_EVENT_LOG.enabled = fleet_on or incidents_armed
+        if fleet_on:
+            lb_ = self.load_balancer
+
+            def owned_parts():
+                if getattr(lb_, "partition_ring", None) is not None:
+                    return [p["partition"] for p in lb_.partitions_json()
+                            if p["role"] == "active"]
+                return []
+
+            set_identity(instance=self.instance.instance, role="controller",
+                         partitions_fn=owned_parts)
+        admin_url = f"http://{host}:{port}" if fleet_on else None
         # host hot-loop observatory (utils/hostprof.py): event-loop lag,
         # GC pauses, task churn/serde accounting and the sampling profiler
         # arm on THIS controller's loop; the renderer joins this
@@ -207,8 +234,17 @@ class Controller:
                 ring=self.ha_partition_ring,
                 on_partitions=self.on_partitions,
                 load_hint=(load_hint if self.ha_partition_ring is not None
-                           else None))
+                           else None),
+                admin_url=admin_url)
             self.membership.start()
+        if fleet_on:
+            # structural events -> ctrlevents topic, peers' frames folded
+            # for the merged /admin/fleet/timeline
+            from .fleet import FleetEvents
+            self.fleet_events = FleetEvents(
+                self.provider, self.instance.instance,
+                config=self.fleet_config, logger=self.logger)
+            self.fleet_events.start()
         if self.spillover_receiver is not None:
             self.spillover_receiver.start()
         if self.funnel_receiver is not None:
@@ -232,6 +268,9 @@ class Controller:
             await self._runner.cleanup()
         if self.membership is not None:
             await self.membership.stop()  # sends the graceful leave
+        if self.fleet_events is not None:
+            await self.fleet_events.stop()
+            self.fleet_events = None
         if self.spillover_receiver is not None:
             await self.spillover_receiver.stop()
         if self.funnel_receiver is not None:

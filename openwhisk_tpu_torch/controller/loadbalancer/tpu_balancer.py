@@ -56,13 +56,26 @@ or "cuda") the schedule always runs the CUDA kernels (`_cuda_pair`); the
 release and health folds are plain torch ops on the card. On the CPU
 (`device="cpu"`) everything is the plain torch version (`_torch_pair`).
 The books are updated in place.
+
+The path settings are the JAX package's `PlacementPathConfig`
+(`CONFIG_whisk_loadBalancer_*`, constructor arguments first). With
+`prewarm` on (the default) a balancer on the card builds and loads its
+kernels off the event loop from its constructor (`placement_cuda.prewarm`,
+one job a process) and then warms its step on dummy books there; the
+constructor itself runs the 1 Hz tick's device programs once. A flush
+waits for the job's future without blocking the loop, a journal replay or
+an absorb waits for the same job, and a failed build fails every
+dispatch. With it off the first dispatch builds them on the loop.
 """
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import threading
 import time
 import zlib
 from collections import deque
+from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -74,7 +87,8 @@ from ...messaging.message import ActivationMessage
 from ...messaging.tcp import export_bus_gauges
 from ...models.sharding_policy import (MIN_SLOT_MB, generate_hash,
                                        pairwise_coprimes)
-from ...ops.anomaly import S_EWMA_MS, S_STRAGGLER_FLAG
+from ...ops.anomaly import (S_EWMA_MS, S_STRAGGLER_FLAG, init_anomaly,
+                            make_anomaly_step)
 from ...ops.decision_quality import (S_DIVERGENT, S_IMBALANCE_COV,
                                      S_REGRET_SUM_MS, pad_quality_state)
 from ...ops.placement import (PlacementState, empty_books_like, init_state,
@@ -85,11 +99,14 @@ from ...ops.placement import (PlacementState, empty_books_like, init_state,
                               release_batch_vector, resolve_device,
                               schedule_batch, schedule_batch_repair,
                               set_health, unpack_chosen, unpack_step_output)
+from ...ops import placement_cuda
 from ...ops.placement_cuda import (schedule_batch_cuda,
                                    schedule_batch_repair_cuda,
                                    to_transposed)
 from ...ops.profiler import pow2_statics
+from ...ops.telemetry import init_telemetry, record_packed
 from ...ops.throttle import init_buckets
+from ...utils.config import load_config
 from ...utils.eventlog import GLOBAL_EVENT_LOG
 from ...utils.hostprof import GLOBAL_HOST_OBSERVATORY
 from ...utils.ring_buffer import ColumnRing
@@ -111,6 +128,55 @@ MIN_PAD = 64
 
 #: request-row index of the concurrency slot
 R_CONC_SLOT = 5
+
+
+@dataclass(frozen=True)
+class PlacementPathConfig:
+    """`CONFIG_whisk_loadBalancer_*` hot-path knobs (constructor arguments
+    override the env), the JAX package's fields and defaults.
+
+    The port honours four of them:
+      placement_kernel: which batch algorithm schedules a micro-batch:
+        "scan", "repair", or "auto" (the scan below REPAIR_MIN_BATCH rows,
+        the repair from there), on the card's kernels or the CPU's plain
+        versions alike.
+      adaptive_window: under arrival pressure, trade a bounded
+        accumulation delay (ADAPTIVE_WINDOW_MS) for bigger micro-batches;
+        off = the eager/window policy alone.
+      batch_publish: advertise the batch-shaped publish SPI to the front
+        end (`publish_many`); off routes it through the serial path.
+      prewarm: the early build. On the card, the constructor runs the
+        1 Hz tick's device programs once and starts one worker-thread
+        job that builds (nvcc) and loads every placement kernel, resolves
+        its launcher (`placement_cuda.prewarm`) and warms the step on
+        dummy books; a flush waits for it without blocking the event
+        loop, and a journal replay or an absorb waits for the same job.
+        A build that fails fails every dispatch. Off = the legacy build
+        on demand: the first dispatch builds the kernels on the event
+        loop. The JAX package's successor-bucket ladder (compiles of the
+        next XLA shapes) has no counterpart: the port compiles no
+        per-shape program, and a bucket's first step costs what a repeat
+        costs within about 1 ms, the spread of the repeats (PERF.md §6).
+
+    The others name an XLA, Pallas or mesh choice and change nothing in
+    the port; they are parsed so that one environment configures both
+    packages. `kernel` picks XLA or Pallas: the port has one backend a
+    device (the CUDA kernels on the card, the plain versions on the CPU),
+    so neither it nor `calibrate_kernel` (the measured XLA/Pallas pick) has
+    anything to choose. `donate_state` and `ring_assembly` are what the
+    port always does (the books are updated in place; rows are packed from
+    column rings). `fleet_mesh` and `fleet_shards` wait for the port's
+    multi-device fleet: the books live on one device."""
+    placement_kernel: str = "auto"   # scan | repair | auto
+    kernel: str = "auto"             # xla | pallas | auto
+    donate_state: bool = True
+    ring_assembly: bool = True
+    prewarm: bool = True
+    calibrate_kernel: str = "auto"   # auto | force | off
+    adaptive_window: bool = True
+    fleet_mesh: bool = False
+    fleet_shards: int = 0
+    batch_publish: bool = True
 
 
 def _next_pow2(n: int) -> int:
@@ -565,11 +631,17 @@ class TpuBalancer(CommonLoadBalancer):
                  max_action_slots: int = 65536, initial_pad: int = 64,
                  pipeline_depth: int = 4,
                  rate_limit_per_minute: Optional[int] = None,
-                 placement_kernel: str = "auto",
-                 adaptive_window: bool = True, batch_publish: bool = True,
+                 placement_kernel: Optional[str] = None,
+                 adaptive_window: Optional[bool] = None,
+                 batch_publish: Optional[bool] = None,
+                 prewarm: Optional[bool] = None,
                  device=None, metrics=None, profiler=None, anomaly=None,
                  quality=None):
         self.device = resolve_device(device)
+        path_cfg = load_config(PlacementPathConfig, env_path="load_balancer")
+        if placement_kernel is None:
+            placement_kernel = path_cfg.placement_kernel
+        _check_kernel(placement_kernel)
         super().__init__(messaging_provider, controller_instance, logger,
                          metrics=metrics, profiler=profiler, anomaly=anomaly,
                          quality=quality)
@@ -584,8 +656,17 @@ class TpuBalancer(CommonLoadBalancer):
         self.action_slots = action_slots
         self.max_action_slots = max(max_action_slots, action_slots)
         self.placement_kernel = placement_kernel
-        self.adaptive_window = adaptive_window
-        self.batch_publish = batch_publish
+        self.adaptive_window = (adaptive_window if adaptive_window is not None
+                                else path_cfg.adaptive_window)
+        self.batch_publish = (batch_publish if batch_publish is not None
+                              else path_cfg.batch_publish)
+        self.prewarm = prewarm if prewarm is not None else path_cfg.prewarm
+        #: the early build's job (prewarm on the card, started at the end
+        #: of the constructor): a future that is done once every kernel is
+        #: built and loaded and the step warmed, off the event loop; None =
+        #: nothing to wait for (the CPU, or prewarm off)
+        self._kernels_job: Optional[concurrent.futures.Future] = None
+        self._kernels_waiter = False
         self.rate_limit_per_minute = rate_limit_per_minute
         self.pipeline_depth = max(1, pipeline_depth)
         self._n_pad = initial_pad
@@ -722,6 +803,13 @@ class TpuBalancer(CommonLoadBalancer):
         # per dispatch cycle (_dispatch_batch / idle _device_step)
         if self.telemetry.enabled:
             self.telemetry.use_device(self._n_pad, self.device)
+        if self.prewarm and self.device.type == "cuda":
+            # the tick's programs here, before the loop runs anything of
+            # this balancer: warmed on a worker thread they contend with
+            # the loop's first tick inside the CUDA runtime (measured: the
+            # tick stalled longer)
+            self._warm_planes()
+            self._kernels_job = self._start_early_build()
 
     # -- device state ------------------------------------------------------
     def _slot_mb(self, user_memory_mb: int) -> int:
@@ -1095,6 +1183,7 @@ class TpuBalancer(CommonLoadBalancer):
         still correct when the consumer abandons the generator early:
         finalization (journal un-mute, host-books refresh, last_seq) runs
         in the generator's `finally`, i.e. also on `close()`."""
+        self._await_kernels()
         log = logger or self.logger
         if stats is None:
             stats = {}
@@ -2035,6 +2124,8 @@ class TpuBalancer(CommonLoadBalancer):
         while True:
             if delay:
                 await asyncio.sleep(delay)
+            if self._defer_until_built():
+                return  # the early build's completion re-arms the flush
             async with self._step_lock:
                 await self._device_step()
             if not (self._pending or self._releases or self._health_updates):
@@ -2046,11 +2137,137 @@ class TpuBalancer(CommonLoadBalancer):
         task is mid-step (the dispatch body has no awaits)."""
         if (self._pending and not self._step_lock.locked()
                 and self._inflight_steps < self.pipeline_depth
-                and not self._closing):
+                and not self._closing and not self._defer_until_built()):
             self._set_inflight(1)
             self._dispatch_batch()
             return True
         return False
+
+    # -- the early build ---------------------------------------------------
+    def _defer_until_built(self) -> bool:
+        """True while rows wait and the early build is still running: the
+        flush is deferred, and re-armed on the loop when the job's future
+        completes. A dispatch never enters the build from the loop (it
+        would block on the build's lock, which the worker holds)."""
+        job = self._kernels_job
+        if job is None or job.done() or not self._pending:
+            return False
+        if not self._kernels_waiter:
+            self._kernels_waiter = True
+            loop = asyncio.get_event_loop()
+            job.add_done_callback(
+                lambda _f: loop.call_soon_threadsafe(self._kernels_built))
+        return True
+
+    def _start_early_build(self) -> concurrent.futures.Future:
+        """The early build on a daemon worker thread: the process's kernel
+        build and load (`placement_cuda.prewarm`, shared by every balancer
+        of the process), then this balancer's warm steps."""
+        build = placement_cuda.prewarm()
+        job: concurrent.futures.Future = concurrent.futures.Future()
+        job.set_running_or_notify_cancel()
+
+        def run():
+            try:
+                build.result()
+                self._warm_steps()
+            except BaseException as e:  # noqa: BLE001 — to the waiters
+                job.set_exception(e)
+            else:
+                job.set_result(None)
+
+        threading.Thread(target=run, name="balancer-early-build",
+                         daemon=True).start()
+        return job
+
+    def _warm_steps(self) -> None:
+        """The JAX package's warm step (`_warm_fns`), here on the worker
+        thread: the packed step (and the shadow step, with the quality
+        plane on) once at each family's bucket, the scan's and the
+        repair's, on all-zero dummy books of the live shape, with the
+        readback's pinned copy. Valid masks are 0, so nothing places or
+        releases. It warms what a process's first step pays on the loop
+        otherwise: the kernels' runtime and launch set-up, the modules of
+        the step's torch ops, the pinned staging memory. Its launches do
+        not count."""
+        rate_on = self.rate_limit_per_minute is not None
+        rows = 10 if rate_on else 9
+        h = self.HEALTH_BATCH
+        with placement_cuda.uncounted():
+            for bp in sorted({self._bucket(1, self.max_batch),
+                              self._bucket(REPAIR_MIN_BATCH,
+                                           self.max_batch)}):
+                req = np.zeros((rows, bp), np.int32)
+                req[1] = req[6] = 1  # padded columns: size 1, max_conc 1
+                buf = np.concatenate([np.zeros(5 * bp + 3 * h, np.int32),
+                                      req.ravel()])
+                dummy = init_state(1, [0], n_pad=self._n_pad,
+                                   action_slots=self.action_slots,
+                                   device=self.device)
+                dbuf = self._to_device(buf)
+                st, now = dummy, ()
+                if rate_on:  # the admit variant: bucket state and a clock
+                    st = (dummy, init_buckets(self.RATE_NS_BUCKETS,
+                                              self.rate_limit_per_minute,
+                                              device=self.device))
+                    now = (np.float32(0.0),)
+                if self._shadow_fn is not None:
+                    self._shadow_fn(st, dbuf,
+                                    torch.zeros_like(dummy.free_mb), *now,
+                                    bp, h, bp,
+                                    scratch=empty_books_like(dummy))
+                _, out = self._packed_fn(st, dbuf, *now, bp, h, bp)
+                self._warm_readback(out)
+
+    def _warm_planes(self) -> None:
+        """The 1 Hz tick's device programs once on dummy state, from the
+        constructor: the telemetry fold and the anomaly step, with the
+        scores' pinned copy (a process's first tick pays their modules on
+        the loop otherwise, about half a second on the card). The planes
+        are observability: a failure here is logged, as theirs are, and
+        fails no placement."""
+        acc = getattr(self.telemetry, "accumulator", None)
+        if not (self.telemetry.enabled
+                and getattr(acc, "kernel", "") == "device"):
+            return
+        try:
+            tstate = record_packed(
+                init_telemetry(acc.n_invokers, acc.n_namespaces,
+                               acc.n_buckets, device=self.device),
+                self._to_device(np.zeros((5, 8), np.int32)), acc.bounds)
+            if self.anomaly.enabled:
+                _, scores = make_anomaly_step(*self.anomaly._cfg_args())(
+                    init_anomaly(acc.n_invokers, acc.n_buckets,
+                                 device=self.device),
+                    tstate.inv_buckets, tstate.inv_lat_ms,
+                    tstate.inv_outcomes)
+                self._warm_readback(scores)
+        except Exception as e:  # noqa: BLE001 — observability only
+            if self.logger:
+                self.logger.warn(None, f"plane warm-up failed: {e!r}",
+                                 "TpuBalancer")
+
+    def _warm_readback(self, out: torch.Tensor) -> None:
+        """A warm step's result copied to pinned host memory and waited
+        for (on the card), as a readback is."""
+        if self.device.type == "cuda":
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+
+    def _kernels_built(self) -> None:
+        self._kernels_waiter = False
+        if self._pending:
+            self._arm_flush(urgent=True)
+
+    def _await_kernels(self) -> None:
+        """Wait for the early build (a journal replay, an absorb) and
+        raise its failure: a dispatch whose kernels failed to build fails,
+        and so does every dispatch after it."""
+        if self._kernels_job is not None:
+            self._kernels_job.result()
 
     def _release_packed(self, pad_to: Optional[int] = None) -> np.ndarray:
         return pack_releases(self._rel_ring, self._releases, self._slots,
@@ -2187,6 +2404,7 @@ class TpuBalancer(CommonLoadBalancer):
         # dispatch-stage outlier in the waterfall into an attributed cause
         GLOBAL_HOST_OBSERVATORY.begin_dispatch()
         try:
+            self._await_kernels()  # done here: the flush waited for it
             dbuf = self._to_device(buf)
             shadow_out = self._shadow_pass(dbuf, now32, r, h, bp)
             if rate_on:

@@ -22,11 +22,19 @@ For a CUDA tensor a wrapper launches its kernel or raises; it takes the
 plain version only for tensors on the CPU. Each wrapper counts its
 launches in `.launches`, and of them the launches that carry a penalty
 (the quality plane's shadow pass) in `.penalized_launches`.
+
+A kernel is built (nvcc) and loaded at its first launch, or ahead of it by
+`prewarm()`: one worker-thread job a process that builds both sources,
+loads them and resolves each launcher (the balancer's early build, which
+then warms its step with launches inside `uncounted()`).
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import ctypes
-from typing import Dict
+import threading
+from typing import Dict, Optional
 
 import torch
 
@@ -101,6 +109,63 @@ def _launcher(kind: str):
     return fn
 
 
+def load_all() -> None:
+    """Build every placement kernel (one nvcc a source, all started
+    together), load each library and resolve each launcher, so that no
+    later launch enters the build."""
+    _build.build(SOURCES)
+    for kind in _SIGNATURES:
+        _launcher(kind)
+
+
+#: per thread: launches made inside `uncounted()` add nothing to the counts
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches of this thread inside the block do not count (the early
+    build's warm step on dummy books is no placement)."""
+    _counting.off = True
+    try:
+        yield
+    finally:
+        _counting.off = False
+
+
+def _counts() -> bool:
+    return not getattr(_counting, "off", False)
+
+
+_prewarm_lock = threading.Lock()
+_prewarm_job: Optional[concurrent.futures.Future] = None
+
+
+def prewarm() -> concurrent.futures.Future:
+    """The process's early build: `load_all` on a daemon worker thread,
+    started by the first call; every later call (another balancer of the
+    same process) gets the same future. A failed build stays failed: its
+    future carries the error to every caller."""
+    global _prewarm_job
+    with _prewarm_lock:
+        if _prewarm_job is None:
+            fut: concurrent.futures.Future = concurrent.futures.Future()
+            fut.set_running_or_notify_cancel()
+
+            def run():
+                try:
+                    load_all()
+                except BaseException as e:  # noqa: BLE001 — to the waiters
+                    fut.set_exception(e)
+                else:
+                    fut.set_result(None)
+
+            threading.Thread(target=run, name="kernel-prewarm",
+                             daemon=True).start()
+            _prewarm_job = fut
+        return _prewarm_job
+
+
 def _check(state: PlacementState, batch: RequestBatch, penalty):
     """Validate what the kernels take; returns (n, a, b, reqs int32[9,B])."""
     free, conc, health = state
@@ -164,8 +229,10 @@ def schedule_batch_cuda(state: PlacementState, batch: RequestBatch,
         if rc != 0:
             raise RuntimeError(f"placement_scan launch failed: CUDA error "
                                f"{rc}")
-        schedule_batch_cuda.launches += 1
-        schedule_batch_cuda.penalized_launches += int(penalty is not None)
+        if _counts():
+            schedule_batch_cuda.launches += 1
+            schedule_batch_cuda.penalized_launches += int(
+                penalty is not None)
         schedule_batch_cuda.cluster = {
             "blocks": shape[0], "threads": SCAN_THREADS,
             "columns_per_thread": shape[1], "register_columns": shape[2],
@@ -212,8 +279,10 @@ def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"placement_repair launch failed: CUDA error {rc}")
-    schedule_batch_repair_cuda.launches += 1
-    schedule_batch_repair_cuda.penalized_launches += int(penalty is not None)
+    if _counts():
+        schedule_batch_repair_cuda.launches += 1
+        schedule_batch_repair_cuda.penalized_launches += int(
+            penalty is not None)
     schedule_batch_repair_cuda.grid = {"blocks": blocks.value,
                                        "threads": REPAIR_THREADS}
     return state, chosen, forced.bool(), rounds.reshape(())

@@ -409,6 +409,10 @@ CUTS = {
     "edge/__init__.py": [],
     "edge/__main__.py": [],
     "edge/proxy.py": [],
+    "controller/fleet.py": [],
+    "controller/monitoring.py": [],
+    "controller/core.py": [],
+    "controller/api.py": [],
     "controller/loadbalancer/quality.py": [
         ("the accumulator read on the host",
          "                                     QualityState, "

@@ -247,6 +247,9 @@ def test_kernel_builds_are_censused(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
     monkeypatch.setattr(_build, "_libs", {})
+    # a census of its own: the process-wide one stays as other files'
+    # tests expect it (no build on the CPU path)
+    monkeypatch.setattr(TPR, "_BUILD_LOG", type(TPR._BUILD_LOG)(256))
     before = len(TPR.kernel_builds())
     lib = _build.load("probe_kernel")
     assert lib.probe() == 7

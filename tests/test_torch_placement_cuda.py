@@ -8,6 +8,8 @@ skipped with the reason printed. Run it on the card with
 
 Comparisons are bit-exact: chosen, forced, rounds, free and conc.
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -342,3 +344,51 @@ def test_balancer_core_card_equals_cpu():
     assert out[0][0] == out[1][0]
     for x, y in zip(out[0][1], out[1][1]):
         np.testing.assert_array_equal(x, y)
+
+
+def test_prewarm_builds_and_loads_every_kernel_off_the_caller(
+        monkeypatch, tmp_path):
+    """The early build from an empty build directory: `prewarm()` returns
+    at once, its worker runs nvcc for both sources and loads them, every
+    launcher is resolved when its future completes, the census shows the
+    builds, and a second call shares the job."""
+    from openwhisk_tpu_torch.ops import _build
+    from openwhisk_tpu_torch.ops.profiler import kernel_builds
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(K, "_launchers", {})
+    monkeypatch.setattr(K, "_prewarm_job", None)
+    seen = len(kernel_builds())
+    t0 = time.monotonic()
+    job = K.prewarm()
+    assert time.monotonic() - t0 < 0.5
+    assert K.prewarm() is job
+    job.result(timeout=300)
+    assert set(K._launchers) == {"scan", "repair"}
+    new = kernel_builds()[seen:]
+    assert {(b["source"], b["how"]) for b in new} == {
+        (s, h) for s in K.SOURCES for h in ("nvcc", "load")}
+
+
+def test_launches_inside_uncounted_do_not_count():
+    """The early build's warm launches (inside `uncounted()`) leave the
+    wrappers' counts as they were; a launch outside it counts."""
+    n, a, b = 64, 8, 8
+    ones = np.ones(b, int)
+    batch = T.request_batch_from_numpy(
+        0 * ones, ones, 0 * ones, 0 * ones, 128 * ones, 0 * ones, ones,
+        0 * ones, ones.astype(bool), device="cuda")
+    st = T.PlacementState(
+        torch.full((n,), 1024, dtype=torch.int32, device="cuda"),
+        torch.zeros((a, n), dtype=torch.int32, device="cuda").T,
+        torch.ones((n,), dtype=torch.bool, device="cuda"))
+    before = (K.schedule_batch_cuda.launches,
+              K.schedule_batch_repair_cuda.launches)
+    with K.uncounted():
+        K.schedule_batch_cuda(K.to_transposed(st), batch)
+        K.schedule_batch_repair_cuda(K.to_transposed(st), batch)
+    torch.cuda.synchronize()
+    assert (K.schedule_batch_cuda.launches,
+            K.schedule_batch_repair_cuda.launches) == before
+    K.schedule_batch_cuda(K.to_transposed(st), batch)
+    assert K.schedule_batch_cuda.launches == before[0] + 1

@@ -404,8 +404,9 @@ def test_unported_admin_planes_answer_404_naming_the_plane(servers):
     /admin/profile/capture`) answer as the JAX standalone's: the same
     status codes and, with the port's added `kernel_builds` census and
     capture `trace_files` set aside, the same JSON shapes; 401 without
-    auth. The fleet and quality routes still answer 404 naming their
-    plane, and `GET /admin` lists them so."""
+    auth. The fleet observatory's merged metrics answer 200 with this
+    one member, the disabled quality plane 404, and `GET /admin` lists
+    the same routes as the JAX controller's index."""
     planes = ("/admin/slo", "/admin/alerts", "/admin/anomalies",
               "/admin/profile/kernel")
 
@@ -458,16 +459,21 @@ def test_unported_admin_planes_answer_404_naming_the_plane(servers):
         jax["/admin/alerts"][1]["rules"]
     assert port["/admin/profile/kernel"][1]["compiles"]["unexpected"] == 0
     assert port["capture"][1] == jax["capture"][1]
+    # the fleet observatory is on by default: its merged view answers
+    # with this one member, as the JAX controller's does
     status, body = port["/admin/fleet/metrics"]
-    assert status == 404 and body["error"] == (
-        "the fleet observatory is not ported to openwhisk_tpu_torch yet")
+    assert status == jax["/admin/fleet/metrics"][0] == 200
+    assert len(body["members"]) == 1
+    assert body["members"][0]["role"] == "controller"
+    assert shape(body) == shape(jax["/admin/fleet/metrics"][1])
+    assert body["members_missing"] == []
     status, body = port["/admin/placement/quality"]
     assert status == 404 and "placement quality plane" in body["error"]
     rows = {r["path"]: r for r in port["index"]["routes"]}
     for path in planes + ("/admin/profile/capture",):
-        assert rows[path]["enabled"] is True and rows[path]["plane"] is None
-    assert rows["/admin/fleet/metrics"]["enabled"] is False
-    assert rows["/admin/fleet/metrics"]["plane"] == "fleet observatory"
+        assert rows[path]["enabled"] is True
+    assert rows["/admin/fleet/metrics"]["enabled"] is True
+    assert rows == {r["path"]: r for r in jax["index"]["routes"]}
     assert rows["/admin/placement/occupancy"]["enabled"] is True
     status, occ = port["occupancy"]
     assert status == 200 and occ["invokers"][0]["invoker"] == "invoker0"
