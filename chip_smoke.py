@@ -112,7 +112,7 @@ Phases, each reported on its own line:
               inside the profile window. A failure a plane logs and
               swallows (a failed fold or step) fails the phase through
               those counters. Then the planes A/B ("planes_ab" lines):
-              phase 7's traffic at 24 waves with the three planes off,
+              phase 7's traffic at 12 waves with the three planes off,
               on, on, off (step p50, activations/s, placement p50).
   7q. quality the placement quality plane and its shadow pass at phase 7's
               geometry, three "quality" lines. (a) `auto`: phase 7's
@@ -148,6 +148,37 @@ Phases, each reported on its own line:
               every 16th shadowed (the penalized repair launched), no
               quality or shadow failure logged, `/metrics` carries the
               plane's families.
+  7m. mesh    the fleet mesh (`openwhisk_tpu_torch/parallel/`), 8 shards
+              on the card, four "mesh" lines. (a) "ops": phase 3's
+              books at N = 16,384, A = 4,096, B = 16 (six families) and
+              B = 256 (memory, container, oob): the sharded scan, the sharded repair (plain and
+              penalized) and the owner-masked release vector against the
+              single-device CUDA kernels (and the plain release vector):
+              decisions, rounds and books equal, no placement kernel
+              launched; then one fused step of 256 rows on the mesh and
+              on one device: equal, with its device events (profiler),
+              host syncs and CUDA-event time each, and the bytes of one
+              shard. (b) "front": phase 7's front at 20 waves and a
+              6-step trickle through `TpuBalancer(fleet_mesh=True,
+              fleet_shards=8)` with a journal, and through the
+              single-device card balancer: step p50/p99 of each; the mesh
+              launched no placement kernel; its recorded steps replay
+              through the single-device card functions to the same
+              decisions and books; its per-shard occupancy rows sum to
+              the fleet; its journal replays on the CPU at 8 shards to
+              the same books and cold-starts at one (`mesh_topology`);
+              its snapshot restores onto a single-device card balancer
+              with equal books. (c) "quality": (b)'s runs have the
+              quality plane on, a shadow every 4 batches and 100 invokers
+              flagged as stragglers: the mesh's steps all scored, every
+              4th shadowed, and a kept flagged pass equals the
+              single-device plain penalized repair on the same books; the
+              scorer's gather of the books timed beside its bytes. (d)
+              "wide":
+              140,000 invokers at N = 262,144 and A = 1,024 restored from
+              one snapshot into the mesh and the single-device card
+              balancer, 4 waves of 256 rows each: the same decisions and
+              books.
   7b. journal the placement journal, snapshot and replay at phase 7's
               geometry: `TpuBalancer()` on the card with a
               `PlacementJournal` attached before the fleet registers, 24
@@ -335,6 +366,7 @@ cells that changed.
 import asyncio
 import contextlib
 import ctypes
+import functools
 import gc
 import json
 import math
@@ -1521,18 +1553,20 @@ class ActionMix:
 
 class Recorder:
     """Wraps a balancer's packed step, idle release fold, slot-axis growth
-    and the module's health set, keeping each call's inputs and the step's
-    output (the smoke's instrumentation: the balancer has no such
-    feature)."""
+    and the module's health sets (one device's and the mesh's), keeping
+    each call's inputs and the step's output (the smoke's instrumentation:
+    the balancer has no such feature)."""
 
     def __init__(self, bal, TB):
         self.bal, self.TB, self.log = bal, TB, []
-        step, rel, grow, health = bal._packed_fn, bal._release_packed_fn, \
-            bal._grow_slots, TB.set_health
+        step, rel, grow, health, sharded = (
+            bal._packed_fn, bal._release_packed_fn, bal._grow_slots,
+            TB.set_health, TB.sharded_set_health)
         self.undo = lambda: (setattr(bal, "_packed_fn", step),
                              setattr(bal, "_release_packed_fn", rel),
                              setattr(bal, "_grow_slots", grow),
-                             setattr(TB, "set_health", health))
+                             setattr(TB, "set_health", health),
+                             setattr(TB, "sharded_set_health", sharded))
         rate = bal.rate_limit_per_minute is not None
 
         def grow_slots(new_slots):
@@ -1550,43 +1584,46 @@ class Recorder:
             self.log.append(("release", rel_t))
             return rel(state, rel_t)
 
-        def set_health(state, idx, vals):
+        def set_health(state, idx, vals, fn=health):
             self.log.append(("health", list(idx), list(vals)))
-            return health(state, idx, vals)
+            return fn(state, idx, vals)
 
         bal._packed_fn, bal._release_packed_fn = packed, release
         bal._grow_slots = grow_slots
         TB.set_health = set_health
+        TB.sharded_set_health = functools.partial(set_health, fn=sharded)
 
-    def replay(self, books, buckets, P, TB, TT):
-        """The log through the plain fused steps on the CPU from `books`
-        (free, conc [A, N], health) and `buckets`: (steps whose packed
-        output differs, steps, plain state)."""
-        sched, release, _ = TB._torch_pair(self.bal.placement_kernel)
+    def replay(self, books, buckets, P, TB, TT, device="cpu", pair=None):
+        """The log through the single-device fused steps on `device` from
+        `books` (free, conc [A, N], health) and `buckets`: the plain
+        versions by default, or the given (schedule, release) `pair` (on
+        the card, the single-device balancer's CUDA pair). Returns (steps
+        whose packed output differs, steps, the replayed state)."""
+        sched, release, _ = pair or TB._torch_pair(self.bal.placement_kernel)
         rate = buckets is not None
         step = (P.make_fused_admit_step_packed if rate
                 else P.make_fused_step_packed)(release, sched)
         rel_fn = P.make_release_packed(release)
         free, conc, health = books
-        st = P.placement_state_from_numpy(free, conc.T, health, "cpu")
-        bk = TT.TokenBucketState(*(t.cpu().clone() for t in buckets)) \
+        st = P.placement_state_from_numpy(free, conc.T, health, device)
+        bk = TT.TokenBucketState(*(t.to(device).clone() for t in buckets)) \
             if rate else None
         bad = steps = 0
         for ev in self.log:
             if ev[0] == "step":
                 _, buf, now, shape, out = ev
                 if rate:
-                    (st, bk), o = step((st, bk), buf.cpu(), np.float32(now),
-                                       *shape)
+                    (st, bk), o = step((st, bk), buf.to(device),
+                                       np.float32(now), *shape)
                 else:
-                    st, o = step(st, buf.cpu(), *shape)
+                    st, o = step(st, buf.to(device), *shape)
                 steps += 1
-                bad += int(not torch.equal(o, out.cpu()))
+                bad += int(not torch.equal(o.cpu(), out.cpu()))
             elif ev[0] == "release":
-                st = rel_fn(st, ev[1].cpu())
+                st = rel_fn(st, ev[1].to(device))
             elif ev[0] == "slots":
                 conc = torch.zeros((ev[1], st.free_mb.shape[0]),
-                                   dtype=torch.int32)
+                                   dtype=torch.int32, device=device)
                 conc[:st.conc_free.shape[1]] = st.conc_free.T
                 st = P.PlacementState(st.free_mb, conc.T, st.health)
             else:
@@ -1625,13 +1662,14 @@ async def _drain_front(bal, timeout=120.0):
 
 async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
                      flap, setup=None, on_wave=None, kernel="auto",
-                     fleet_setup=None):
+                     fleet_setup=None, balancer_kw=None):
     """One balancer's run: register the fleet, drive `waves` publish_many
     waves (acks 1-8 waves later; the 1% flap with `flap`; the profiled
     window with `profile`), ack everything, the trickle. `fleet_setup(
     fleet)` runs once the fleet exists, `setup(bal)` before the balancer
     starts, `await on_wave(bal, w)` at the start of each wave; `kernel` is
-    the balancer's `placement_kernel`. Returns the run's numbers (with the
+    the balancer's `placement_kernel`, `balancer_kw` more constructor
+    arguments (the fleet mesh's). Returns the run's numbers (with the
     quality plane on, its report and the failures it logged), its
     recorder, (books at the start, bucket state at the start, books at
     the end) and the profiler."""
@@ -1659,7 +1697,8 @@ async def _front_run(TB, K, rate_limit, ctrl_id, waves, trickle, profile,
         fleet.provider, ctrl, logger=Log(), managed_fraction=0.9,
         blackbox_fraction=0.1, max_batch=MAX_BATCH, action_slots=A,
         initial_pad=64, rate_limit_per_minute=rate_limit,
-        placement_kernel=kernel, device=None if DEVICE == "cuda" else DEVICE)
+        placement_kernel=kernel, device=None if DEVICE == "cuda" else DEVICE,
+        **(balancer_kw or {}))
     # the early build's warm steps (a worker thread, uncounted launches on
     # dummy books) end before any wrapper or probe of this run is set
     bal._await_kernels()
@@ -2461,6 +2500,467 @@ def _quality_phase(torch, P, K, TB, front, JN, TT, Q, work):
     return res
 
 
+# --------------------------------------------------------------- phase 7m
+#: the mesh phase, every shard of an S-shard fleet mesh on the card: (a) the
+#: sharded ops against the single-device kernels at phase 3's geometry and
+#: batch widths MESH_B (the families at each); (b) phase 7's front through a mesh balancer and a
+#: single-device one, MESH_WAVES waves and a MESH_TRICKLE trickle each, (c)
+#: with the quality plane on in both: a shadow pass every MESH_Q_EVERY
+#: batches, MESH_Q_FLAGGED invokers flagged as stragglers; (d)
+#: MESH_WIDE_STEPS steps of MAX_BATCH rows at N = 262,144 (MESH_WIDE_INV
+#: invokers) and A = MESH_WIDE_A
+MESH_S = 8
+MESH_B = {16: FAMILIES, 256: ("memory", "container", "oob")}
+MESH_WAVES, MESH_TRICKLE = 20, 6
+MESH_Q_EVERY, MESH_Q_FLAGGED = 4, 100
+MESH_WIDE_INV, MESH_WIDE_A, MESH_WIDE_STEPS = 140_000, 1_024, 4
+
+
+def _cuda_events(prof):
+    """Device-side events (kernels and copies) in a torch.profiler run."""
+    cuda_t = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.events() if e.device_type == cuda_t)
+
+
+def _launch_census(fn):
+    """fn() once under torch.profiler: (its result, device events)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, _cuda_events(prof)
+
+
+def _max_err(pairs):
+    return max(int((x.long() - y.long()).abs().max()) for x, y in pairs)
+
+
+def _mesh_ops(torch, P, K, TB, FM, SS, mesh):
+    """7m(a): for each family and width, the sharded scan, the sharded
+    repair (plain and penalized) and the owner-masked release vector
+    against the single-device CUDA kernels (and the plain release vector)
+    on copies of the same books: decisions, rounds and books. Then one
+    fused step at MAX_BATCH rows on the mesh and on one device: its
+    output and books, its device events (profiler), host syncs and time."""
+    err, rounds_equal, mesh_launches, n_cases = 0, True, 0, 0
+    rounds = {}
+    t0 = time.perf_counter()
+    sched_scan = SS.make_sharded_schedule(mesh)
+    sched_rep = FM.make_fleet_repair_schedule(mesh)
+    sched_pen = FM.make_fleet_repair_schedule(mesh, penalized=True)
+    rel_vec = FM.make_fleet_release_vector(mesh)
+    for b, families in MESH_B.items():
+        for fam in families:
+            state, batch, pen = make_case(fam, b, 700 + b, torch, P)
+            for kind in ("scan", "repair", "repair_penalized"):
+                p = pen if kind == "repair_penalized" else None
+                ks = clone_state(P, state)
+                kern = (K.schedule_batch_cuda if kind == "scan"
+                        else K.schedule_batch_repair_cuda)
+                kout = kern(K.to_transposed(ks), batch, p)
+                sh = SS.shard_state(state, mesh)
+                K.reset_launch_counts()
+                mout = (sched_scan(sh, batch) if kind == "scan" else
+                        sched_rep(sh, batch) if p is None else
+                        sched_pen(sh, batch, p))
+                torch.cuda.synchronize()
+                mesh_launches += (K.schedule_batch_cuda.launches
+                                  + K.schedule_batch_repair_cuda.launches)
+                g = SS.gather_state(sh)
+                pairs = [(kout[1], mout[1]), (kout[2].int(), mout[2].int()),
+                         (ks.free_mb, g.free_mb), (ks.conc_free, g.conc_free)]
+                err = max(err, _max_err(pairs))
+                if kind != "scan":
+                    rounds_equal &= int(kout[3]) == int(mout[3])
+                    rounds[f"{kind}_B{b}_{fam}"] = int(mout[3])
+                # the release vector returns what placed, on both (rows
+                # with a slot in range: the release has no dropped write)
+                chosen = kout[1]
+                rel = (chosen.clamp_min(0), batch.conc_slot.clamp_max(A - 1),
+                       batch.need_mb, batch.max_conc,
+                       (chosen >= 0) & (batch.conc_slot < A))
+                P.release_batch_vector(ks, *rel)
+                rel_vec(sh, *rel)
+                g = SS.gather_state(sh)
+                err = max(err, _max_err([(ks.free_mb, g.free_mb),
+                                         (ks.conc_free, g.conc_free)]))
+                n_cases += 1
+    require(err == 0 and rounds_equal and mesh_launches == 0,
+            f"7m(a): the sharded ops equal the single-device kernels "
+            f"(max_abs_err {err}, rounds equal {rounds_equal}) and launch "
+            f"no placement kernel ({mesh_launches})")
+
+    cases_s = time.perf_counter() - t0
+    # one fused step at MAX_BATCH rows: releases of a placed batch, no
+    # health flips, a fresh batch, on the mesh and on one device
+    t0 = time.perf_counter()
+    state, batch, _pen = make_case("memory", MAX_BATCH, 990, torch, P)
+    placed = clone_state(P, state)
+    chosen = K.schedule_batch_repair_cuda(K.to_transposed(placed), batch)[1]
+    torch.cuda.synchronize()
+    r, h, b = MAX_BATCH, 64, MAX_BATCH
+    rel = torch.stack([chosen.clamp_min(0), batch.conc_slot, batch.need_mb,
+                       batch.max_conc, (chosen >= 0).int()]).int()
+    _s2, batch2, _p2 = make_case("memory", MAX_BATCH, 991, torch, P)
+    req = torch.stack([c.int() for c in batch2])
+    buf = torch.cat([rel.reshape(-1), torch.zeros(3 * h, dtype=torch.int32,
+                                                  device=DEVICE),
+                     req.reshape(-1)])
+    sched, release, _ = TB._cuda_pair("auto")
+    one = P.make_fused_step_packed(release, sched)
+    sched, release, _ = FM.fleet_pair(mesh, "auto")
+    fused = FM.make_fleet_fused_step_packed(mesh, release, sched)
+    box = {}
+
+    def reset():
+        box["one"] = clone_state(P, placed)
+        box["mesh"] = SS.shard_state(placed, mesh)
+
+    reset()
+    (_st1, o1), ev_one = _launch_census(
+        lambda: one(box["one"], buf, r, h, b))
+    K.reset_launch_counts()
+    (_st2, o2), ev_mesh = _launch_census(
+        lambda: fused(box["mesh"], buf, r, h, b))
+    step_launches = (K.schedule_batch_cuda.launches
+                     + K.schedule_batch_repair_cuda.launches)
+    g = SS.gather_state(box["mesh"])
+    step_err = _max_err([(o1, o2), (box["one"].free_mb, g.free_mb),
+                         (box["one"].conc_free, g.conc_free),
+                         (box["one"].health, g.health)])
+    reset()
+    _, syncs_one = _count_syncs(lambda: one(box["one"], buf, r, h, b))
+    _, syncs_mesh = _count_syncs(lambda: fused(box["mesh"], buf, r, h, b))
+    one_ms = time_ms(lambda: one(box["one"], buf, r, h, b), reset, torch,
+                     reps=9)
+    mesh_ms = time_ms(lambda: fused(box["mesh"], buf, r, h, b), reset,
+                      torch, reps=9)
+    require(step_err == 0 and step_launches == 0,
+            f"7m(a): the mesh's fused step equals the single device's "
+            f"(max_abs_err {step_err}) with no placement kernel launched "
+            f"({step_launches})")
+    shard = SS.shard_state(state, mesh).shards[0]
+    return dict(cases_s=cases_s, fused_s=time.perf_counter() - t0,
+                cases=n_cases, max_abs_err=err, rounds_equal=rounds_equal,
+                rounds=rounds, placement_kernel_launches=mesh_launches,
+                fused_step=dict(
+                    B=b, R=r, H=h, rounds=int(o2[-1]), max_abs_err=step_err,
+                    device_events={"mesh": ev_mesh, "single": ev_one},
+                    host_syncs={"mesh": syncs_mesh, "single": syncs_one},
+                    ms={"mesh": mesh_ms, "single": one_ms},
+                    placement_kernel_launches={"mesh": step_launches}),
+                shard_bytes=sum(t.numel() * t.element_size() for t in shard),
+                shard_rows=shard.free_mb.shape[0])
+
+
+def _flag_stragglers():
+    """An `on_wave` hook: MESH_Q_FLAGGED invokers flagged as stragglers in
+    the anomaly plane's scores at every wave (a tick of its own would
+    replace them), the quality plane's inputs refreshed."""
+    from openwhisk_tpu_torch.ops.anomaly import N_SCORE_ROWS, \
+        S_STRAGGLER_FLAG
+    flags = np.zeros(N_PAD, np.float32)
+    flags[np.random.RandomState(5).choice(N_INV, MESH_Q_FLAGGED,
+                                          replace=False)] = 1
+
+    async def flag(bal, _w):
+        sc = np.zeros((N_SCORE_ROWS, bal._n_pad), np.float32)
+        sc[S_STRAGGLER_FLAG] = flags[:bal._n_pad]
+        bal.anomaly._scores = sc
+        bal._refresh_quality_signals()
+    return flag
+
+
+def _keep_shadow(bal, SS, box):
+    """Wrap the balancer's shadow pass: the first pass whose penalty holds
+    a flag is kept in `box["kept"]` (the global books before it, the
+    buffer, the penalty, the shape and its vector); passes are counted."""
+    shadow = bal._shadow_fn
+    box["passes"] = 0
+
+    def kept_shadow(state, buf, penalty, *shape, scratch=None):
+        keep = "kept" not in box and bool(bal._shadow_penalty_np.any())
+        books = SS.gather_state(state) if keep else None
+        out = shadow(state, buf, penalty, *shape, scratch=scratch)
+        box["passes"] += 1
+        if keep:
+            box["kept"] = dict(books=books, buf=buf.clone(),
+                               penalty=penalty.clone(), shape=shape,
+                               out=out.clone())
+        return out
+    bal._shadow_fn = kept_shadow
+
+
+def _mesh_front(torch, P, K, TB, TT, JN, SS, work):
+    """7m(b): phase 7's front through the mesh balancer (a journal
+    attached before the fleet registers) and through the single-device
+    card balancer, the quality plane on in both (7m(c)). The mesh run's
+    recorded steps replay through the single-device card functions from
+    the same books; its journal replays on the CPU at S = MESH_S (the
+    same books) and at one shard (a cold start); its snapshot restores
+    onto a single-device card balancer."""
+    import os
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.messaging import MemoryMessagingProvider
+    jdir = os.path.join(work, "wal")
+    box = {}
+
+    def setup(bal):
+        box["bal"] = bal
+        bal.attach_journal(JN.PlacementJournal(jdir))
+        _keep_shadow(bal, SS, box)
+
+    t0 = time.perf_counter()
+    with _environ({QUALITY_ON: "true", QUALITY_EVERY: str(MESH_Q_EVERY)}):
+        mout, rec, (books0, _bk0, books), _ = asyncio.run(_front_run(
+            TB, K, None, "0", MESH_WAVES, MESH_TRICKLE, profile=False,
+            flap=True, setup=setup, on_wave=_flag_stragglers(),
+            balancer_kw=dict(fleet_mesh=True, fleet_shards=MESH_S)))
+    bal = box["bal"]
+    bal.journal.close()
+    mesh_s = time.perf_counter() - t0
+    require(not mout["failed"] and not mout["unresolved"]
+            and not mout["errors"] and mout["active_at_end"] == 0
+            and mout["books_full"],
+            f"7m(b): the mesh front resolved every activation, books full: "
+            f"{mout['failed_first']} {mout['errors']}")
+    require(bal.kernel_resolved == "sharded" and bal.n_shards == MESH_S
+            and mout["launches"] == {"scan": 0, "repair": 0},
+            f"7m(b): the mesh balancer launched no placement kernel: "
+            f"{mout['launches']}")
+    require(mout["flap"]["down"] == mout["flap"]["invokers"]
+            == mout["flap"]["back"], f"7m(b): the flap: {mout['flap']}")
+    t1 = time.perf_counter()
+    bad, steps, st = rec.replay(books0, None, P, TB, TT, device=DEVICE,
+                                pair=TB._cuda_pair("auto"))
+    card_equal = all(np.array_equal(x, y)
+                     for x, y in zip(_books_np(st), books))
+    replay_s = time.perf_counter() - t1
+    require(bad == 0 and steps == mout["steps"] and card_equal,
+            f"7m(b): the single-device card functions replay the mesh's "
+            f"steps to the same decisions and books: {bad} of {steps} "
+            f"differ, books equal {card_equal}")
+
+    occ = bal.occupancy()
+    fleet = occ["fleet"]
+    rows = occ["shards"]
+    require(len(rows) == MESH_S
+            and sum(x["capacity_mb"] for x in rows) == fleet["capacity_mb"]
+            and sum(x["used_mb"] for x in rows) == fleet["used_mb"]
+            and sum(x["invokers"] for x in rows) == N_INV,
+            f"7m(b): the per-shard occupancy rows sum to the fleet: {rows}")
+    snap = bal.snapshot()
+
+    async def restore_single():
+        single = _cold_balancer(TB, "5")
+        single._await_kernels()
+        single.restore(snap)
+        eq = _same_books(single, books)
+        await single.close()
+        return eq
+
+    async def cpu_replay(**kw):
+        cpu = TB.TpuBalancer(
+            MemoryMessagingProvider(), E.ControllerInstanceId("6"),
+            managed_fraction=0.9, blackbox_fraction=0.1, max_batch=MAX_BATCH,
+            action_slots=A, initial_pad=64, device="cpu", **kw)
+        stats = cpu.replay_journal(JN.PlacementJournal(jdir).records(0))
+        eq = _same_books(cpu, books)
+        await cpu.close()
+        return stats, eq
+
+    t2 = time.perf_counter()
+    snap_equal = asyncio.run(restore_single())
+    st8, eq8 = asyncio.run(cpu_replay(fleet_mesh=True, fleet_shards=MESH_S))
+    st1, _eq1 = asyncio.run(cpu_replay())
+    cpu_s = time.perf_counter() - t2
+    require(snap_equal, "7m(b): the mesh snapshot restores onto a "
+                        "single-device card balancer with equal books")
+    require(eq8 and st8["parity_mismatches"] == 0 and "skipped" not in st8
+            and st8["batches"] == mout["steps"],
+            f"7m(b): the mesh journal replays on the CPU at S = {MESH_S} to "
+            f"the card's books: {st8}")
+    require(st1.get("skipped") == "mesh_topology"
+            and st1["journal_shards"] == MESH_S,
+            f"7m(b): at one shard the journal cold-starts: {st1}")
+
+    t3 = time.perf_counter()
+    with _environ({QUALITY_ON: "true", QUALITY_EVERY: str(MESH_Q_EVERY)}):
+        sout, _srec, _sb, _ = asyncio.run(_front_run(
+            TB, K, None, "1", MESH_WAVES, MESH_TRICKLE, profile=False,
+            flap=True, on_wave=_flag_stragglers()))
+    single_s = time.perf_counter() - t3
+    require(not sout["failed"] and sout["books_full"]
+            and sout["launches"]["repair"] > 0,
+            f"7m(b): the single-device front ran on the kernels: "
+            f"{sout['launches']}")
+    keep = ("activations", "activations_per_s", "step_ms_p50_p99",
+            "placement_ms_p50_p99", "steps", "mean_repair_rounds",
+            "launches", "register_s")
+    box["out"] = mout
+    return box, dict(mesh={k: mout[k] for k in keep},
+                single={k: sout[k] for k in keep},
+                occupancy_shards=rows, card_replay=dict(
+                    steps=steps, mismatched_steps=bad,
+                    books_equal=card_equal, s=replay_s),
+                snapshot_restore_single_equal=snap_equal,
+                cpu_replay=dict(backend="cpu", s8=dict(
+                    batches=st8["batches"],
+                    parity_mismatches=st8["parity_mismatches"],
+                    books_equal=eq8), s1=dict(skipped=st1.get("skipped"),
+                                              journal_shards=st1.get(
+                                                  "journal_shards")),
+                                s=cpu_s),
+                run_s=dict(mesh=mesh_s, single=single_s))
+
+
+def _mesh_quality(torch, P, TB, SS, box):
+    """7m(c): the quality plane of 7m(b)'s mesh run. Every step scored and
+    every MESH_Q_EVERY-th shadowed, no failure swallowed; the kept flagged
+    pass run again through the single-device plain shadow step with the
+    plain penalized repair on the card, on the same books: the two
+    vectors must be equal. The scorer's gather of the books is timed
+    beside its bytes."""
+    out = box["out"]
+    q = out["quality"]
+    require(not out["quality_failures"]
+            and q["batches"] == out["steps"]
+            and q["shadow_batches"] == out["steps"] // MESH_Q_EVERY
+            and "kept" in box,
+            f"7m(c): the mesh's quality plane scored every step and "
+            f"shadowed every {MESH_Q_EVERY}th, a flagged pass kept: "
+            f"{q['batches']} {q['shadow_batches']} {out['steps']} "
+            f"{out['quality_failures'][:3]}")
+    kept = box["kept"]
+    R, H, B = kept["shape"]
+    plain = P.make_shadow_step_packed(TB._torch_pair("auto")[1],
+                                      P.schedule_batch_repair)
+    want = plain(kept["books"], kept["buf"], kept["penalty"], R, H, B)
+    exact = torch.equal(want, kept["out"])
+    require(exact, "7m(c): the kept mesh shadow pass equals the "
+                   "single-device plain penalized repair on the same books")
+    sharded = box["bal"].state
+    gather_ms = time_ms(lambda: SS.gather_state(sharded), lambda: None,
+                        torch, reps=9)
+    gbytes = sum(t.numel() * t.element_size() for s in sharded.shards
+                 for t in s)
+    return dict(steps=out["steps"], shadow_passes=box["passes"],
+                shadow_batches=q["shadow_batches"],
+                divergent_rows=q["divergent_rows"], R=R, H=H, B=B,
+                penalty_flags=int(kept["penalty"].sum()), plain_exact=exact,
+                scorer_gather=dict(ms=gather_ms, bytes=gbytes,
+                                   bound_ms=2 * gbytes / HBM_BYTES_S * 1e3))
+
+
+def _mesh_wide(torch, TB, SS):
+    """7m(d): the mesh balancer and the single-device card balancer, each
+    restored from one snapshot of MESH_WIDE_INV invokers at N = 262,144
+    and A = MESH_WIDE_A, take the same MESH_WIDE_STEPS publish_many waves
+    of MAX_BATCH rows: the same decision for every row, the same books,
+    and no placement kernel launched by the mesh."""
+    from openwhisk_tpu_torch.core import entity as E
+    from openwhisk_tpu_torch.messaging import MemoryMessagingProvider
+    from openwhisk_tpu_torch.ops import placement_cuda as K
+    n_pad = 1 << (MESH_WIDE_INV - 1).bit_length()
+    snap = {"n_pad": n_pad, "cluster_size": 1, "action_slots": MESH_WIDE_A,
+            "journal_seq": 0,
+            "registry": [E.InvokerInstanceId(
+                i, user_memory=E.MB(MEM_MB)).to_json()
+                for i in range(MESH_WIDE_INV)],
+            "healthy": [True] * MESH_WIDE_INV,
+            "free_mb": [MEM_MB] * MESH_WIDE_INV, "conc_nonzero": []}
+
+    coprimes = {}  # the partitions' probe steps, computed once for both
+
+    async def run(ctrl, **kw):
+        bal = TB.TpuBalancer(
+            MemoryMessagingProvider(), E.ControllerInstanceId(ctrl),
+            managed_fraction=0.9, blackbox_fraction=0.1,
+            max_batch=MAX_BATCH, action_slots=MESH_WIDE_A, initial_pad=64,
+            device=None if DEVICE == "cuda" else DEVICE, **kw)
+        bal._await_kernels()
+        bal.restore(snap)
+        bal._coprimes = coprimes
+        decisions, real = [], bal._map_placement
+
+        def record(inv_idx, forced, *rest):
+            decisions.append((int(inv_idx), bool(forced)))
+            return real(inv_idx, forced, *rest)
+        bal._map_placement = record
+        mix = ActionMix(seed=17, ctrl=E.ControllerInstanceId(ctrl))
+        K.reset_launch_counts()
+        for _ in range(MESH_WIDE_STEPS):
+            await asyncio.gather(*bal.publish_many(mix.pairs(MAX_BATCH)))
+        torch.cuda.synchronize()
+        launches = (K.schedule_batch_cuda.launches
+                    + K.schedule_batch_repair_cuda.launches)
+        books = SS.gather_state(bal.state) if bal.mesh is not None \
+            else bal.state
+        out = (decisions, books, launches, list(bal.step_ms),
+               bal.counters["repair_rounds"])
+        bal._map_placement = real
+        await bal.close()
+        return out
+
+    t0 = time.perf_counter()
+    d1, b1, l1, ms1, r1 = asyncio.run(run("3"))
+    t1 = time.perf_counter()
+    d2, b2, l2, ms2, r2 = asyncio.run(run("4", fleet_mesh=True,
+                                          fleet_shards=MESH_S))
+    t2 = time.perf_counter()
+    equal = (d1 == d2 and all(torch.equal(x, y) for x, y in zip(b1, b2))
+             and r1 == r2)
+    require(equal and len(d2) == MESH_WIDE_STEPS * MAX_BATCH
+            and l2 == 0 and l1 > 0,
+            f"7m(d): at N = {n_pad} the mesh places as the single-device "
+            f"card balancer ({len(d1)} / {len(d2)} rows, equal {equal}) "
+            f"with no placement kernel ({l2}; single device {l1})")
+    return dict(N=n_pad, A=MESH_WIDE_A, invokers=MESH_WIDE_INV,
+                steps=MESH_WIDE_STEPS, rows=len(d2), equal=equal,
+                repair_rounds=r2,
+                forced=sum(f for _, f in d2),
+                step_ms={"mesh": ms2, "single": ms1},
+                placement_kernel_launches={"mesh": l2, "single": l1},
+                run_s={"single": t1 - t0, "mesh": t2 - t1})
+
+
+def mesh_phase(torch, P, K, TB, card):
+    """Phase 7m: the fleet mesh of MESH_S shards on the card."""
+    import shutil
+    import tempfile
+    from openwhisk_tpu_torch.controller.loadbalancer import journal as JN
+    from openwhisk_tpu_torch.ops import throttle as TT
+    from openwhisk_tpu_torch.parallel import fleet_mesh as FM
+    from openwhisk_tpu_torch.parallel import sharded_state as SS
+    mesh = FM.make_fleet_mesh(MESH_S, device=None if DEVICE == "cuda"
+                              else DEVICE)
+    res = {}
+    t0 = time.perf_counter()
+    res["ops"] = _mesh_ops(torch, P, K, TB, FM, SS, mesh)
+    say("mesh", segment="ops", nvidia_smi=card,
+        devices=[str(d) for d in mesh.devices],
+        seconds=time.perf_counter() - t0, **res["ops"])
+    work = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    try:
+        t0 = time.perf_counter()
+        box, res["front"] = _mesh_front(torch, P, K, TB, TT, JN, SS, work)
+        say("mesh", segment="front", nvidia_smi=card,
+            seconds=time.perf_counter() - t0, **res["front"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    res["quality"] = _mesh_quality(torch, P, TB, SS, box)
+    say("mesh", segment="quality", nvidia_smi=card,
+        seconds=time.perf_counter() - t0, **res["quality"])
+    t0 = time.perf_counter()
+    res["wide"] = _mesh_wide(torch, TB, SS)
+    say("mesh", segment="wide", nvidia_smi=card,
+        seconds=time.perf_counter() - t0, **res["wide"])
+    res["launches"] = {k: res["front"]["mesh"]["launches"][k]
+                       for k in ("scan", "repair")}
+    return res
+
+
 # --------------------------------------------------------------- phase 7b
 #: the journal phase: phase 7's traffic at JOURNAL_WAVES waves with a
 #: journal attached before the fleet registers, the snapshot dumped at the
@@ -2846,7 +3346,7 @@ PLANE_RANGES = ("telemetry_fold", "anomaly_step")
 PLANES_OFF = {"CONFIG_whisk_telemetry_enabled": "false",
               "CONFIG_whisk_anomaly_enabled": "false",
               "CONFIG_whisk_profiling_enabled": "false"}
-PLANES_AB_WAVES = 24
+PLANES_AB_WAVES = 12
 
 
 def _plane_events(rng, e, tick=None):
@@ -6112,6 +6612,9 @@ def main():
     t0 = time.perf_counter()
     quality = quality_phase(torch, P, K, TB, front)
     say("quality_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, P, K, TB, card)
+    say("mesh_phase", seconds=time.perf_counter() - t0)
     front_launches = {k: sum(seg["launches"][k] for seg in front.values())
                       for k in ("scan", "repair")}
     t0 = time.perf_counter()
@@ -6181,6 +6684,7 @@ def main():
          "funnel_launches": ha["funnel"]["launches"][
              f"controller{FUNNEL_INSTANCES[0]}"]["scan"],
          "quality_launches": quality["launches"]["scan"],
+         "mesh_launches": mesh["launches"]["scan"],
          "cold_launches": {lbl: cold[lbl]["launches"]["scan"]
                            for lbl in ("prewarm_on", "prewarm_off")},
          "penalized_launches": quality["penalized_launches"]["scan"],
@@ -6217,6 +6721,7 @@ def main():
          "funnel_launches": ha["funnel"]["launches"][
              f"controller{FUNNEL_INSTANCES[0]}"]["repair"],
          "quality_launches": quality["launches"]["repair"],
+         "mesh_launches": mesh["launches"]["repair"],
          "cold_launches": {lbl: cold[lbl]["launches"]["repair"]
                            for lbl in ("prewarm_on", "prewarm_off")},
          "penalized_launches": quality["penalized_launches"]["repair"],

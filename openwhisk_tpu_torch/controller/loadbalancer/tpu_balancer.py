@@ -55,7 +55,11 @@ and copies the B+1 decision vector back once. On the card (`device=None`
 or "cuda") the schedule always runs the CUDA kernels (`_cuda_pair`); the
 release and health folds are plain torch ops on the card. On the CPU
 (`device="cpu"`) everything is the plain torch version (`_torch_pair`).
-The books are updated in place.
+With a fleet mesh (`fleet_mesh`, `parallel/fleet_mesh.py`) the books are
+S per-shard books, one process drives every shard, and the step is the
+mesh's sharded torch ops (`fleet_pair`): placement, books, journal and
+snapshot stay bit-exact with the single device. The books are updated
+in place.
 
 The path settings are the JAX package's `PlacementPathConfig`
 (`CONFIG_whisk_loadBalancer_*`, constructor arguments first). With
@@ -106,6 +110,14 @@ from ...ops.placement_cuda import (schedule_batch_cuda,
 from ...ops.profiler import pow2_statics
 from ...ops.telemetry import init_telemetry, record_packed
 from ...ops.throttle import init_buckets
+from ...parallel.fleet_mesh import (
+    empty_sharded_books_like, fleet_pair, make_fleet_fused_admit_step_packed,
+    make_fleet_fused_step_packed, make_fleet_mesh, make_fleet_release_packed,
+    make_fleet_repair_schedule, make_fleet_shadow_admit_step_packed,
+    make_fleet_shadow_step_packed, mesh_topology)
+from ...parallel.sharded_state import (ShardedState, gather_state,
+                                       shard_state, sharded_set_free,
+                                       sharded_set_health)
 from ...utils.config import load_config
 from ...utils.eventlog import GLOBAL_EVENT_LOG
 from ...utils.hostprof import GLOBAL_HOST_OBSERVATORY
@@ -135,7 +147,7 @@ class PlacementPathConfig:
     """`CONFIG_whisk_loadBalancer_*` hot-path knobs (constructor arguments
     override the env), the JAX package's fields and defaults.
 
-    The port honours four of them:
+    The port honours six of them:
       placement_kernel: which batch algorithm schedules a micro-batch:
         "scan", "repair", or "auto" (the scan below REPAIR_MIN_BATCH rows,
         the repair from there), on the card's kernels or the CPU's plain
@@ -158,15 +170,22 @@ class PlacementPathConfig:
         per-shape program, and a bucket's first step costs what a repeat
         costs within about 1 ms, the spread of the repeats (PERF.md §6).
 
-    The others name an XLA, Pallas or mesh choice and change nothing in
-    the port; they are parsed so that one environment configures both
+      fleet_mesh: shard the invoker axis of the books over a ('fleet',)
+        mesh of devices (parallel/fleet_mesh.py), one process driving
+        every shard; placement stays bit-exact with the single device.
+      fleet_shards: the mesh's shard count (a power of two; 0 = every
+        visible device, rounded down to a power of two). Shards share a
+        card when there are fewer cards than shards.
+
+    The others name an XLA or Pallas choice and change nothing in the
+    port; they are parsed so that one environment configures both
     packages. `kernel` picks XLA or Pallas: the port has one backend a
-    device (the CUDA kernels on the card, the plain versions on the CPU),
-    so neither it nor `calibrate_kernel` (the measured XLA/Pallas pick) has
-    anything to choose. `donate_state` and `ring_assembly` are what the
-    port always does (the books are updated in place; rows are packed from
-    column rings). `fleet_mesh` and `fleet_shards` wait for the port's
-    multi-device fleet: the books live on one device."""
+    device (the CUDA kernels on the card, the plain versions on the CPU,
+    the sharded torch ops on a mesh), so neither it nor
+    `calibrate_kernel` (the measured XLA/Pallas pick, per shard on a
+    mesh) has anything to choose. `donate_state` and `ring_assembly` are
+    what the port always does (the books are updated in place; rows are
+    packed from column rings)."""
     placement_kernel: str = "auto"   # scan | repair | auto
     kernel: str = "auto"             # xla | pallas | auto
     donate_state: bool = True
@@ -359,6 +378,17 @@ def penalized_schedule(device: torch.device, resolved: str):
         return schedule_batch_repair if resolved == "repair" else \
             schedule_batch
     return _sched_repair if resolved == "repair" else _sched_scan
+
+
+def _book_shapes(state) -> tuple:
+    """Every tensor shape of single-device or sharded books."""
+    shards = state.shards if isinstance(state, ShardedState) else (state,)
+    return tuple(tuple(t.shape) for s in shards for t in s)
+
+
+def _empty_books_like(state):
+    return (empty_sharded_books_like(state)
+            if isinstance(state, ShardedState) else empty_books_like(state))
 
 
 def bucket(n: int, cap: int) -> int:
@@ -600,7 +630,12 @@ class TpuBalancer(CommonLoadBalancer):
     `device` None means the CUDA card (and raises without one); "cpu" runs
     the plain torch versions. A step that fails leaves the books rebuilt at
     full capacity (forced timeouts self-heal the holds): nothing falls back
-    to another device or kernel."""
+    to another device or kernel.
+
+    `fleet_mesh` and `fleet_shards` (or `mesh=`, a `FleetMesh`) shard the
+    books over a fleet mesh on the devices `device` names. The JAX
+    package's per-shard calibration (its XLA/Pallas pick at the per-shard
+    shape) is not ported: the port has one backend a device."""
 
     #: the bounded accumulation delay a loaded balancer trades for batch
     #: size, and the least batch a window must be expected to gather
@@ -635,10 +670,35 @@ class TpuBalancer(CommonLoadBalancer):
                  adaptive_window: Optional[bool] = None,
                  batch_publish: Optional[bool] = None,
                  prewarm: Optional[bool] = None,
+                 mesh=None, fleet_mesh: Optional[bool] = None,
+                 fleet_shards: Optional[int] = None,
                  device=None, metrics=None, profiler=None, anomaly=None,
                  quality=None):
-        self.device = resolve_device(device)
         path_cfg = load_config(PlacementPathConfig, env_path="load_balancer")
+        #: fleet-mesh mode (CONFIG_whisk_loadBalancer_fleetMesh): build the
+        #: ('fleet',) mesh here unless the caller handed one in (the legacy
+        #: mesh= constructor path keeps working; its axis name is adopted
+        #: whatever it is). Default OFF = the single-device path, bit-exact.
+        self.fleet_mesh = (fleet_mesh if fleet_mesh is not None
+                           else path_cfg.fleet_mesh)
+        if mesh is None and self.fleet_mesh:
+            shards_cfg = (fleet_shards if fleet_shards is not None
+                          else path_cfg.fleet_shards)
+            mesh = make_fleet_mesh(shards_cfg or None, device=device)
+        self.mesh = mesh
+        #: mesh axis name and shard count (1 without a mesh) — the admin/
+        #: occupancy planes and the journal's topology records read these
+        self.fleet_axis = mesh.axis if mesh is not None else None
+        self.n_shards = mesh.n_shards if mesh is not None else 1
+        #: the books' device; on a mesh the lead device (shard 0's), where
+        #: the packed buffer lands and the step's outputs come back
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
+        #: what runs the schedule: "cuda" (the kernels on the card),
+        #: "torch" (the plain versions on the CPU) or "sharded" (the mesh's
+        #: torch ops, which launch no hand-written kernel)
+        self.kernel_resolved = ("sharded" if mesh is not None else
+                                "cuda" if self.device.type == "cuda"
+                                else "torch")
         if placement_kernel is None:
             placement_kernel = path_cfg.placement_kernel
         _check_kernel(placement_kernel)
@@ -669,7 +729,12 @@ class TpuBalancer(CommonLoadBalancer):
         self._kernels_waiter = False
         self.rate_limit_per_minute = rate_limit_per_minute
         self.pipeline_depth = max(1, pipeline_depth)
-        self._n_pad = initial_pad
+        self._n_pad = max(initial_pad, self.n_shards)
+        if mesh is not None:
+            # power-of-two pad so the invoker axis always divides evenly
+            # over the (power-of-two) shard count; single-device pads keep
+            # the caller's exact value (bit-exact legacy behavior)
+            self._n_pad = _next_pow2(self._n_pad)
 
         #: memos of pure functions on the publish path: (ns, fqn) -> home
         #: hash and (step, size) -> modular inverse, cleared at 64k
@@ -691,23 +756,32 @@ class TpuBalancer(CommonLoadBalancer):
         self._partitions_stale = True
         self._coprimes: Dict[int, List[int]] = {}
 
-        #: the schedule and release pair of the books' device: the live
+        #: the schedule and release pair of the books' device (on a mesh,
+        #: the full placementKernel knob: scan keeps the sharded scan,
+        #: repair the per-shard speculate-and-repair with the
+        #: global-occupancy exchange, auto the per-bucket hybrid): the live
         #: steps below and the journal replay's steps are built from it
-        self._sched_fn, self._release_fn, self.placement_kernel_resolved = \
-            device_pair(self.device, placement_kernel)
+        if mesh is not None:
+            (self._sched_fn, self._release_fn,
+             self.placement_kernel_resolved) = fleet_pair(
+                mesh, placement_kernel, repair_min_batch=REPAIR_MIN_BATCH)
+        else:
+            (self._sched_fn, self._release_fn,
+             self.placement_kernel_resolved) = device_pair(self.device,
+                                                           placement_kernel)
         sched, release = self._sched_fn, self._release_fn
         # the profiler interposes on every device entry point: first-seen
         # signatures classify by first-call / expect-window / pow2-bucketed
         # statics (the only shapes _bucket may produce) — anything else is
         # shape churn and trips the recompile watchdog
         self._release_packed_fn = self.profiler.wrap(
-            "release_packed", make_release_packed(release),
+            "release_packed", self._make_release_packed(release),
             expected=lambda st, rel: _next_pow2(rel.shape[1]) == rel.shape[1])
         self._bucket_state = None
         if rate_limit_per_minute is not None:
             self._packed_fn = self.profiler.wrap(
                 "fused_admit_step",
-                make_fused_admit_step_packed(release, sched),
+                self._make_step(release, sched, admit=True),
                 expected=pow2_statics)
             # soft state: a rolling rate window, kept across book rebuilds
             self._bucket_state = init_buckets(
@@ -715,7 +789,7 @@ class TpuBalancer(CommonLoadBalancer):
                 device=self.device)
         else:
             self._packed_fn = self.profiler.wrap(
-                "fused_step", make_fused_step_packed(release, sched),
+                "fused_step", self._make_step(release, sched),
                 expected=pow2_statics)
 
         #: host copy of free_mb from the last readback or state install;
@@ -724,11 +798,9 @@ class TpuBalancer(CommonLoadBalancer):
         self._books_cache: Optional[np.ndarray] = None
         self._books_seq = 0
         self._books_cache_seq = 0
-        self.state: Optional[PlacementState] = None
-        #: the books live on one device: no fleet mesh, one shard (the
-        #: journal's topology stamp reads these)
-        self.mesh = None
-        self.n_shards = 1
+        #: the books: one PlacementState, or on a mesh a ShardedState (S
+        #: per-shard books, each on its device)
+        self.state = None
         #: write-ahead placement journal (loadbalancer/journal.py): None =
         #: journaling off. Every committed change to the books appends one
         #: record; a restored controller replays the tail on top of the
@@ -738,8 +810,10 @@ class TpuBalancer(CommonLoadBalancer):
         #: True while replay_journal re-applies records, so the re-applied
         #: changes don't journal themselves again
         self._journal_mute = False
-        #: a fleet-mesh writer's one-shot topology stamp (the port has no
-        #: mesh yet: it stays False)
+        #: a fleet-mesh writer stamps ONE `mesh` topology record ahead of
+        #: its first append (per process / per promotion), so a replayer
+        #: on a different device count cold-starts with a logged reason
+        #: instead of silently mis-sharding
         self._journal_mesh_stamped = False
         #: cross-partition spillover (active/active only; spillover.py):
         #: with a sink attached, publish_many diverts its non-blocking
@@ -834,13 +908,70 @@ class TpuBalancer(CommonLoadBalancer):
             self._refresh_quality_signals()
 
     def _install_state(self, state: PlacementState) -> None:
+        """Adopt new-shape books: shard them onto the mesh (if any). On a
+        mesh this IS a reshard event, flagged to the profiler, so the
+        signature census stays quiet through cluster grow/resize."""
+        if self.mesh is not None:
+            self.profiler.expect("reshard")
+            state = shard_state(state, self.mesh, axis=self.fleet_axis)
         self.state = state
         self._set_books_now()
         scratch = self._shadow_scratch
-        if self._shadow_fn is not None and (scratch is None or any(
-                s.shape != t.shape for s, t in zip(scratch, state))):
+        if self._shadow_fn is not None and (
+                scratch is None
+                or _book_shapes(scratch) != _book_shapes(state)):
             self._shadow_scratch = None  # free the old copy first
-            self._shadow_scratch = empty_books_like(state)
+            self._shadow_scratch = _empty_books_like(state)
+
+    # -- the books' layout: one device, or the shards of a mesh -------------
+    def _make_step(self, release, sched, admit: bool = False):
+        """The fused packed step (with device rate admission when `admit`)
+        for the books' layout."""
+        if self.mesh is None:
+            make = (make_fused_admit_step_packed if admit
+                    else make_fused_step_packed)
+            return make(release, sched)
+        make = (make_fleet_fused_admit_step_packed if admit
+                else make_fleet_fused_step_packed)
+        return make(self.mesh, release, sched)
+
+    def _make_release_packed(self, release):
+        if self.mesh is None:
+            return make_release_packed(release)
+        return make_fleet_release_packed(self.mesh, release)
+
+    def _global_books(self) -> PlacementState:
+        """The books as one PlacementState on the books' device: the live
+        books on one device, a gathered copy of every shard on a mesh (a
+        write into it is lost)."""
+        if self.mesh is None:
+            return self.state
+        return gather_state(self.state, self.device)
+
+    def _books_copy(self) -> PlacementState:
+        """A copy of the global books, enqueued on the stream now."""
+        if self.mesh is not None:
+            return self._global_books()  # the gather is the copy
+        st = self.state
+        return PlacementState(st.free_mb.clone(), st.conc_free.T.clone().T,
+                              st.health.clone())
+
+    def _set_health(self, idx, usable) -> None:
+        """Health flags in place, on the owner shards on a mesh."""
+        if self.mesh is None:
+            self.state = set_health(self.state, idx, usable)
+        else:
+            self.state = sharded_set_health(self.state, idx, usable)
+
+    def _set_free(self, rows: List[int]) -> None:
+        """New registry rows' free memory at full capacity (on the owner
+        shards on a mesh: a write into a gathered copy would be lost)."""
+        vals = torch.tensor([self._slot_mb(self._registry[i].user_memory.to_mb)
+                             for i in rows], dtype=torch.int32)
+        if self.mesh is None:
+            self.state.free_mb[torch.tensor(rows)] = vals.to(self.device)
+        else:
+            sharded_set_free(self.state, rows, vals)
 
     def _build_shadow_fn(self) -> None:
         """The decision-only shadow twin of the production step (quality
@@ -851,10 +982,19 @@ class TpuBalancer(CommonLoadBalancer):
         self._shadow_fn = None
         if not (self.quality.enabled and self.quality.shadow_every_n > 0):
             return
+        rate_on = self.rate_limit_per_minute is not None
+        if self.mesh is not None:
+            # every schedule pair is bit-exact with every other, so the
+            # mesh shadow always runs the penalized sharded repair kernel
+            # regardless of which pair fleet_pair resolved for production
+            sched = make_fleet_repair_schedule(self.mesh, penalized=True)
+            make = (make_fleet_shadow_admit_step_packed if rate_on
+                    else make_fleet_shadow_step_packed)
+            self._shadow_fn = make(self.mesh, self._release_fn, sched)
+            return
         sched = penalized_schedule(self.device,
                                    self.placement_kernel_resolved)
-        make = (make_shadow_admit_step_packed
-                if self.rate_limit_per_minute is not None
+        make = (make_shadow_admit_step_packed if rate_on
                 else make_shadow_step_packed)
         self._shadow_fn = make(self._release_fn, sched)
 
@@ -909,7 +1049,10 @@ class TpuBalancer(CommonLoadBalancer):
 
     def _books_ref(self) -> torch.Tensor:
         """The post-step books vector as its own tensor, enqueued on the
-        stream before the next step mutates the live books in place."""
+        stream before the next step mutates the live books in place (on a
+        mesh the gather onto the lead device is that copy)."""
+        if self.mesh is not None:
+            return self.state.free_mb
         return self.state.free_mb.clone()
 
     def _recover_failed_step(self) -> None:
@@ -934,9 +1077,10 @@ class TpuBalancer(CommonLoadBalancer):
         PRESERVING the live books (in-flight holds survive fleet growth;
         only update_cluster resets them, which is reference behavior). The
         copies are stream-ordered after every dispatched step."""
-        st = self.state
+        st = self._global_books()
         n_old = st.free_mb.shape[0]
-        self.profiler.expect("fleet_growth")
+        self.profiler.expect("reshard" if self.mesh is not None
+                             else "fleet_growth")
         free = torch.zeros((new_pad,), dtype=st.free_mb.dtype,
                            device=self.device)
         free[:n_old] = st.free_mb
@@ -963,7 +1107,7 @@ class TpuBalancer(CommonLoadBalancer):
         """Widen the books' action axis on the device, preserving every
         live permit."""
         self.profiler.expect("slot_growth")
-        st = self.state
+        st = self._global_books()
         conc = torch.zeros((new_slots, self._n_pad), dtype=st.free_mb.dtype,
                            device=self.device)
         conc[:self.action_slots] = st.conc_free.T
@@ -1006,9 +1150,7 @@ class TpuBalancer(CommonLoadBalancer):
                 self._grow_padding(_next_pow2(len(self._registry)))
             # initialize ONLY the new rows (full capacity, health folds in
             # with the flip below); existing rows keep their holds
-            self.state.free_mb[torch.tensor(new_rows)] = torch.tensor(
-                [self._slot_mb(self._registry[i].user_memory.to_mb)
-                 for i in new_rows], dtype=torch.int32).to(self.device)
+            self._set_free(new_rows)
             self._set_books_now()
             if self._journal_live():
                 self._journal_append({
@@ -1070,13 +1212,19 @@ class TpuBalancer(CommonLoadBalancer):
         # cadence
         if self.journal is not None:
             self.journal.export_gauges(self.metrics)
+        # fleet-mesh visibility: shard count + per-shard occupancy from
+        # the cached books (host-side only)
+        if self.mesh is not None:
+            self._refresh_partitions()
+            self._export_shard_gauges()
 
     def update_cluster(self, cluster_size: int) -> None:
         """Controller joined/left: re-shard every invoker's memory (ref
         updateCluster :561-584); the books restart at full capacity."""
         if cluster_size != self._cluster_size:
             self._cluster_size = cluster_size
-            self.profiler.expect("cluster_resize")
+            self.profiler.expect("reshard" if self.mesh is not None
+                                 else "cluster_resize")
             self._init_device_state()
             self._partitions_stale = True
             if self._journal_live():
@@ -1114,6 +1262,13 @@ class TpuBalancer(CommonLoadBalancer):
         a snapshot's `journal_seq` is exactly consistent with its books."""
         if not self._journal_live():
             return 0
+        if (self.mesh is not None and not self._journal_mesh_stamped
+                and rec.get("t") != "mesh"):
+            # topology header: ONE `mesh` record ahead of this writer's
+            # first append (rides alongside `reg`/`cluster`), so replay
+            # can refuse a different device count with a logged reason
+            self._journal_mesh_stamped = True
+            self._journal_append({"t": "mesh", **mesh_topology(self.mesh)})
         self._journal_seq += 1
         rec["seq"] = self._journal_seq
         if self.fence_epoch is not None:
@@ -1147,8 +1302,8 @@ class TpuBalancer(CommonLoadBalancer):
         placements were computed on the dead device; self-heal via forced
         timeouts reclaims them, exactly the checkpoint posture).
 
-        Topology: a batch record carrying a shard count (`S`) other than
-        this balancer's (one) COLD-STARTS the books with a logged reason
+        Topology: a batch record carrying a shard count (`S`, 1 when
+        absent) other than this balancer's COLD-STARTS the books with a logged reason
         instead of mis-sharding the replay (`skipped: "mesh_topology"`).
 
         `parts_filter` restricts the replay to batch records whose `parts`
@@ -1263,8 +1418,8 @@ class TpuBalancer(CommonLoadBalancer):
                 if r.get("t") == "ack" and "for" in r}
         # the live pair, outside the profiler's wrap: replay steps are not
         # live placement traffic
-        replay_step = make_fused_step_packed(self._release_fn, self._sched_fn)
-        replay_release = make_release_packed(self._release_fn)
+        replay_step = self._make_step(self._release_fn, self._sched_fn)
+        replay_release = self._make_release_packed(self._release_fn)
         # foreign tails run on a LOCAL cursor in the dead owner's seq
         # space; our own journal numbering is untouched
         cursor = (int(from_seq or 0) if foreign else self._journal_seq)
@@ -1457,9 +1612,8 @@ class TpuBalancer(CommonLoadBalancer):
             self.state = replay_release(self.state, self._to_device(rel))
         health = rec.get("health")
         if health:
-            self.state = set_health(self.state,
-                                    [int(i) for i, _ in health],
-                                    [bool(v) for _, v in health])
+            self._set_health([int(i) for i, _ in health],
+                             [bool(v) for _, v in health])
 
     def _replay_reg(self, rec: dict) -> None:
         new_rows = []
@@ -1475,9 +1629,7 @@ class TpuBalancer(CommonLoadBalancer):
         if new_rows:
             if len(self._registry) > self._n_pad:
                 self._grow_padding(_next_pow2(len(self._registry)))
-            self.state.free_mb[torch.tensor(new_rows)] = torch.tensor(
-                [self._slot_mb(self._registry[i].user_memory.to_mb)
-                 for i in new_rows], dtype=torch.int32).to(self.device)
+            self._set_free(new_rows)
         self._partitions_stale = True
 
     # -- checkpoint / resume -----------------------------------------------
@@ -1489,12 +1641,10 @@ class TpuBalancer(CommonLoadBalancer):
         pattern of `_books_ref`); the device->host transfer then runs on a
         worker thread (checkpoint.BalancerSnapshotter) reading only the
         clones, without racing the loop's later steps or mixing books
-        from different steps."""
-        st = self.state
+        from different steps. On a mesh the clones are one gather of
+        every shard: the snapshot's books are global."""
         return {
-            "state": PlacementState(st.free_mb.clone(),
-                                    st.conc_free.T.clone().T,
-                                    st.health.clone()),
+            "state": self._books_copy(),
             "journal_seq": self._journal_seq,
             "n_pad": self._n_pad,
             "fleet_shards": self.n_shards,
@@ -1526,20 +1676,27 @@ class TpuBalancer(CommonLoadBalancer):
 
     def restore(self, snap: dict) -> None:
         self.profiler.expect("snapshot_restore")
-        # the snapshot's books are GLOBAL (topology-independent); said out
-        # loud because the JOURNAL tail is not topology-portable
-        # (replay_journal cold-starts on a mismatch)
+        # the snapshot's books are GLOBAL (topology-independent): restoring
+        # them onto a different shard count is a deterministic reshard —
+        # _install_state re-places every row on this balancer's own mesh.
+        # Said out loud because the JOURNAL tail is not topology-portable
+        # (replay_journal cold-starts on a mismatch).
         snap_shards = int(snap.get("fleet_shards", 1))
         if snap_shards != self.n_shards and self.logger:
             self.logger.info(
                 None, f"snapshot was taken at {snap_shards} fleet "
-                f"shard(s); restoring its books onto {self.n_shards}",
-                "TpuBalancer")
+                f"shard(s); resharding deterministically onto "
+                f"{self.n_shards}", "TpuBalancer")
         # the snapshot's books already hold every journaled change up to
         # this seq: replay_journal resumes from here (older snapshots carry
         # no seq — a full-history journal replays from 0)
         self._journal_seq = int(snap.get("journal_seq", 0))
         self._n_pad = int(snap["n_pad"])
+        if self.mesh is not None and self._n_pad % self.n_shards:
+            # a single-device snapshot may carry a pad the mesh cannot
+            # divide: round up (extra rows are unhealthy zero-capacity
+            # padding, exactly like growth padding)
+            self._n_pad = _next_pow2(max(self._n_pad, self.n_shards))
         self._cluster_size = int(snap["cluster_size"])
         # older snapshots predate the growable slot axis
         self.action_slots = int(snap.get("action_slots", self.action_slots))
@@ -1547,7 +1704,7 @@ class TpuBalancer(CommonLoadBalancer):
                           for j in snap["registry"]]
         self._healthy = [bool(h) for h in snap["healthy"]]
         free = np.asarray(snap["free_mb"], np.int32)
-        if len(free) < self._n_pad:
+        if len(free) < self._n_pad:  # pad rounded up above
             free = np.concatenate(
                 [free, np.zeros((self._n_pad - len(free),), np.int32)])
         # conc is held as the [N, A] view of [A, N] storage (init_state)
@@ -2045,13 +2202,19 @@ class TpuBalancer(CommonLoadBalancer):
     def kernel_profile(self) -> dict:
         """The profiling-plane payload, labeled with the kernels actually
         running ("cuda" on the card, "torch" for the plain versions on the
-        CPU) — host-side reads only, no device sync (the allocator
-        statistics are host counters)."""
-        out = self.profiler.profile_json(
-            kernel="cuda" if self.device.type == "cuda" else "torch")
+        CPU, "sharded" on a mesh) — host-side reads only, no device sync
+        (the allocator statistics are host counters)."""
+        out = self.profiler.profile_json(kernel=self.kernel_resolved)
         out["placement_kernel"] = self.placement_kernel_resolved
         out["kernel_chosen_by"] = "static"
+        if self.mesh is not None:
+            out["mesh"] = {"n_shards": self.n_shards,
+                           "axis": self.fleet_axis}
         return out
+
+    #: occupancy() serves from the last readback's CACHED books — no
+    #: device sync, so the admin endpoint runs inline on the event loop
+    OCCUPANCY_SYNCS_DEVICE = False
 
     def occupancy(self) -> dict:
         """Per-invoker memory in use from the last readback's cached books
@@ -2066,7 +2229,49 @@ class TpuBalancer(CommonLoadBalancer):
             cap = int(caps[i])
             f = int(free[i]) if i < len(free) else cap
             rows.append((inv.as_string, self._healthy[i], cap, f, cap - f))
-        return occupancy_json(self.placement_kernel_resolved, rows)
+        out = occupancy_json(self.placement_kernel_resolved, rows)
+        if self.mesh is not None:
+            # per-shard books aggregated from the SAME cached vector —
+            # still zero device syncs on the API path
+            out["mesh"] = {"n_shards": self.n_shards,
+                           "axis": self.fleet_axis}
+            out["shards"] = self._shard_occupancy(free, caps)
+        return out
+
+    def _shard_occupancy(self, free, caps) -> List[dict]:
+        """Per-shard occupancy rows from host-cached books. Shard s owns
+        invoker rows [s*k, (s+1)*k) with k = n_pad / n_shards (the
+        sharded books' block layout); padding rows carry zero capacity and
+        zero free, so they drop out of the sums."""
+        rows_per = max(1, self._n_pad // max(1, self.n_shards))
+        n_reg = len(caps)
+        out = []
+        for s in range(self.n_shards):
+            lo, hi = s * rows_per, (s + 1) * rows_per
+            reg_hi = min(hi, n_reg)
+            cap = int(caps[lo:reg_hi].sum()) if lo < n_reg else 0
+            f = int(free[lo:min(hi, len(free))].sum()) \
+                if lo < len(free) else cap
+            used = cap - f
+            out.append({"shard": s,
+                        "invokers": max(0, reg_hi - lo),
+                        "capacity_mb": cap, "used_mb": used,
+                        "occupancy": (round(used / cap, 4) if cap
+                                      else 0.0)})
+        return out
+
+    def _export_shard_gauges(self) -> None:
+        """`loadbalancer_fleet_shards` + per-shard occupancy ratios from
+        the cached books — host numpy only, never a device sync (rides
+        the 1 Hz supervision tick)."""
+        self.metrics.gauge("loadbalancer_fleet_shards", self.n_shards)
+        free = self._books_cache
+        if free is None:
+            return
+        for row in self._shard_occupancy(free, self._caps_mb):
+            self.metrics.gauge("loadbalancer_shard_occupancy_ratio",
+                               row["occupancy"],
+                               tags={"shard": str(row["shard"])})
 
     @property
     def rtt_policy(self) -> str:
@@ -2162,14 +2367,17 @@ class TpuBalancer(CommonLoadBalancer):
     def _start_early_build(self) -> concurrent.futures.Future:
         """The early build on a daemon worker thread: the process's kernel
         build and load (`placement_cuda.prewarm`, shared by every balancer
-        of the process), then this balancer's warm steps."""
-        build = placement_cuda.prewarm()
+        of the process), then this balancer's warm steps. A mesh launches
+        no CUDA placement kernel, so it builds nothing and only warms its
+        sharded step."""
+        build = placement_cuda.prewarm() if self.mesh is None else None
         job: concurrent.futures.Future = concurrent.futures.Future()
         job.set_running_or_notify_cancel()
 
         def run():
             try:
-                build.result()
+                if build is not None:
+                    build.result()
                 self._warm_steps()
             except BaseException as e:  # noqa: BLE001 — to the waiters
                 job.set_exception(e)
@@ -2189,7 +2397,8 @@ class TpuBalancer(CommonLoadBalancer):
         releases. It warms what a process's first step pays on the loop
         otherwise: the kernels' runtime and launch set-up, the modules of
         the step's torch ops, the pinned staging memory. Its launches do
-        not count."""
+        not count. On a mesh the dummies are sharded like the live books
+        and the sharded step is warmed."""
         rate_on = self.rate_limit_per_minute is not None
         rows = 10 if rate_on else 9
         h = self.HEALTH_BATCH
@@ -2204,6 +2413,8 @@ class TpuBalancer(CommonLoadBalancer):
                 dummy = init_state(1, [0], n_pad=self._n_pad,
                                    action_slots=self.action_slots,
                                    device=self.device)
+                if self.mesh is not None:
+                    dummy = shard_state(dummy, self.mesh)
                 dbuf = self._to_device(buf)
                 st, now = dummy, ()
                 if rate_on:  # the admit variant: bucket state and a clock
@@ -2213,9 +2424,11 @@ class TpuBalancer(CommonLoadBalancer):
                     now = (np.float32(0.0),)
                 if self._shadow_fn is not None:
                     self._shadow_fn(st, dbuf,
-                                    torch.zeros_like(dummy.free_mb), *now,
+                                    torch.zeros((self._n_pad,),
+                                                dtype=torch.int32,
+                                                device=self.device), *now,
                                     bp, h, bp,
-                                    scratch=empty_books_like(dummy))
+                                    scratch=_empty_books_like(dummy))
                 _, out = self._packed_fn(st, dbuf, *now, bp, h, bp)
                 self._warm_readback(out)
 
@@ -2326,8 +2539,7 @@ class TpuBalancer(CommonLoadBalancer):
                         self.state, self._to_device(rel_np))
                 if self._health_updates:
                     ups, self._health_updates = self._health_updates, {}
-                    self.state = set_health(self.state, list(ups.keys()),
-                                            list(ups.values()))
+                    self._set_health(list(ups.keys()), list(ups.values()))
                 if (rel_np is not None or ups) and self._journal_live():
                     fold = {"t": "fold"}
                     if rel_np is not None:
@@ -2383,6 +2595,8 @@ class TpuBalancer(CommonLoadBalancer):
                 "queue_depth": b + len(self._pending),
                 "oldest_age_ms": round((t0 - batch[0][3]) * 1e3, 3),
             })
+            if self.mesh is not None:
+                rec.digest["shards"] = self.n_shards
             tid = next((e[6] for e in batch if e[6]), None)
             if tid is not None:
                 # the record carries a trace: the phase histogram's bucket
@@ -2454,6 +2668,11 @@ class TpuBalancer(CommonLoadBalancer):
                         pe[str(p)] = max(pe.get(str(p), 0), int(ep))
                 jrec["parts"] = sorted(int(p) for p in pe)
                 jrec["pe"] = pe
+            if self.mesh is not None:
+                # shard count travels on EVERY batch record (the one-shot
+                # `mesh` header can be pruned away with its snapshot):
+                # replay refuses a topology mismatch per batch
+                jrec["S"] = self.n_shards
             jseq = self._journal_append(jrec)
         # completion telemetry rides the SAME dispatch cycle: at most one
         # extra scatter-add per batch over event rows already packed
@@ -2512,12 +2731,15 @@ class TpuBalancer(CommonLoadBalancer):
         read-only pass over the POST-commit books, the decision vector
         and the anomaly EWMAs, enqueued right behind the step; its summary
         row comes back with the step's readback. Failures are logged and
-        swallowed, as the shadow's are."""
+        swallowed, as the shadow's are. On a mesh the scorer reads the
+        global books gathered onto the lead device: one copy of every
+        shard a batch."""
         if not self.quality.enabled:
             return None
         try:
+            st = self._global_books()
             return self.quality.device_step(
-                self.state.free_mb, self.state.conc_free, self.state.health,
+                st.free_mb, st.conc_free, st.health,
                 self._quality_ewma, self._quality_caps, req, out, shadow_out)
         except Exception as e:  # noqa: BLE001 — observability only
             if self.logger:
