@@ -340,11 +340,45 @@ Phases, each reported on its own line:
               answered with its echo, the frontends hold no CUDA context
               (`nvidia-smi --query-compute-apps`), the balancer launched
               the kernels.
- 11. a `{"kernels": [...]}` JSON line (each kernel's launches and ms in the
-     journal replays of 7b, phase 9's, 9c's and phase 10's launches beside
-     the rest; `quality_launches` and `penalized_launches` on 7q's paths and
-     the kept penalized launch's numbers), then the card line, then the
-     last line
+ 12. tools  the reference's documented deployment shape (`deploy/README.md`,
+              `deploy/cluster.yaml`'s keys in a JSON inventory) through the
+              port's own tools: the services `python -m
+              openwhisk_tpu_torch.tools.deploy` lists (the broker, the
+              docstore over a sqlite file, 4 invokers of 4,096 MB, 2
+              controllers with `--balancer tpu` on the card and
+              `--seed-guest`, the monitoring service and the edge; the
+              limits raised as phase 9's), started as its `up` starts
+              them (argv, environment, order, pid files), each
+              controller's argv under `--deploy-controller` for its launch
+              counts; then the tool's `status` (rc 0, every service up).
+              Traffic: `python -m openwhisk_tpu_torch.tools.wskadmin --db
+              docstore://... user create` makes a tenant whose printed key
+              is used from then on; `wsk` processes through the edge
+              (`action create` of an echo and a step action, `--sequence`,
+              `package create` and `bind`, `action invoke --blocking
+              --result`, `activation list` and `get`), each timed and its
+              JSON held against the REST body; 2,000 echo actions at 128
+              MB created over HTTP through the edge (the store's size);
+              300 blocking invokes at 16 in flight, Zipf(1.1) over them,
+              through the edge (which alternates the controllers); one
+              burst of 64 non-blocking invokes at controller 0 (up to
+              three until a repair launched), each read back through
+              controller 1; 1,000 gets of action docs from a
+              `RemoteArtifactStore` here. Then the tool's `down` (every
+              pid gone within 30 s) and the docstore's sqlite file opened
+              with `open_store(path)`. Held: every invoke answered with
+              its echo, every acknowledged activation read back through
+              the other controller and held by the file with the 2,000
+              actions, both boot lines `device=cuda`, each controller
+              launched the scan and the two the repair. One "tools" line:
+              each service's seconds to its up line, each command's ms,
+              docstore get p50/p99, invokes/s and HTTP p50/p99 (all, cold
+              and warm), each controller's launches.
+ 11. after phase 12, a `{"kernels": [...]}` JSON line (each kernel's
+     launches and ms in the journal replays of 7b, phase 9's, 9c's, phase
+     10's and phase 12's launches beside the rest; `quality_launches` and
+     `penalized_launches` on 7q's paths and the kept penalized launch's
+     numbers), then the card line, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failure raises, so the script exits non-zero and prints no last line;
@@ -4570,6 +4604,21 @@ def deploy_controller(counts_path, argv):
     return 0
 
 
+def _signal_counts(proc, path, sig, what):
+    """Ask a `--deploy-controller` process for its kernel launch counts
+    (SIGUSR1 reads, SIGUSR2 resets) and wait for the file it writes."""
+    import os
+    stamp = os.path.getmtime(path) if os.path.exists(path) else None
+    proc.send_signal(sig)
+    for _ in range(500):
+        if os.path.exists(path) and os.path.getmtime(path) != stamp:
+            time.sleep(0.02)
+            with open(path) as f:
+                return json.load(f)
+        time.sleep(0.01)
+    raise RuntimeError(f"{what} wrote no launch counts")
+
+
 class Deployment:
     """The broker, DEPLOY_INVOKERS invokers and one controller as OS
     processes on localhost, each started through its CLI, its output in a
@@ -4646,20 +4695,10 @@ class Deployment:
         self.procs[name][0].send_signal(sig)
 
     def launches(self, sig):
-        """Ask the controller for its kernel launch counts (SIGUSR1 reads,
-        SIGUSR2 resets) and wait for the file it writes."""
-        import os
-        stamp = os.path.getmtime(self.counts) if os.path.exists(
-            self.counts) else None
-        self.send("controller", sig)
-        for _ in range(500):
-            if os.path.exists(self.counts) and \
-                    os.path.getmtime(self.counts) != stamp:
-                time.sleep(0.02)
-                with open(self.counts) as f:
-                    return json.load(f)
-            time.sleep(0.01)
-        raise RuntimeError("deploy: the controller wrote no launch counts")
+        """The controller's kernel launch counts (SIGUSR1 reads, SIGUSR2
+        resets)."""
+        return _signal_counts(self.procs["controller"][0], self.counts, sig,
+                              "deploy: the controller")
 
     def stop(self):
         """SIGTERM the controller (its final dump), then the invokers and
@@ -4780,6 +4819,8 @@ async def _deploy_traffic(dep):
                   for n in range(DEPLOY_SEQUENTIAL)]
         out["launches"] = dep.launches(signal.SIGUSR1)
         out["launches_before"] = launches0
+        if bad:
+            _report_502(bad, {n: dep.log(n) for n in dep.procs})
         require(not bad, f"deploy: every response 200 with its echo: "
                          f"{bad[:5]}")
         out.update(
@@ -5570,16 +5611,9 @@ class HaDeployment(Deployment):
 
     def launches_of(self, name, sig):
         import os
-        path = os.path.join(self.work, f"{name}.json")
-        stamp = os.path.getmtime(path) if os.path.exists(path) else None
-        self.send(name, sig)
-        for _ in range(500):
-            if os.path.exists(path) and os.path.getmtime(path) != stamp:
-                time.sleep(0.02)
-                with open(path) as f:
-                    return json.load(f)
-            time.sleep(0.01)
-        raise RuntimeError(f"ha: {name} wrote no launch counts")
+        return _signal_counts(self.procs[name][0],
+                              os.path.join(self.work, f"{name}.json"), sig,
+                              f"ha: {name}")
 
     def kill(self, name):
         proc, log = self.procs[name]
@@ -6517,6 +6551,504 @@ def cold_phase(TB):
     return dict(buckets=buckets, **runs)
 
 
+# --------------------------------------------------------------- phase 12
+#: the store's size (the BASELINE's 2,000 actions at 128 MB), the blocking
+#: invokes and their concurrency, the burst at one controller, the PUTs'
+#: concurrency and the docstore reads timed from this process
+TOOLS_ACTIONS, TOOLS_BLOCKING, TOOLS_INFLIGHT, TOOLS_BURST = 2_000, 300, 16, 64
+TOOLS_PUT_INFLIGHT, TOOLS_READS = 32, 1_000
+TOOLS_SUBJECT = "tools-tenant"
+#: each service's up line, by name prefix
+TOOLS_MARKS = {"bus": "listening on", "docstore": "docstore up on",
+               "invoker": ") up", "controller": " up on :",
+               "monitoring": "user-events metrics on",
+               "edge": "edge proxy on"}
+
+
+def _two_free_ports():
+    """A free port whose successor is free too (the controllers'
+    `base_port`: controller i listens on base + i)."""
+    import socket
+    for _ in range(100):
+        base = _free_port()
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", base + 1))
+            return base
+        except OSError:
+            continue
+    raise RuntimeError("tools: no two consecutive free ports")
+
+
+def _sandbox_states():
+    """The container pools as the OS shows them: every action proxy
+    process (a python:3 sandbox) with its parent (the invoker) and its
+    state; `T` is stopped, i.e. paused."""
+    import os
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"actionproxy" not in f.read():
+                    continue
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except OSError:
+            continue
+        out.append({"pid": int(pid), "ppid": int(ppid), "state": state})
+    return out
+
+
+def _report_502(bad, logs):
+    """Beside any 502 among `bad` ((id, status, body) rows), before the
+    phase fails: each invoker's log tail and the sandboxes' states."""
+    if not any(len(b) > 2 and b[1] == 502 for b in bad):
+        return
+    for name, text in logs.items():
+        if name.startswith("invoker"):
+            print(f"--- {name} log tail:\n{text[-3000:]}", file=sys.stderr)
+    print(f"--- sandboxes: {json.dumps(_sandbox_states())}", file=sys.stderr)
+
+
+class ToolsDeployment:
+    """Phase 12's deployment: the services the port's
+    `deploy.services(inv)` lists for a JSON inventory of
+    `deploy/cluster.yaml`'s keys, started as the tool's `up` starts them
+    (its argv, its environment, its order, its pid files in the rundir),
+    each controller's argv after `-m openwhisk_tpu_torch.controller` run
+    under `--deploy-controller` so that its launch counts can be read."""
+
+    def __init__(self, work):
+        import os
+        from openwhisk_tpu_torch.tools import deploy as D
+        self.D, self.work = D, work
+        self.db = os.path.join(work, "whisks.db")
+        inv = {"rundir": os.path.join(work, "run"), "db": self.db,
+               "bus": {"port": _free_port()},
+               "docstore": {"enabled": True, "port": _free_port()},
+               "controllers": {"count": 2, "base_port": _two_free_ports(),
+                               "balancer": "tpu", "seed_guest": True},
+               "invokers": {"count": DEPLOY_INVOKERS,
+                            "memory_mb": DEPLOY_MEMORY_MB},
+               "edge": {"enabled": True, "port": _free_port()},
+               "monitoring": {"enabled": True, "port": _free_port()},
+               "limits": {k.rsplit("_", 1)[1]: v
+                          for k, v in DEPLOY_LIMITS.items()}}
+        if DEVICE != "cuda":
+            inv["controllers"]["device"] = DEVICE
+        self.inventory = os.path.join(work, "inventory.json")
+        with open(self.inventory, "w") as f:
+            json.dump(inv, f)
+        self.inv = D.load_inventory(self.inventory)
+        ctrl = self.inv["controllers"]
+        self.controllers = [f"http://127.0.0.1:{ctrl['base_port'] + i}"
+                            for i in range(ctrl["count"])]
+        self.edge = f"http://127.0.0.1:{self.inv['edge']['port']}"
+        self.docstore = f"docstore://127.0.0.1:{self.inv['docstore']['port']}"
+        self.procs, self.started = {}, {}
+
+    def path(self, name, suffix):
+        import os
+        return os.path.join(self.inv["rundir"], f"{name}.{suffix}")
+
+    def start(self):
+        import os
+        os.makedirs(self.inv["rundir"])
+        env = self.D._env(self.inv)
+        env.setdefault("PYTHONPATH", os.getcwd())
+        for svc in self.D.services(self.inv):
+            name, argv = svc["name"], list(svc["argv"])
+            if name.startswith("controller"):
+                i = argv.index("openwhisk_tpu_torch.controller")
+                argv = [argv[0], os.path.abspath(__file__),
+                        "--deploy-controller", self.path(name, "json"),
+                        *argv[i + 1:]]
+            log = open(self.path(name, "log"), "ab")
+            self.started[name] = time.perf_counter()
+            proc = subprocess.Popen(argv, stdout=log, stderr=log, env=env,
+                                    start_new_session=True)
+            with open(self.path(name, "pid"), "w") as f:
+                f.write(str(proc.pid))
+            self.procs[name] = (proc, log)
+            if name in ("bus", "docstore"):
+                self.wait_up([name])  # `up` sleeps a second here instead
+
+    def log(self, name):
+        with open(self.path(name, "log"), errors="replace") as f:
+            return f.read()
+
+    def wait_up(self, names=None, timeout=DEPLOY_TIMEOUT_S):
+        """Seconds from each service's start to its up line."""
+        names = list(names or self.procs)
+        up = {}
+        t0 = time.perf_counter()
+        while len(up) < len(names):
+            for name in names:
+                mark = next(v for k, v in TOOLS_MARKS.items()
+                            if name.startswith(k))
+                if name not in up and mark in self.log(name):
+                    up[name] = time.perf_counter() - self.started[name]
+                proc = self.procs[name][0]
+                require(proc.poll() is None,
+                        f"tools: {name} exited {proc.returncode}: "
+                        f"{self.log(name)[-2000:]}")
+            require(time.perf_counter() - t0 < timeout,
+                    f"tools: {sorted(set(names) - set(up))} not up")
+            time.sleep(0.05)
+        return up
+
+    def tool(self, module, *args):
+        """`python -m openwhisk_tpu_torch.tools.MODULE ARGS` as a process:
+        (exit code, stdout, wall ms)."""
+        import os
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", f"openwhisk_tpu_torch.tools.{module}",
+             *args], capture_output=True, text=True, timeout=120,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        ms = (time.perf_counter() - t) * 1e3
+        require(out.returncode in (0, 1),
+                f"tools: {module} {args} exited {out.returncode}: "
+                f"{out.stderr[-2000:]}")
+        return out.returncode, out.stdout, ms
+
+    def launches(self, sig):
+        """Each controller's launch counts (SIGUSR1 reads, SIGUSR2 resets
+        to 0), as phase 9 reads its controller's."""
+        return {name: _signal_counts(self.procs[name][0],
+                                     self.path(name, "json"), sig,
+                                     f"tools: {name}")
+                for name in sorted(n for n in self.procs
+                                   if n.startswith("controller"))}
+
+    def down(self):
+        """The tool's `down` as a process; every pid gone within 30 s.
+        Returns (its exit code, ms, each service's exit code)."""
+        rc, _out, ms = self.tool("deploy", "-i", self.inventory, "down")
+        rcs = {}
+        t0 = time.perf_counter()
+        for name, (proc, log) in self.procs.items():
+            try:
+                rcs[name] = proc.wait(
+                    timeout=max(0.1, 30 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rcs[name] = None
+                proc.kill()
+                proc.wait()
+            log.close()
+        return rc, ms, rcs
+
+
+def _tools_cli(dep):
+    """Traffic 1 and 2: `wskadmin user create` over the docstore, then the
+    `wsk` commands through the edge as processes, each timed and its
+    printed JSON kept."""
+    import os
+    ms, outs = {}, {}
+    rc, key, ms["wskadmin user create"] = dep.tool(
+        "wskadmin", "--db", dep.docstore, "user", "create", TOOLS_SUBJECT)
+    key = key.strip()
+    require(rc == 0 and key.count(":") == 1,
+            f"tools: wskadmin user create printed a key: {rc} {key!r}")
+    for name, code in (("echo", ECHO_CODE), ("step", STEP_CODE)):
+        with open(os.path.join(dep.work, f"{name}.py"), "w") as f:
+            f.write(code)
+    commands = [
+        ("action create echo", ["action", "create", "echo",
+                                os.path.join(dep.work, "echo.py")]),
+        ("action create step", ["action", "create", "step",
+                                os.path.join(dep.work, "step.py")]),
+        ("action create --sequence", ["action", "create", "twice",
+                                      "--sequence", "step,step"]),
+        ("package create", ["package", "create", "utils", "-p", "who",
+                            "provider"]),
+        ("package bind", ["package", "bind", "utils", "bound", "-p", "who",
+                          "binding"]),
+        ("action invoke --blocking --result", [
+            "action", "invoke", "twice", "-p", "n", "5", "--blocking",
+            "--result"]),
+        ("action invoke echo", ["action", "invoke", "echo", "-p", "n", "1",
+                                "--blocking"]),
+        ("activation list", ["activation", "list"])]
+    wsk = ["--apihost", dep.edge, "--auth", key]
+    for label, argv in commands:
+        rc, out, ms[label] = dep.tool("wsk", *wsk, *argv)
+        require(rc == 0, f"tools: wsk {label} exited {rc}: {out[-500:]}")
+        outs[label] = json.loads(out)
+    aid = outs["action invoke echo"]["activationId"]
+    rc, out, ms["activation get"] = dep.tool("wsk", *wsk, "activation", "get",
+                                             aid)
+    require(rc == 0, f"tools: wsk activation get exited {rc}")
+    outs["activation get"] = json.loads(out)
+    return key, ms, outs
+
+
+async def _tools_rest_checks(s, dep, outs):
+    """`wsk`'s printed JSON against the REST bodies of the same entities
+    (through the edge)."""
+    base = f"{dep.edge}/api/v1/namespaces/_"
+    rest = {}
+    for label, path in (("action create echo", "actions/echo"),
+                        ("action create --sequence", "actions/twice"),
+                        ("package bind", "packages/bound"),
+                        ("activation get", "activations/"
+                         + outs["activation get"]["activationId"])):
+        async with s.get(f"{base}/{path}") as r:
+            require(r.status == 200, f"tools: GET {path} {r.status}")
+            rest[label] = await r.json()
+    for label, body in rest.items():
+        # a package's GET adds its contents (`actions`); `updated` is the
+        # store's write clock
+        require({k: body.get(k) for k in outs[label] if k != "updated"}
+                == {k: v for k, v in outs[label].items() if k != "updated"},
+                f"tools: wsk {label} printed the REST body: {outs[label]} "
+                f"!= {body}")
+    require(outs["action invoke --blocking --result"] == {"n": 7},
+            f"tools: the sequence's result: "
+            f"{outs['action invoke --blocking --result']}")
+    require(outs["action invoke echo"]["response"]["result"] == {"n": 1},
+            "tools: wsk's echo invoke")
+    listed = {a["activationId"] for a in outs["activation list"]}
+    require(outs["activation get"]["activationId"] in listed,
+            f"tools: activation list names the echo invoke: {listed}")
+    require(outs["package bind"]["binding"]["name"] == "utils",
+            f"tools: the binding names its provider: {outs['package bind']}")
+
+
+async def _tools_traffic(dep, key, outs):
+    """Traffic 3-5 over HTTP (aiohttp): the 2,000 actions through the edge,
+    the blocking invokes through the edge, the burst at controller 0 read
+    back through controller 1."""
+    import aiohttp
+    u, _, k = key.partition(":")
+    base = f"{dep.edge}/api/v1/namespaces/_"
+    out, bad = {}, []
+    conn = aiohttp.TCPConnector(limit=TOOLS_BURST)
+    async with aiohttp.ClientSession(connector=conn,
+                                     auth=aiohttp.BasicAuth(u, k)) as s:
+        await _tools_rest_checks(s, dep, outs)
+        sem = asyncio.Semaphore(TOOLS_PUT_INFLIGHT)
+
+        async def put(i):
+            async with sem, s.put(f"{base}/actions/a{i}", json={
+                    "exec": {"kind": "python:3", "code": ECHO_CODE},
+                    "limits": {"memory": DEPLOY_ACTION_MB}}) as r:
+                return r.status
+
+        t0 = time.perf_counter()
+        puts = await asyncio.gather(*[put(i) for i in range(TOOLS_ACTIONS)])
+        out["create_s"] = time.perf_counter() - t0
+        require(puts == [200] * TOOLS_ACTIONS,
+                f"tools: every action created: "
+                f"{sorted(set(puts) - {200})}")
+        rng = np.random.RandomState(12)
+        picks = rng.choice(TOOLS_ACTIONS, TOOLS_BLOCKING,
+                           p=_zipf(TOOLS_ACTIONS))
+        inflight = asyncio.Semaphore(TOOLS_INFLIGHT)
+        aids, cold = [], []
+
+        async def blocking(n, a):
+            async with inflight:
+                t = time.perf_counter()
+                async with s.post(f"{base}/actions/a{a}?blocking=true",
+                                  json={"n": n}) as r:
+                    body = await r.json(content_type=None)
+                    ms = (time.perf_counter() - t) * 1e3
+                    if r.status != 200 or body.get("response", {}).get(
+                            "result") != {"n": n}:
+                        bad.append((n, r.status, body))
+                    else:
+                        aids.append(body["activationId"])
+                        cold.append(any(x.get("key") == "initTime"
+                                        for x in body.get("annotations", [])))
+                    return ms
+
+        t0 = time.perf_counter()
+        http_ms = await asyncio.gather(*[blocking(n, int(a))
+                                         for n, a in enumerate(picks)])
+        wall = time.perf_counter() - t0
+        out.update(invokes=TOOLS_BLOCKING,
+                   distinct_actions=len(set(picks.tolist())),
+                   invokes_per_s=TOOLS_BLOCKING / wall,
+                   http_ms_p50_p99=_percentiles(http_ms),
+                   cold=int(sum(cold)), warm=len(cold) - int(sum(cold)),
+                   http_ms_p50_p99_cold=_percentiles(
+                       [m for m, c in zip(http_ms, cold) if c]),
+                   http_ms_p50_p99_warm=_percentiles(
+                       [m for m, c in zip(http_ms, cold) if not c]))
+        # the burst at controller 0: one admission wave a step of 32 rows
+        # or more (the repair); up to three waves until a repair launched
+        c0 = f"{dep.controllers[0]}/api/v1/namespaces/_"
+        burst = {}
+
+        async def fire(n):
+            async with s.post(f"{c0}/actions/echo", json={"n": n}) as r:
+                body = await r.json(content_type=None)
+                if r.status != 202 or "activationId" not in body:
+                    bad.append((n, r.status, body))
+                else:
+                    burst[body["activationId"]] = n
+
+        waves = []
+        for w in range(3):
+            await asyncio.gather(*[fire(100_000 + w * TOOLS_BURST + n)
+                                   for n in range(TOOLS_BURST)])
+            waves.append(dep.launches(signal.SIGUSR1))
+            if sum(v["repair"] for v in waves[-1].values()) > 0 or \
+                    DEVICE != "cuda":
+                break
+        # every acknowledged activation, once complete, read back through
+        # the other controller (both share the docstore)
+        c1 = f"{dep.controllers[1]}/api/v1/namespaces/_"
+        pending, t_poll = dict(burst), time.perf_counter()
+        while pending and time.perf_counter() - t_poll < DEPLOY_TIMEOUT_S:
+            for aid in list(pending):
+                async with s.get(f"{c1}/activations/{aid}") as r:
+                    if r.status == 200:
+                        rec = await r.json()
+                        n = pending.pop(aid)
+                        if rec.get("response", {}).get("result") != {"n": n}:
+                            bad.append((aid, r.status, rec))
+            if pending:
+                await asyncio.sleep(0.1)
+        out["burst"] = dict(invokes=len(burst), waves=len(waves),
+                            read_back_s=time.perf_counter() - t_poll)
+        if bad:
+            _report_502(bad, {n: dep.log(n) for n in dep.procs})
+        require(not bad, f"tools: every invoke answered with its echo: "
+                         f"{bad[:5]}")
+        require(not pending, f"tools: {len(pending)} burst activations "
+                             "never read back through controller 1")
+    out["activation_ids"] = aids + list(burst) + [
+        outs["action invoke echo"]["activationId"]]
+    return out
+
+
+async def _docstore_reads(dep, n):
+    """TOOLS_READS gets of action docs from a `RemoteArtifactStore` in this
+    process: p50/p99 ms."""
+    from openwhisk_tpu_torch.database import RemoteArtifactStore
+    port = dep.inv["docstore"]["port"]
+    store = RemoteArtifactStore("127.0.0.1", port)
+    ms = []
+    try:
+        for i in range(n):
+            t = time.perf_counter()
+            doc = await store.get(f"{TOOLS_SUBJECT}/a{i % TOOLS_ACTIONS}")
+            ms.append((time.perf_counter() - t) * 1e3)
+            require(doc["name"] == f"a{i % TOOLS_ACTIONS}",
+                    "tools: the docstore read its action")
+    finally:
+        await store.close()
+    return _percentiles(ms)
+
+
+async def _stored(db, aids):
+    """After `down`: the docstore's sqlite file through the port's
+    `open_store(path)`: the actions in the tenant's namespace and the
+    acknowledged activations it holds."""
+    from openwhisk_tpu_torch.database import NoDocumentException, open_store
+    store = open_store(db)
+    try:
+        actions = await store.count("actions", TOOLS_SUBJECT)
+        held = 0
+        for aid in aids:
+            try:
+                await store.get(f"{TOOLS_SUBJECT}/{aid}")
+                held += 1
+            except NoDocumentException:
+                pass
+    finally:
+        await store.close()
+    return actions, held
+
+
+def tools_phase():
+    """Phase 12: the reference's documented deployment shape through the
+    port's `owdeploy`, `wskadmin` and `wsk` (module docstring)."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-tools-")
+    dep = ToolsDeployment(work)
+    t_phase = time.perf_counter()
+    try:
+        dep.start()
+        try:
+            up_s = dep.wait_up()
+            rc, status, status_ms = dep.tool("deploy", "-i", dep.inventory,
+                                              "status")
+            boots = {n: next((ln for ln in dep.log(n).splitlines()
+                              if " up on :" in ln), "")
+                     for n in dep.procs if n.startswith("controller")}
+            asyncio.run(_fleet_seen(dep))
+            before = dep.launches(signal.SIGUSR2)  # 0 before the path
+            key, cli_ms, outs = _tools_cli(dep)
+            traffic = asyncio.run(_tools_traffic(dep, key, outs))
+            launches = dep.launches(signal.SIGUSR1)
+            reads = asyncio.run(_docstore_reads(dep, TOOLS_READS))
+        except Exception:
+            for name in dep.procs:
+                print(f"--- {name} log:\n{dep.log(name)[-3000:]}",
+                      file=sys.stderr)
+            raise
+        finally:
+            down_rc, down_ms, rcs = dep.down()
+        actions, held = asyncio.run(_stored(dep.db,
+                                            traffic["activation_ids"]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    aids = traffic.pop("activation_ids")
+    line = dict(
+        services=len(dep.procs), invokers=DEPLOY_INVOKERS,
+        controllers=len(dep.controllers), up_s=up_s,
+        status=dict(rc=rc, ms=status_ms), cli_ms=cli_ms,
+        down=dict(rc=down_rc, ms=down_ms, exit_codes=rcs),
+        store=dict(actions=actions, activations_acknowledged=len(aids),
+                   activations_held=held,
+                   get_ms_p50_p99_remote=reads),
+        launches=launches, launches_before=before,
+        boot_lines=boots, **traffic,
+        phase_s=time.perf_counter() - t_phase)
+    say("tools", **line)
+    require(rc == 0 and all(f"{n}: up" in status for n in dep.procs),
+            f"tools: owdeploy status shows every service up: {status}")
+    require(all(rc is not None for rc in rcs.values()),
+            f"tools: every pid gone within 30 s of owdeploy down: {rcs}")
+    device = "cuda" if DEVICE == "cuda" else DEVICE
+    require(all(f"device={device}" in ln for ln in boots.values()),
+            f"tools: both controllers place on {device}: {boots}")
+    require(all(v["scan"] == 0 and v["repair"] == 0
+                for v in before.values()),
+            "tools: the controllers' counts were reset before the traffic")
+    require(DEVICE != "cuda" or (
+        all(v["scan"] > 0 for v in launches.values())
+        and sum(v["repair"] for v in launches.values()) > 0),
+        f"tools: each controller launched the scan, the two the repair: "
+        f"{launches}")
+    require(actions >= TOOLS_ACTIONS and held == len(aids),
+            f"tools: after down the docstore's file holds the "
+            f"{TOOLS_ACTIONS} actions ({actions}) and every acknowledged "
+            f"activation ({held} of {len(aids)})")
+    return line
+
+
+async def _fleet_seen(dep):
+    """Every controller shows the DEPLOY_INVOKERS invokers up."""
+    import aiohttp
+    async with aiohttp.ClientSession() as s:
+        for url in dep.controllers:
+            t0 = time.perf_counter()
+            while True:
+                st, body = await _json_get(s, f"{url}/invokers")
+                if st == 200 and sum(v == "up" for v in body.values()) \
+                        == DEPLOY_INVOKERS:
+                    break
+                require(time.perf_counter() - t0 < DEPLOY_TIMEOUT_S,
+                        f"tools: the fleet is up at {url}: {body}")
+                await asyncio.sleep(0.2)
+
+
+
 def leg():
     """`--leg`: one leg of a parent/change comparison inside one call, run
     from the root of each tree: phase 7's main run without the profile
@@ -6639,6 +7171,9 @@ def main():
     t0 = time.perf_counter()
     ha = ha_phase()
     say("ha_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tools = tools_phase()
+    say("tools_phase", seconds=time.perf_counter() - t0)
 
     scan = sk["plain"]
     rep = mk["plain"]
@@ -6683,6 +7218,8 @@ def main():
              ha["active_standby"]["launches"]["scan"],
          "funnel_launches": ha["funnel"]["launches"][
              f"controller{FUNNEL_INSTANCES[0]}"]["scan"],
+         "tools_launches": {n: v["scan"]
+                            for n, v in tools["launches"].items()},
          "quality_launches": quality["launches"]["scan"],
          "mesh_launches": mesh["launches"]["scan"],
          "cold_launches": {lbl: cold[lbl]["launches"]["scan"]
@@ -6720,6 +7257,8 @@ def main():
              ha["active_standby"]["launches"]["repair"],
          "funnel_launches": ha["funnel"]["launches"][
              f"controller{FUNNEL_INSTANCES[0]}"]["repair"],
+         "tools_launches": {n: v["repair"]
+                            for n, v in tools["launches"].items()},
          "quality_launches": quality["launches"]["repair"],
          "mesh_launches": mesh["launches"]["repair"],
          "cold_launches": {lbl: cold[lbl]["launches"]["repair"]

@@ -4,6 +4,7 @@ Rebuild of common/scala/.../core/containerpool/ContainerFactory.scala:29-143:
 the factory creates containers for a (kind, image, memory) request and owns
 cleanup of leftovers from previous lives; ContainerPoolConfig derives cpu
 shares from the memory share exactly like the reference (:46-61).
+A copy of `openwhisk_tpu/containerpool/factory.py`, its providers the port's.
 """
 from __future__ import annotations
 
@@ -30,10 +31,14 @@ class ContainerPoolConfig:
 
 
 #: shorthand name -> ContainerFactoryProvider SPI path; the single source
-#: of truth for the invoker's container-factory choices. The docker,
-#: kubernetes, YARN and Mesos factories are not ported yet.
+#: of truth for the invoker's --container-factory choices and the deploy
+#: inventory's invokers.container_factory validation
 FACTORY_PROVIDERS = {
     "process": "openwhisk_tpu_torch.containerpool.process_factory:ProcessContainerFactoryProvider",
+    "docker": "openwhisk_tpu_torch.containerpool.docker_factory:DockerContainerFactoryProvider",
+    "kubernetes": "openwhisk_tpu_torch.containerpool.kubernetes_factory:KubernetesContainerFactoryProvider",
+    "yarn": "openwhisk_tpu_torch.containerpool.yarn_factory:YARNContainerFactoryProvider",
+    "mesos": "openwhisk_tpu_torch.containerpool.mesos_factory:MesosContainerFactoryProvider",
 }
 
 

@@ -16,6 +16,14 @@ Responsibilities per activation:
          record, store it.
 Intra-container concurrency: up to action.limits.concurrency in-flight /run
 posts share one warm container (ref :219-231).
+
+A copy of `openwhisk_tpu/containerpool/proxy.py`, with one fault of the
+reference fixed: a run that arrives while a pause is in flight (a
+`docker pause` subprocess) cancels the pause timer but not the
+subprocess, and its resume could land before the pause did, leaving the
+container stopped for the whole run (502 "action exceeded its time
+limit"). Here the pause runs to its end, and the runs that meet it share
+one resume made after it.
 """
 from __future__ import annotations
 
@@ -80,6 +88,8 @@ class ContainerProxy:
         self.action: Optional[ExecutableWhiskAction] = None
         self._pause_task: Optional[asyncio.Task] = None
         self._idle_task: Optional[asyncio.Task] = None
+        self._suspending: Optional[asyncio.Task] = None
+        self._resuming: Optional[asyncio.Future] = None
         self._destroyed = False
 
     # -- prewarm -----------------------------------------------------------
@@ -180,7 +190,10 @@ class ContainerProxy:
     async def _run_warm(self, action: ExecutableWhiskAction, msg: ActivationMessage) -> None:
         if self.state == PAUSED or self.state == PAUSING:
             try:
-                await self.container.resume()
+                # one resume for the runs that meet one pause, after it
+                if self._resuming is None:
+                    self._resuming = asyncio.ensure_future(self._resume())
+                await asyncio.shield(self._resuming)
             except Exception as e:  # noqa: BLE001 — failed resume: job back to pool
                 self._log_warn(f"resume failed: {e!r}; rescheduling job")
                 self.on_reschedule((action, msg))
@@ -192,6 +205,12 @@ class ContainerProxy:
             await self._init_and_run(action, msg)
         else:
             await self._execute(action, msg, init_ms=0)
+
+    async def _resume(self) -> None:
+        """The container's resume, once the pause in flight has landed."""
+        if self._suspending is not None and not self._suspending.done():
+            await asyncio.wait([self._suspending])
+        await self.container.resume()
 
     # -- shared run pipeline ----------------------------------------------
     async def _execute(self, action: ExecutableWhiskAction, msg: ActivationMessage,
@@ -277,6 +296,10 @@ class ContainerProxy:
             await asyncio.sleep(self.config.pause_grace)
             if self.state == READY and self.container is not None:
                 self.state = PAUSING
+                # the pause runs to its end (no run cancels this task) and
+                # a run's resume waits for it (_resume)
+                self._pause_task, self._resuming = None, None
+                self._suspending = asyncio.current_task()
                 try:
                     await self.container.suspend()
                     if self.state == PAUSING:

@@ -1,8 +1,9 @@
 """The controller <-> invoker bus: messages, the provider SPI, the
-in-memory provider, the TCP bus and its broker, the coalescing producer
-and the columnar batch wire (copies of `openwhisk_tpu/messaging/`'s
-modules of the same names), and `provider_for_bus`, the service mains'
-messaging bootstrap (a copy of the JAX package's)."""
+in-memory provider, the TCP bus and its broker, the gated Kafka provider
+(`kafka.py`), the coalescing producer and the columnar batch wire (copies
+of `openwhisk_tpu/messaging/`'s modules of the same names), and
+`provider_for_bus`, the service mains' messaging bootstrap (a copy of the
+JAX package's)."""
 from .message import (AcknowledgementMessage, ActivationMessage,
                       CombinedCompletionAndResultMessage, CompletionMessage,
                       EventMessage, Message, PingMessage, ResultMessage,
@@ -19,11 +20,11 @@ def provider_for_bus(bus_addr: str) -> MessagingProvider:
     """Messaging bootstrap for the service mains (controller, invoker,
     monitoring): any MessagingProvider SPI override wins — an explicit
     `spi.bind()` (embedding/tests) or
-    `CONFIG_whisk_spi_MessagingProvider=<module>:<Provider>` (a module of
-    this package; `spi` refuses the JAX package's) — with `--bus` handed
-    to the implementation as its bootstrap address (TCP: split
-    host:port). Default: the built-in TCP bus at `--bus host:port`. A copy
-    of the JAX package's function."""
+    `CONFIG_whisk_spi_MessagingProvider=openwhisk_tpu_torch.messaging.kafka:KafkaMessagingProvider`
+    (a module of this package; `spi` refuses the JAX package's) — with
+    `--bus` handed to the implementation as its bootstrap address (Kafka:
+    bootstrap servers; TCP: split host:port). Default: the built-in TCP bus
+    at `--bus host:port`. A copy of the JAX package's function."""
     import inspect
 
     from .tcp import TcpMessagingProvider

@@ -7,7 +7,7 @@ without external brokers: a lightweight asyncio broker (`TcpBusServer`)
 serving the same topic/consumer-group semantics as the in-memory bus over
 length-prefixed JSON frames, and `TcpMessagingProvider` implementing the
 MessagingProvider SPI against it. Kafka itself remains pluggable behind the
-same SPI in the JAX package (its Kafka provider is not ported yet).
+same SPI (`openwhisk_tpu_torch.messaging.kafka:KafkaMessagingProvider`).
 
 Protocol (4-byte big-endian length + JSON):
   {"op": "pub",  "topic": t, "payload": <b64>}            -> {"ok": true}

@@ -87,7 +87,7 @@ async def make_standalone(port: int = 3233, artifact_store=None,
     dumped one final time on a clean shutdown, wired through
     Controller.owned_resources so SIGTERM cannot skip the final dump."""
     if balancer not in BALANCERS:
-        raise ValueError(f"balancer {balancer!r} is not ported; "
+        raise ValueError(f"unknown balancer {balancer!r}; "
                          f"choose from {BALANCERS}")
     logger = logger or Logging(level="warn")
     ExecManifest.initialize(manifest)

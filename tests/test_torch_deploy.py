@@ -269,7 +269,19 @@ NEW_MODULES = [
     "openwhisk_tpu_torch.controller.loadbalancer.funnel",
     "openwhisk_tpu_torch.controller.loadbalancer.spillover",
     "openwhisk_tpu_torch.edge", "openwhisk_tpu_torch.edge.__main__",
-    "openwhisk_tpu_torch.edge.proxy"]
+    "openwhisk_tpu_torch.edge.proxy",
+    "openwhisk_tpu_torch.database.remote_store",
+    "openwhisk_tpu_torch.database.couchdb_store",
+    "openwhisk_tpu_torch.database.cosmosdb_store",
+    "openwhisk_tpu_torch.database.s3_attachment_store",
+    "openwhisk_tpu_torch.database.file_activation_store",
+    "openwhisk_tpu_torch.containerpool.docker_factory",
+    "openwhisk_tpu_torch.containerpool.kubernetes_factory",
+    "openwhisk_tpu_torch.containerpool.yarn_factory",
+    "openwhisk_tpu_torch.containerpool.mesos_factory",
+    "openwhisk_tpu_torch.messaging.kafka",
+    "openwhisk_tpu_torch.tools.deploy", "openwhisk_tpu_torch.tools.wsk",
+    "openwhisk_tpu_torch.tools.wskadmin"]
 
 
 def _closure(mods, also=""):
@@ -413,6 +425,71 @@ CUTS = {
     "controller/monitoring.py": [],
     "controller/core.py": [],
     "controller/api.py": [],
+    "database/__init__.py": [],
+    "database/remote_store.py": [],
+    "database/couchdb_store.py": [],
+    "database/cosmosdb_store.py": [],
+    "database/s3_attachment_store.py": [],
+    "database/file_activation_store.py": [],
+    "containerpool/__init__.py": [],
+    "containerpool/factory.py": [
+        ("providers name the port's modules",
+         '    "process": "openwhisk_tpu.', 'MesosContainerFactoryProvider",\n',
+         None)],
+    "containerpool/proxy.py": [
+        ("the pause and the resume in flight",
+         "        self._destroyed = False\n", None,
+         "        self._suspending: Optional[asyncio.Task] = None\n"
+         "        self._resuming: Optional[asyncio.Future] = None\n"
+         "        self._destroyed = False\n"),
+        ("one resume for the runs that meet one pause, after it",
+         "            try:\n                await self.container.resume()\n",
+         None,
+         "            try:\n"
+         "                if self._resuming is None:\n"
+         "                    self._resuming = asyncio.ensure_future("
+         "self._resume())\n"
+         "                await asyncio.shield(self._resuming)\n"),
+        ("the resume waits for the pause in flight",
+         "    # -- shared run pipeline", None,
+         "    async def _resume(self) -> None:\n"
+         "        if self._suspending is not None and not "
+         "self._suspending.done():\n"
+         "            await asyncio.wait([self._suspending])\n"
+         "        await self.container.resume()\n"
+         "    # -- shared run pipeline"),
+        ("a run no longer cancels the pause in flight",
+         "                self.state = PAUSING\n", None,
+         "                self.state = PAUSING\n"
+         "                self._pause_task, self._resuming = None, None\n"
+         "                self._suspending = asyncio.current_task()\n")],
+    "containerpool/docker_factory.py": [],
+    "containerpool/kubernetes_factory.py": [],
+    "containerpool/yarn_factory.py": [],
+    "containerpool/mesos_factory.py": [],
+    "messaging/kafka.py": [
+        ("the error names the port's TCP bus",
+         '"(need aiokafka). Use the TCP bus (openwhisk_tpu.messaging.tcp) "',
+         None, '"(need aiokafka). Use the TCP bus '
+         '(openwhisk_tpu_torch.messaging.tcp) "')],
+    "tools/wsk.py": [],
+    "tools/wskadmin.py": [],
+    "tools/deploy.py": [
+        ("services name the port's modules",
+         '        "argv": [python, "-m", "openwhisk_tpu.messaging",',
+         '        argv = [python, "-m", "openwhisk_tpu.edge",', None),
+        ("controllers.device becomes --device",
+         '                "--balancer", inv["controllers"].get("balancer", '
+         '"tpu")]\n', None,
+         '                "--balancer", inv["controllers"].get("balancer", '
+         '"tpu")]\n'
+         '        device = inv["controllers"].get("device")\n'
+         '        if device is not None:\n'
+         '            if device not in ("cuda", "cpu"):\n'
+         '                raise ValueError(f"controllers.device must be cuda '
+         'or cpu, "\n'
+         '                                 f"got {device!r}")\n'
+         '            argv += ["--device", device]\n')],
     "controller/loadbalancer/quality.py": [
         ("the accumulator read on the host",
          "                                     QualityState, "
