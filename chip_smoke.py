@@ -113,7 +113,7 @@ Phases, each reported on its own line:
               swallows (a failed fold or step) fails the phase through
               those counters. Then the planes A/B ("planes_ab" lines):
               phase 7's traffic at 12 waves with the three planes off,
-              on, on, off (step p50, activations/s, placement p50).
+              then on (step p50, activations/s, placement p50).
   7q. quality the placement quality plane and its shadow pass at phase 7's
               geometry, three "quality" lines. (a) `auto`: phase 7's
               balancer with `CONFIG_whisk_placementQuality_enabled` and a
@@ -212,8 +212,8 @@ Phases, each reported on its own line:
               `/admin/alerts`, `/admin/anomalies` and
               `/admin/profile/kernel` over HTTP must answer 200, the SLO
               count must equal the invokes and the kernel profile show no
-              churn and the kernel builds; 8c four runs of 8b's configuration at
-              2,000 invokes, the coalescing producer on, off, off, on
+              churn and the kernel builds; 8c two runs of 8b's configuration at
+              1,000 invokes, the coalescing producer on, then off
               ("http_ab" lines: invokes/s, HTTP p50/p99, server CPU an
               invoke); 8d the restart: 8b's assembly over the simulated
               fleet with `snapshot_path`, `snapshot_interval` and
@@ -374,9 +374,53 @@ Phases, each reported on its own line:
               each service's seconds to its up line, each command's ms,
               docstore get p50/p99, invokes/s and HTTP p50/p99 (all, cold
               and warm), each controller's launches.
- 11. after phase 12, a `{"kernels": [...]}` JSON line (each kernel's
+ 13. loadgen the port's load generator and performance harness
+              (`openwhisk_tpu_torch/tools/loadgen.py`,
+              `openwhisk_tpu_torch/performance/`) on the card. (a)
+              `sweep_balancer`: a live `TpuBalancer()` and the echo fleet
+              (`tools/echo_fleet.py`) at 10,000 invokers, 8 actions of 128
+              MB, Poisson arrivals from 64/s doubling (up to 2,048/s)
+              while a rung is
+              sustained (p99 from the scheduled arrival within 1,000 ms,
+              98% completed, no errors, the generator within 50 ms of its
+              schedule), then the last sustained rate re-measured; rerun
+              at 1,024 invokers when the echo fleet itself failed the
+              attempt (it registers at most 4,096 invokers: its pinger
+              sends every ping in one burst a second into a health topic
+              that keeps 4,096) or the first rung failed on the generator
+              alone. One "loadgen_sweep" line an attempt: the
+              sustained activations/s, p50/p99 from the schedule, every
+              rung's accounting and verdict with its blame, the
+              waterfall's stage budget, `gc_tuned`, the launches. (b) `python
+              -m openwhisk_tpu_torch.tools.loadgen --rate 200 --duration 1
+              --invokers 16` as a process: exactly one JSON line, from the
+              card. (c) `multiproc_fixed_rate(shared=True, procs=2)` at
+              half (a)'s rate, and at an eighth of that when it is not
+              sustained: one `--serve-funnel` process owns the card, two
+              front-end workers funnel to it over the TCP bus; the
+              processes run under `--loadgen-process`, which records each
+              one's launches and CUDA state as it exits ("loadgen_shared"
+              line an attempt). (d) the
+              performance harness against the port's standalone on the
+              card: the latency (100 requests, one at a time), throughput
+              (300 at 4), cold (20) and apiv1 (100) simulations, each
+              through `simulations.run` (a non-200 invoke prints the
+              standalone's log tail and the sandboxes' states when it came
+              back); owperf (20 samples, 2 rules); the placement sweep at
+              16, 256, 4,096 and 65,536 invokers, 64 requests a batch, on
+              one device, on 8 shards and the scan kernel against its
+              plain version; warm-hit
+              parity at 64 invokers, 20 rounds of 128. Held: every rung's
+              activations accounted for, (a)'s re-measured rate sustained
+              with both kernels launched, (b)'s line, (c)'s workers
+              without error and no CUDA context, each with work done in
+              the last attempt, the funnel process's kernels launched, every
+              simulation request 200, owperf's five phases, a sweep row
+              for every size and configuration, warm-hit decision parity
+              1.0 with equal warm rates.
+ 11. after phase 13, a `{"kernels": [...]}` JSON line (each kernel's
      launches and ms in the journal replays of 7b, phase 9's, 9c's, phase
-     10's and phase 12's launches beside the rest; `quality_launches` and
+     10's, phase 12's and phase 13's launches beside the rest; `quality_launches` and
      `penalized_launches` on 7q's paths and the kept penalized launch's
      numbers), then the card line, then the last line
      `{"ok": true, "device": {...}}`.
@@ -1936,15 +1980,15 @@ PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
 
 def planes_ab(TB, K):
     """The front at phase 7's traffic (PLANES_AB_WAVES waves a run, no
-    trickle, flap or profile) with the three device planes off, on, on,
-    off, each run a fresh balancer and fleet: step p50, activations/s and
+    trickle, flap or profile) with the three device planes off, then on,
+    each run a fresh balancer and fleet: step p50, activations/s and
     placement p50 of each. Records the planes' cost on the card inside one
     call; it claims nothing."""
     import os
     prior = {k: os.environ.get(k) for k in PLANES_OFF}
     runs = []
     try:
-        for on in (False, True, True, False):
+        for on in (False, True):
             for k, v in PLANES_OFF.items():
                 if on:
                     os.environ.pop(k, None)
@@ -3894,8 +3938,8 @@ STANDALONE_SEQ, STANDALONE_CONC, STANDALONE_MEMORY_MB = 16, 48, 4096
 #: concurrent segment
 HTTP_ACTIONS, HTTP_INVOKES, HTTP_INFLIGHT, HTTP_TRICKLE = 200, 8_000, 256, 200
 HTTP_PROFILE_FROM, HTTP_PROFILE_TO, HTTP_PROFILE_S = 2_000, 7_000, 2.0
-#: 8c, the coalescing A/B: blocking invokes a run (four runs)
-AB_INVOKES = 2_000
+#: 8c, the coalescing A/B: blocking invokes a run (two runs)
+AB_INVOKES = 1_000
 #: the front door's throttles, raised so that nothing is throttled
 UNTHROTTLED = dict(invocations_per_minute=10 ** 9,
                    concurrent_invocations=10 ** 9)
@@ -4358,7 +4402,7 @@ def http_phase(torch, P, K, TB):
 
 def coalesce_ab(TB, K):
     """8c: phase 8b's configuration at AB_INVOKES blocking invokes a run,
-    the coalescing producer on, off, off, on
+    the coalescing producer on, then off
     (CONFIG_whisk_bus_coalesce_enabled), each run a fresh server and fleet:
     host numbers move by a fifth between calls, so the two settings are
     compared inside one call."""
@@ -4367,7 +4411,7 @@ def coalesce_ab(TB, K):
     prior = os.environ.get(key)
     runs = []
     try:
-        for on in (True, False, False, True):
+        for on in (True, False):
             os.environ[key] = "true" if on else "false"
             out, _rec, _b0, _b1 = asyncio.run(_http_fleet_run(
                 TB, K, invokes=AB_INVOKES, trickle=0, full=False))
@@ -4798,6 +4842,8 @@ async def _deploy_traffic(dep):
                             bad.append((aid, result))
             if pending:
                 await asyncio.sleep(0.1)
+        if pending:
+            _report_502(bad, {n: dep.log(n) for n in dep.procs}, pending)
         require(not pending, f"deploy: {len(pending)} burst activations "
                              "never recorded")
         out["burst"] = dict(invokes=len(aids), waves=len(bursts),
@@ -6582,28 +6628,35 @@ def _two_free_ports():
 
 def _sandbox_states():
     """The container pools as the OS shows them: every action proxy
-    process (a python:3 sandbox) with its parent (the invoker) and its
-    state; `T` is stopped, i.e. paused."""
+    process (a python:3 sandbox) with its parent (the invoker), its
+    state and its port; `T` is stopped, i.e. paused."""
     import os
     out = []
     for pid in filter(str.isdigit, os.listdir("/proc")):
         try:
             with open(f"/proc/{pid}/cmdline", "rb") as f:
-                if b"actionproxy" not in f.read():
-                    continue
+                argv = f.read().split(b"\0")
+            at = [i for i, a in enumerate(argv) if b"actionproxy" in a]
+            if not at:
+                continue
             with open(f"/proc/{pid}/stat") as f:
                 state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
         except OSError:
             continue
-        out.append({"pid": int(pid), "ppid": int(ppid), "state": state})
+        # the proxy's argument after its path is its port
+        out.append({"pid": int(pid), "ppid": int(ppid), "state": state,
+                    "port": argv[at[0] + 1].decode()})
     return out
 
 
-def _report_502(bad, logs):
-    """Beside any 502 among `bad` ((id, status, body) rows), before the
-    phase fails: each invoker's log tail and the sandboxes' states."""
-    if not any(len(b) > 2 and b[1] == 502 for b in bad):
+def _report_502(bad, logs, pending=()):
+    """Beside any 502 among `bad` ((id, status, body) rows) or any
+    activation never recorded (`pending` ids), before the phase fails:
+    each invoker's log tail and the sandboxes' states."""
+    if not pending and not any(len(b) > 2 and b[1] == 502 for b in bad):
         return
+    if pending:
+        print(f"--- never recorded: {sorted(pending)}", file=sys.stderr)
     for name, text in logs.items():
         if name.startswith("invoker"):
             print(f"--- {name} log tail:\n{text[-3000:]}", file=sys.stderr)
@@ -7049,6 +7102,429 @@ async def _fleet_seen(dep):
 
 
 
+# --------------------------------------------------------------- phase 13
+#: 13a: the open-loop sweep over the BASELINE fleet, and the fleet it is
+#: rerun at when the echo fleet fails the first (module docstring)
+LOADGEN_INVOKERS = (10_000, 1_024)
+#: six doublings: rungs 64 to 2,048/s (the copy's default of eight found
+#: 4,096/s unsustained at 1,024 invokers on an H100, p99 1.7-2.3 s, at
+#: 15-20 s a run)
+LOADGEN_RATE0, LOADGEN_DURATION, LOADGEN_DOUBLINGS = 64.0, 2.5, 6
+#: 13c: worker processes of the shared topology
+LOADGEN_PROCS = 2
+#: 13d: (simulation, requests, concurrency), as their CLIs take them
+SIMULATIONS = (("latency", 100, 1), ("throughput", 300, 4),
+               ("cold", 20, 4), ("apiv1", 100, 4))
+OWPERF_SAMPLES, OWPERF_RATIO = 20, 2
+#: the sweep's rows at 64 requests a batch (the reference's default is
+#: 256): the 8-shard scan is a loop of requests, 2.3-5.4 s a 256-row step
+SWEEP_SIZES, SWEEP_BATCH, SWEEP_ITERS = (16, 256, 4096, 65536), 64, 2
+WARMHIT_ARGS = dict(n_invokers=64, rounds=20, batch=128)
+
+
+def _device_arg():
+    """The port's device argument for DEVICE: None (the card) or "cpu"."""
+    return None if DEVICE == "cuda" else DEVICE
+
+
+def loadgen_process(counts_dir, argv):
+    """`--loadgen-process DIR ARGS...`: the load generator CLI's `main()`
+    with ARGS, exactly as `python -m openwhisk_tpu_torch.tools.loadgen
+    ARGS` runs it, then this process's kernel launch counts, whether it
+    started a CUDA context and whether it mapped libcuda, written to
+    DIR/<pid>.json as it exits (13c reads the funnel process's launches
+    and the workers' CUDA state there)."""
+    import os
+    from openwhisk_tpu_torch.tools import loadgen
+    sys.argv = ["openwhisk_tpu_torch.tools.loadgen", *argv]
+    try:
+        return loadgen.main() or 0
+    finally:
+        K = sys.modules.get("openwhisk_tpu_torch.ops.placement_cuda")
+        doc = {"argv": argv,
+               "scan": K.schedule_batch_cuda.launches if K else 0,
+               "repair": K.schedule_batch_repair_cuda.launches if K else 0,
+               "cuda_initialized": torch.cuda.is_initialized(),
+               "libcuda_mapped": _libcuda_mapped(os.getpid())}
+        with open(os.path.join(counts_dir, f"{os.getpid()}.json"), "w") as f:
+            json.dump(doc, f)
+
+
+@contextlib.contextmanager
+def _loadgen_processes_counted(counts_dir):
+    """Inside the block, a process the load generator starts as `python -m
+    openwhisk_tpu_torch.tools.loadgen ARGS` runs as `chip_smoke.py
+    --loadgen-process DIR ARGS` (the same `main()`, plus its counts)."""
+    import os
+    popen = subprocess.Popen
+    module = ["-m", "openwhisk_tpu_torch.tools.loadgen"]
+
+    def counted(cmd, *args, **kw):
+        if list(cmd[1:3]) == module:
+            cmd = [cmd[0], os.path.abspath(__file__), "--loadgen-process",
+                   counts_dir, *cmd[3:]]
+        return popen(cmd, *args, **kw)
+
+    subprocess.Popen = counted
+    try:
+        yield
+    finally:
+        subprocess.Popen = popen
+
+
+def _rungs(out):
+    """Each measured row of a sweep (the rungs, then the re-measured
+    headline): offered rate, its accounting and its verdict."""
+    rows = [("rung", r) for r in out["sweep"]] + [("headline",
+                                                   out["headline"])]
+    return [dict(kind=kind, offered_rate=r["offered_rate"],
+                 offered=r["offered"], completed=r["completed"],
+                 errors=r["errors"], unfinished=r["unfinished"],
+                 p50_ms=r["p50_ms"], p99_ms=r["p99_ms"],
+                 throughput_per_sec=r["throughput_per_sec"],
+                 fire_lag_max_ms=r["fire_lag_max_ms"],
+                 retried=r.get("retried", False),
+                 verdict=r["verdict"])
+            for kind, r in rows]
+
+
+def _sweep_attempt(loadgen, K, n_invokers):
+    """One `sweep_balancer` on DEVICE at `n_invokers`, its launches counted
+    from 0. A fleet the echo fleet cannot register is reported as the
+    attempt's `error`: its pinger sends all its pings in one burst a
+    second, and the supervision's health topic keeps the last 4,096."""
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = loadgen.sweep_balancer(
+            rate0=LOADGEN_RATE0, duration=LOADGEN_DURATION,
+            max_doublings=LOADGEN_DOUBLINGS, n_invokers=n_invokers,
+            device=_device_arg())
+    except RuntimeError as e:
+        if "fleet never became healthy" not in str(e):
+            raise
+        return dict(n_invokers=n_invokers, error=str(e),
+                    seconds=time.perf_counter() - t0)
+    launches = _launches(K)
+    return dict(
+        n_invokers=n_invokers, device=out["device"],
+        sustained=out["sustained"],
+        sustained_activations_per_sec=out["sustained_activations_per_sec"],
+        sustained_offered_rate=out["sustained_offered_rate"],
+        p50_ms=out["p50_ms"], p99_ms=out["p99_ms"],
+        p99_bound_ms=out["p99_bound_ms"],
+        latency_base=out["latency_base"], gc_tuned=out["gc_tuned"],
+        rungs=_rungs(out), stage_budget=out["stage_budget"],
+        tail_attribution=out["tail_attribution"], launches=launches,
+        seconds=time.perf_counter() - t0)
+
+
+def _open_loop_sweep(K):
+    """13a: the sweep at 10,000 invokers; rerun at 1,024 when the echo
+    fleet itself failed it: its registration never completed, or the first
+    rung failed on the generator alone (the fleet's own idle cost)."""
+    from openwhisk_tpu_torch.tools import loadgen
+    attempts = [_sweep_attempt(loadgen, K, LOADGEN_INVOKERS[0])]
+    first = attempts[0]
+    if "error" in first or (
+            not first["sustained"]
+            and first["rungs"][0]["verdict"]["blames"] == "generator"):
+        attempts.append(_sweep_attempt(loadgen, K, LOADGEN_INVOKERS[1]))
+    for a in attempts:
+        say("loadgen_sweep", **a)
+    used = attempts[-1]
+    require("error" not in used,
+            f"loadgen: the echo fleet registered at {used['n_invokers']} "
+            f"invokers: {used.get('error')}")
+    for a in attempts:
+        for r in a.get("rungs", ()):
+            require(r["completed"] + r["errors"] + r["unfinished"]
+                    == r["offered"],
+                    f"loadgen: every activation of the {r['offered_rate']}/s "
+                    f"{r['kind']} at {a['n_invokers']} invokers accounted "
+                    f"for: {r}")
+    require(used["device"] == DEVICE,
+            f"loadgen: the sweep's balancer placed on {DEVICE}: "
+            f"{used['device']}")
+    require(used["sustained"],
+            f"loadgen: the re-measured rate is sustained at "
+            f"{used['n_invokers']} invokers: {used['rungs'][-1]}")
+    require(DEVICE != "cuda" or (used["launches"]["scan"] > 0
+                                 and used["launches"]["repair"] > 0),
+            f"loadgen: the sweep launched the scan and the repair: "
+            f"{used['launches']}")
+    return attempts
+
+
+def _loadgen_cli():
+    """13b: the CLI as a process: exactly one JSON line, from DEVICE."""
+    import os
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "openwhisk_tpu_torch.tools.loadgen",
+         "--rate", "200", "--duration", "1", "--invokers", "16",
+         "--device", DEVICE], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    require(out.returncode == 0 and len(lines) == 1,
+            f"loadgen: the CLI exits 0 with one JSON line ({out.returncode}, "
+            f"{len(lines)} lines): {out.stderr[-2000:]}")
+    row = json.loads(lines[0])
+    require(row.get("device") == DEVICE and not row.get("error"),
+            f"loadgen: the CLI's line is from {DEVICE}: {lines[0][:500]}")
+    head = row["headline"]
+    return dict(seconds=seconds, device=row["device"],
+                sustained=row["sustained"],
+                activations_per_sec=row["sustained_activations_per_sec"],
+                p50_ms=row["p50_ms"], p99_ms=row["p99_ms"],
+                completed=head["completed"], offered=head["offered"],
+                verdict=head["verdict"])
+
+
+def _shared_attempt(loadgen, rate):
+    """One `multiproc_fixed_rate(shared=True)` at `rate`: one funnel
+    process owns DEVICE, the workers are front ends; each process's
+    launches and CUDA state as it exited."""
+    import os
+    import shutil
+    import tempfile
+    counts = tempfile.mkdtemp(prefix="chip-smoke-loadgen-")
+    try:
+        t0 = time.perf_counter()
+        with _loadgen_processes_counted(counts):
+            out = loadgen.multiproc_fixed_rate(
+                rate=rate, procs=LOADGEN_PROCS, shared=True,
+                device=_device_arg())
+        seconds = time.perf_counter() - t0
+        procs = []
+        for name in sorted(os.listdir(counts)):
+            with open(os.path.join(counts, name)) as f:
+                procs.append(json.load(f))
+    finally:
+        shutil.rmtree(counts, ignore_errors=True)
+    funnel = [p for p in procs if "--serve-funnel" in p["argv"]]
+    workers = [p for p in procs if "--funnel" in p["argv"]]
+    line = dict(
+        offered_rate=rate, procs=out["procs"], topology=out["topology"],
+        seconds=seconds, sustained=out["sustained"],
+        fleet_merged_sustained_per_sec=out["fleet_merged_sustained_per_sec"],
+        completed=out["completed"], p50_ms=out["p50_ms"],
+        p99_ms=out["p99_ms"], per_worker=out["per_worker"],
+        funnel_launches={k: sum(p[k] for p in funnel)
+                         for k in ("scan", "repair")},
+        workers_cuda=[{k: p[k] for k in ("cuda_initialized",
+                                         "libcuda_mapped")}
+                      for p in workers])
+    say("loadgen_shared", **line)
+    require(out["topology"] == "shared" and len(funnel) == 1
+            and len(workers) == LOADGEN_PROCS,
+            f"loadgen: one funnel process and {LOADGEN_PROCS} workers "
+            f"reported: {[p['argv'] for p in procs]}; balancer stderr: "
+            f"{out['balancer_stderr_tail']}")
+    for w in out["per_worker"]:
+        require("error" not in w, f"loadgen: a shared worker's error: {w}")
+    for p in workers:
+        require(not p["cuda_initialized"],
+                f"loadgen: a funnel worker holds no CUDA context: {p}")
+    require(DEVICE != "cuda" or sum(line["funnel_launches"].values()) > 0,
+            f"loadgen: the funnel process launched the kernels: "
+            f"{line['funnel_launches']}")
+    return line
+
+
+def _shared_topology(rate):
+    """13c: the shared topology at half (a)'s rate and, when that is not
+    sustained (the funnel saturates first: rows past its retries fail
+    503), again at an eighth of it. Both workers must complete work in
+    the last attempt."""
+    from openwhisk_tpu_torch.tools import loadgen
+    attempts = [_shared_attempt(loadgen, rate)]
+    if not attempts[0]["sustained"]:
+        attempts.append(_shared_attempt(loadgen, rate / 8))
+    for w in attempts[-1]["per_worker"]:
+        require((w.get("throughput_per_sec") or 0) > 0,
+                f"loadgen: each shared worker completed work at "
+                f"{attempts[-1]['offered_rate']}/s: {w}")
+    return attempts
+
+
+@contextlib.contextmanager
+def _non_200_watch(bad):
+    """Inside the block every blocking invoke of the harness's client that
+    answers other than 200 is kept in `bad` as (name, status, body), with
+    the sandboxes' process states at that moment in `bad_states`."""
+    from openwhisk_tpu_torch.performance import harness
+    invoke = harness.Client.invoke
+
+    async def watched(self, name, payload=None, blocking=True):
+        status, body = await invoke(self, name, payload, blocking)
+        if status != 200:
+            bad.append((name, status, body, _sandbox_states()))
+        return status, body
+
+    harness.Client.invoke = watched
+    try:
+        yield
+    finally:
+        harness.Client.invoke = invoke
+
+
+def _report_sim_failure(bad, log):
+    """Beside a failed simulation, before the phase fails: the standalone's
+    log tail (its in-process invoker's included) and, for each non-200,
+    the sandboxes' states when it came back."""
+    print(f"--- standalone log tail:\n{log.getvalue()[-3000:]}",
+          file=sys.stderr)
+    for name, status, body, states in bad[:8]:
+        print(f"--- {status} from {name}: {json.dumps(body)[:1000]}\n"
+              f"--- sandboxes then: {json.dumps(states)}", file=sys.stderr)
+
+
+def _simulations(K):
+    """13d: each simulation through `simulations.run` against its own
+    standalone on DEVICE; every request must be a 200."""
+    import io
+    from openwhisk_tpu_torch.performance import simulations
+    rows = []
+    for name, requests, concurrency in SIMULATIONS:
+        bad, log, out = [], io.StringIO(), io.StringIO()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with _non_200_watch(bad), contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(log):
+                ok = simulations.run([name], requests, concurrency,
+                                     port=_free_port(), device=_device_arg())
+            row = json.loads(out.getvalue().strip().splitlines()[-1])
+            require(ok and row["simulation"] == name and row["errors"] == 0
+                    and row["requests"] == requests and not bad,
+                    f"loadgen: every {name} request answered 200: {row}, "
+                    f"{len(bad)} not 200")
+        except Exception:
+            _report_sim_failure(bad, log)
+            raise
+        rows.append(dict(row, concurrency=concurrency,
+                         seconds=time.perf_counter() - t0,
+                         launches=_launches(K)))
+    return rows
+
+
+def _owperf():
+    """13d: owperf's CSV phases against a standalone on DEVICE."""
+    import io
+    from openwhisk_tpu_torch.performance import owperf
+    out, log, argv = io.StringIO(), io.StringIO(), sys.argv
+    sys.argv = ["owperf", "--samples", str(OWPERF_SAMPLES), "--ratio",
+                str(OWPERF_RATIO), "--port", str(_free_port()),
+                "--device", DEVICE]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(log):
+            owperf.main()
+    except Exception:
+        print(f"--- owperf's standalone log tail:\n"
+              f"{log.getvalue()[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        sys.argv = argv
+    lines = out.getvalue().strip().splitlines()
+    head = lines[0].split(",")
+    phases = {ln.split(",")[0]: dict(zip(head[1:], ln.split(",")[1:]))
+              for ln in lines[1:]}
+    require(list(phases) == ["action_e2e", f"rule_e2e_x{OWPERF_RATIO}",
+                             "waitTime", "initTime", "duration"]
+            and phases["action_e2e"]["samples"] == str(OWPERF_SAMPLES),
+            f"loadgen: owperf's five CSV phases, every action sample: "
+            f"{lines}; {log.getvalue()[-1000:]}")
+    return dict(phases=phases, seconds=time.perf_counter() - t0)
+
+
+def _placement_sweep(K):
+    """13d: the placement sweep's rows, one device and 8 shards, and the
+    scan kernel against its plain version."""
+    import io
+    from openwhisk_tpu_torch.performance import placement_sweep
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = ["placement_sweep", "--sizes", *map(str, SWEEP_SIZES),
+                "--sharded", "--kernel", "--batch", str(SWEEP_BATCH),
+                "--iters", str(SWEEP_ITERS), "--device", DEVICE]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            placement_sweep.main()
+    finally:
+        sys.argv = argv
+    rows = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    for config in ("single-device", "8-shard", "cuda-vs-plain"):
+        got = [r["n_invokers"] for r in rows if r["config"] == config]
+        require(got == list(SWEEP_SIZES),
+                f"loadgen: placement_sweep's {config} rows for every size: "
+                f"{got}")
+    launches = _launches(K)
+    require(DEVICE != "cuda" or (launches["scan"] > 0
+                                 and launches["repair"] > 0),
+            f"loadgen: placement_sweep launched both kernels: {launches}")
+    return dict(rows=rows, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
+def _warmhit(K):
+    """13d: BASELINE's quality bar through the kernels."""
+    from openwhisk_tpu_torch.performance import warmhit
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = warmhit.simulate(**WARMHIT_ARGS, device=_device_arg())
+    launches = _launches(K)
+    require(out["decision_parity"] == 1.0
+            and out["kernel_warm_rate"] == out["oracle_warm_rate"],
+            f"loadgen: warm-hit parity 1.0, the kernel's warm rate the "
+            f"oracle's: {out}")
+    require(DEVICE != "cuda" or launches["repair"] > 0,
+            f"loadgen: warmhit's 128-row rounds launched the repair: "
+            f"{launches}")
+    return dict(out, launches=launches, seconds=time.perf_counter() - t0)
+
+
+def loadgen_phase(K):
+    """Phase 13: the port's load generator and performance harness on the
+    card (module docstring)."""
+    t_phase = time.perf_counter()
+    sweeps = _open_loop_sweep(K)
+    cli = _loadgen_cli()
+    say("loadgen_cli", **cli)
+    shared = _shared_topology(sweeps[-1]["sustained_activations_per_sec"]
+                              / 2)
+    sims = _simulations(K)
+    for row in sims:
+        say("loadgen_simulation", **row)
+    ow = _owperf()
+    say("loadgen_owperf", **ow)
+    sweep = _placement_sweep(K)
+    say("loadgen_placement_sweep", **sweep)
+    wh = _warmhit(K)
+    say("loadgen_warmhit", **wh)
+    line = dict(
+        sweep_invokers=[a["n_invokers"] for a in sweeps],
+        sustained_activations_per_sec=sweeps[-1][
+            "sustained_activations_per_sec"],
+        p50_ms=sweeps[-1]["p50_ms"], p99_ms=sweeps[-1]["p99_ms"],
+        shared_per_sec=[a["fleet_merged_sustained_per_sec"]
+                        for a in shared],
+        launches={"sweep": sweeps[-1]["launches"],
+                  "funnel": {k: sum(a["funnel_launches"][k]
+                                    for a in shared)
+                             for k in ("scan", "repair")},
+                  "simulations": {r["simulation"]: r["launches"]
+                                  for r in sims},
+                  "placement_sweep": sweep["launches"],
+                  "warmhit": wh["launches"]},
+        phase_s=time.perf_counter() - t_phase)
+    say("loadgen", **line)
+    return line
+
+
 def leg():
     """`--leg`: one leg of a parent/change comparison inside one call, run
     from the root of each tree: phase 7's main run without the profile
@@ -7082,6 +7558,8 @@ def main():
         return deploy_controller(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--cold-standalone"]:
         return cold_standalone(sys.argv[2], sys.argv[3], int(sys.argv[4]))
+    if sys.argv[1:2] == ["--loadgen-process"]:
+        return loadgen_process(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -7174,6 +7652,14 @@ def main():
     t0 = time.perf_counter()
     tools = tools_phase()
     say("tools_phase", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    lg = loadgen_phase(K)
+    say("loadgen_phase", seconds=time.perf_counter() - t0)
+    lg_launches = {
+        kind: {path: (sum(v[kind] for v in c.values())
+                      if path == "simulations" else c[kind])
+               for path, c in lg["launches"].items()}
+        for kind in ("scan", "repair")}
 
     scan = sk["plain"]
     rep = mk["plain"]
@@ -7220,6 +7706,7 @@ def main():
              f"controller{FUNNEL_INSTANCES[0]}"]["scan"],
          "tools_launches": {n: v["scan"]
                             for n, v in tools["launches"].items()},
+         "loadgen_launches": lg_launches["scan"],
          "quality_launches": quality["launches"]["scan"],
          "mesh_launches": mesh["launches"]["scan"],
          "cold_launches": {lbl: cold[lbl]["launches"]["scan"]
@@ -7259,6 +7746,7 @@ def main():
              f"controller{FUNNEL_INSTANCES[0]}"]["repair"],
          "tools_launches": {n: v["repair"]
                             for n, v in tools["launches"].items()},
+         "loadgen_launches": lg_launches["repair"],
          "quality_launches": quality["launches"]["repair"],
          "mesh_launches": mesh["launches"]["repair"],
          "cold_launches": {lbl: cold[lbl]["launches"]["repair"]

@@ -10,6 +10,11 @@ logs.
 
 Runs standalone: `python -m openwhisk_tpu_torch.containerpool.actionproxy <port>`.
 Kept dependency-free (stdlib only) so it can be dropped into any image.
+
+A copy of `openwhisk_tpu/containerpool/actionproxy.py`, except that it
+serves the listening socket its container factory hands it in
+`OW_LISTEN_FD` (process_factory binds it, so no other sandbox can draw
+the same port) and binds `<port>` itself only without one.
 """
 from __future__ import annotations
 
@@ -254,7 +259,19 @@ def main() -> None:
     # address (e.g. per-container loopback IPs); default matches the
     # process factory's 127.0.0.1
     host = sys.argv[2] if len(sys.argv) > 2 else "127.0.0.1"
-    server = ThreadingHTTPServer((host, port), Handler)
+    listen_fd = os.environ.pop("OW_LISTEN_FD", None)
+    if listen_fd is None:
+        server = ThreadingHTTPServer((host, port), Handler)
+    else:
+        # the container factory bound and listens on this socket already
+        # (process_factory): serve it as it is
+        import socket
+        server = ThreadingHTTPServer((host, port), Handler,
+                                     bind_and_activate=False)
+        server.socket.close()
+        server.socket = socket.socket(fileno=int(listen_fd))
+        host, port = server.server_address = server.socket.getsockname()[:2]
+        server.server_name, server.server_port = host, port
     print(f"action proxy listening on {host}:{port}", flush=True)
     server.serve_forever()
 

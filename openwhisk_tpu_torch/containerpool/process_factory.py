@@ -7,6 +7,16 @@ the in-repo action proxy (openwhisk_tpu_torch/containerpool/actionproxy.py) — 
 natural container primitive for a single-host/TPU-pod deployment where docker
 is unavailable. Pause/resume map to SIGSTOP/SIGCONT (the same mechanism runc
 pause uses underneath); memory limits map to RLIMIT_AS.
+
+A copy of `openwhisk_tpu/containerpool/process_factory.py`, with one fault
+of the reference fixed: it chose a sandbox's port by binding port 0 and
+closing the socket, and the sandbox bound that port later. Another
+factory (another invoker process on the host) could draw the same port in
+between; the second sandbox then failed to bind and exited, and both
+containers talked to the first. When the first's invoker paused it, a run
+of the other waited out its time limit (502 "action exceeded its time
+limit"). Here the factory binds and listens itself and hands the socket
+to the sandbox, so no other process can take the port.
 """
 from __future__ import annotations
 
@@ -22,12 +32,6 @@ from typing import List, Optional
 from ..core.entity import ByteSize
 from .container import ACTIVATION_LOG_SENTINEL, Container, ContainerError
 from .factory import ContainerFactory
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 class ProcessContainer(Container):
@@ -114,22 +118,32 @@ class ProcessContainerFactory(ContainerFactory):
                                memory: ByteSize, cpu_shares: int = 0,
                                action=None) -> ProcessContainer:
         async with self._create_sem:
-            port = _free_port()
+            # the sandbox's socket, bound and listening before it starts
+            listener = socket.socket()
+            listener.bind(("127.0.0.1", 0))
+            listener.listen()
+            port = listener.getsockname()[1]
             fd_out, stdout_path = tempfile.mkstemp(prefix=f"ow-{name}-", suffix=".out")
             fd_err, stderr_path = tempfile.mkstemp(prefix=f"ow-{name}-", suffix=".err")
             # memory cap is applied by the proxy itself after exec (a parent
             # preexec_fn would fork() a multithreaded JAX process, which can
             # deadlock the child before exec); leave interpreter headroom
             env = dict(os.environ,
-                       OW_MEMORY_LIMIT_BYTES=str(memory.bytes + 512 * 1024 * 1024))
+                       OW_MEMORY_LIMIT_BYTES=str(memory.bytes + 512 * 1024 * 1024),
+                       OW_LISTEN_FD=str(listener.fileno()))
             # launch the proxy file directly (NOT -m): it is stdlib-only, so
             # this skips importing the parent package (aiohttp etc., ~2s)
             proxy_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                       "actionproxy.py")
-            proc = await asyncio.create_subprocess_exec(
-                sys.executable, "-u", proxy_path, str(port),
-                stdout=fd_out, stderr=fd_err, start_new_session=True, env=env,
-            )
+            try:
+                proc = await asyncio.create_subprocess_exec(
+                    sys.executable, "-u", proxy_path, str(port),
+                    stdout=fd_out, stderr=fd_err, start_new_session=True,
+                    env=env, pass_fds=(listener.fileno(),),
+                )
+            finally:
+                # the sandbox holds the socket now: its exit closes the port
+                listener.close()
             os.close(fd_out)
             os.close(fd_err)
             c = ProcessContainer(proc, port, stdout_path, stderr_path,

@@ -123,7 +123,9 @@ from ...utils.eventlog import GLOBAL_EVENT_LOG
 from ...utils.hostprof import GLOBAL_HOST_OBSERVATORY
 from ...utils.ring_buffer import ColumnRing
 from ...utils.tracing import export_tracing_gauges, trace_id_of
-from ...utils.waterfall import STAGE_SPILL_FORWARD
+from ...utils.waterfall import (STAGE_BATCH_ASSEMBLE, STAGE_DEVICE_DISPATCH,
+                                STAGE_DEVICE_READBACK, STAGE_PUBLISH_ENQUEUE,
+                                STAGE_SPILL_FORWARD)
 from .base import (HEALTHY, CommonLoadBalancer, InvokerHealth,
                    LoadBalancerException, LoadBalancerThrottleException)
 from .flight_recorder import BatchRecord, free_slot_histogram, occupancy_json
@@ -1745,8 +1747,9 @@ class TpuBalancer(CommonLoadBalancer):
         # fail queued publishers instead of leaving them awaiting forever
         pending, self._pending = self._pending, []
         self._req_ring.clear()
-        for req, fut, slot_key, *_ in pending:
+        for req, fut, slot_key, _t, aid, *_ in pending:
             self._slots.release(slot_key, req[self.R_CONC_SLOT])
+            self.waterfall.discard(aid)
             if not fut.done():
                 fut.set_exception(LoadBalancerException("load balancer shut down"))
         # batched-publish sends drain AFTER the queued rows fail and BEFORE
@@ -1864,6 +1867,9 @@ class TpuBalancer(CommonLoadBalancer):
             # ids + the epoch each row was admitted under (a spilled row
             # keeps its origin's stamp when that is ahead of ours)
             entry = entry + ((pid, self._row_epoch(msg, pid)),)
+        # waterfall: the activation is now IN the balancer's queue — the
+        # delta from here to batch_assemble is pure queueing/window wait
+        self.waterfall.stamp(aid_str, STAGE_PUBLISH_ENQUEUE)
         self._req_ring.push(req)
         self._pending.append(entry)
         # inline fast path: with free pipeline capacity, dispatch NOW when
@@ -1879,6 +1885,9 @@ class TpuBalancer(CommonLoadBalancer):
             # lost to this caller but its capacity is not
             if fut.done() and not fut.cancelled() and fut.exception() is None:
                 self._abandon_placement(int(fut.result()[0]), req, slot_key)
+            # abandoned = never acked = never finished: drop the stage
+            # vector, like every other abandonment path
+            self.waterfall.discard(aid_str)
             raise
         invoker, promise = self._map_placement(inv_idx, forced, req,
                                                slot_key, msg, action)
@@ -1891,6 +1900,8 @@ class TpuBalancer(CommonLoadBalancer):
         batched `_row_placed`: failure codes release the held slot and
         raise the serial texts; success sets up the activation entry and
         returns (invoker, completion promise)."""
+        if inv_idx < 0:
+            self.waterfall.discard(msg.activation_id.asString)
         if inv_idx == -2:
             # device token bucket rejected it: no capacity was consumed
             self._slots.release(slot_key, req[self.R_CONC_SLOT])
@@ -1982,6 +1993,8 @@ class TpuBalancer(CommonLoadBalancer):
             self._pending.append(
                 entry if pid is None
                 else entry + ((pid, self._row_epoch(msg, pid)),))
+        self.waterfall.stamp_many([b[3].activation_id.asString for b in built],
+                                  STAGE_PUBLISH_ENQUEUE)
         # ONE shared flush decision: drain full buckets inline, then apply
         # the serial eager/window rule once
         while (len(self._pending) >= self.max_batch
@@ -2410,8 +2423,11 @@ class TpuBalancer(CommonLoadBalancer):
                 req[1] = req[6] = 1  # padded columns: size 1, max_conc 1
                 buf = np.concatenate([np.zeros(5 * bp + 3 * h, np.int32),
                                       req.ravel()])
-                dummy = init_state(1, [0], n_pad=self._n_pad,
-                                   action_slots=self.action_slots,
+                # the books' shape read once: the loop grows the live
+                # books while this runs, and the dummies and the penalty
+                # must agree with each other
+                n_pad, slots = self._n_pad, self.action_slots
+                dummy = init_state(1, [0], n_pad=n_pad, action_slots=slots,
                                    device=self.device)
                 if self.mesh is not None:
                     dummy = shard_state(dummy, self.mesh)
@@ -2424,8 +2440,7 @@ class TpuBalancer(CommonLoadBalancer):
                     now = (np.float32(0.0),)
                 if self._shadow_fn is not None:
                     self._shadow_fn(st, dbuf,
-                                    torch.zeros((self._n_pad,),
-                                                dtype=torch.int32,
+                                    torch.zeros((n_pad,), dtype=torch.int32,
                                                 device=self.device), *now,
                                     bp, h, bp,
                                     scratch=_empty_books_like(dummy))
@@ -2602,6 +2617,11 @@ class TpuBalancer(CommonLoadBalancer):
                 # the record carries a trace: the phase histogram's bucket
                 # line gets an exemplar pointing at it (OpenMetrics only)
                 rec.digest["trace_id"] = tid
+        # waterfall: assemble/dispatch/readback are BATCH events — one
+        # shared timestamp per edge for every activation in the batch (the
+        # aid list is built once, only when the plane is live)
+        wf = self.waterfall
+        wf_aids = [e[4] for e in batch] if wf.enabled else None
         rel_np = self._release_packed(pad_to=bp)
         health_np = pack_health(self._health_updates, self.HEALTH_BATCH)
         buf = np.concatenate([rel_np.ravel(), health_np.ravel(),
@@ -2634,8 +2654,9 @@ class TpuBalancer(CommonLoadBalancer):
             self._set_inflight(-1)
             self._capacity_free.set()
             self._recover_failed_step()
-            for req, fut, slot_key, *_ in batch:
+            for req, fut, slot_key, _t, aid, *_ in batch:
                 self._slots.release(slot_key, req[self.R_CONC_SLOT])
+                wf.discard(aid)
                 if not fut.done():
                     fut.set_exception(
                         LoadBalancerException(f"device dispatch failed: {e}"))
@@ -2685,6 +2706,11 @@ class TpuBalancer(CommonLoadBalancer):
         # phase breakdown: assembly is host numpy packing, dispatch the
         # enqueue (transfers + launches)
         t_dispatched = time.monotonic()
+        if wf_aids is not None:
+            wf.stamp_many(wf_aids, STAGE_BATCH_ASSEMBLE,
+                          int(t_assembled * 1e9))
+            wf.stamp_many(wf_aids, STAGE_DEVICE_DISPATCH,
+                          int(t_dispatched * 1e9))
         self.profiler.observe_phase("assembly", (t_assembled - t0) * 1e3)
         self.profiler.observe_phase("dispatch",
                                     (t_dispatched - t_assembled) * 1e3)
@@ -2857,9 +2883,10 @@ class TpuBalancer(CommonLoadBalancer):
                 # to another action with phantom concurrency
                 compensated = False
                 self._recover_failed_step()
-            for req, fut, slot_key, *_ in batch:
+            for req, fut, slot_key, _t, aid, *_ in batch:
                 if compensated:
                     self._slots.release(slot_key, req[self.R_CONC_SLOT])
+                self.waterfall.discard(aid)
                 if not fut.done():
                     fut.set_exception(
                         LoadBalancerException(f"device step failed: {e}"))
@@ -2872,6 +2899,10 @@ class TpuBalancer(CommonLoadBalancer):
             return
         self._set_inflight(-1)
         self._capacity_free.set()
+        wf = self.waterfall
+        if wf.enabled:
+            wf.stamp_many([e[4] for e in batch], STAGE_DEVICE_READBACK,
+                          int(t_done * 1e9))
         dt_ms = (t_done - t0) * 1e3
         self.step_ms.append(dt_ms)
         self.counters["scheduled"] += b

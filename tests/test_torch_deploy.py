@@ -281,7 +281,13 @@ NEW_MODULES = [
     "openwhisk_tpu_torch.containerpool.mesos_factory",
     "openwhisk_tpu_torch.messaging.kafka",
     "openwhisk_tpu_torch.tools.deploy", "openwhisk_tpu_torch.tools.wsk",
-    "openwhisk_tpu_torch.tools.wskadmin"]
+    "openwhisk_tpu_torch.tools.wskadmin",
+    "openwhisk_tpu_torch.tools.loadgen", "openwhisk_tpu_torch.tools.echo_fleet",
+    "openwhisk_tpu_torch.performance.harness",
+    "openwhisk_tpu_torch.performance.simulations",
+    "openwhisk_tpu_torch.performance.owperf",
+    "openwhisk_tpu_torch.performance.warmhit",
+    "openwhisk_tpu_torch.performance.placement_sweep"]
 
 
 def _closure(mods, also=""):
@@ -463,6 +469,49 @@ CUTS = {
          "                self.state = PAUSING\n"
          "                self._pause_task, self._resuming = None, None\n"
          "                self._suspending = asyncio.current_task()\n")],
+    "containerpool/process_factory.py": [
+        ("no port drawn and released before the sandbox binds it",
+         "def _free_port() -> int:\n", "        return s.getsockname()[1]\n",
+         ""),
+        ("the factory binds and listens on the sandbox's socket",
+         "            port = _free_port()\n", None,
+         "            listener = socket.socket()\n"
+         '            listener.bind(("127.0.0.1", 0))\n'
+         "            listener.listen()\n"
+         "            port = listener.getsockname()[1]\n"),
+        ("the socket's descriptor in the sandbox's environment",
+         "                       OW_MEMORY_LIMIT_BYTES=str(memory.bytes + 512 "
+         "* 1024 * 1024))\n", None,
+         "                       OW_MEMORY_LIMIT_BYTES=str(memory.bytes + 512 "
+         "* 1024 * 1024),\n"
+         "                       OW_LISTEN_FD=str(listener.fileno()))\n"),
+        ("the sandbox inherits the socket; the factory closes its copy",
+         "            proc = await asyncio.create_subprocess_exec(\n",
+         "            )\n",
+         "            try:\n"
+         "                proc = await asyncio.create_subprocess_exec(\n"
+         '                    sys.executable, "-u", proxy_path, str(port),\n'
+         "                    stdout=fd_out, stderr=fd_err, "
+         "start_new_session=True,\n"
+         "                    env=env, pass_fds=(listener.fileno(),),\n"
+         "                )\n"
+         "            finally:\n"
+         "                listener.close()\n")],
+    "containerpool/actionproxy.py": [
+        ("serve the socket the factory hands over",
+         "    server = ThreadingHTTPServer((host, port), Handler)\n", None,
+         '    listen_fd = os.environ.pop("OW_LISTEN_FD", None)\n'
+         "    if listen_fd is None:\n"
+         "        server = ThreadingHTTPServer((host, port), Handler)\n"
+         "    else:\n"
+         "        import socket\n"
+         "        server = ThreadingHTTPServer((host, port), Handler,\n"
+         "                                     bind_and_activate=False)\n"
+         "        server.socket.close()\n"
+         "        server.socket = socket.socket(fileno=int(listen_fd))\n"
+         "        host, port = server.server_address = "
+         "server.socket.getsockname()[:2]\n"
+         "        server.server_name, server.server_port = host, port\n")],
     "containerpool/docker_factory.py": [],
     "containerpool/kubernetes_factory.py": [],
     "containerpool/yarn_factory.py": [],
@@ -545,14 +594,17 @@ def test_copied_modules_are_copies_outside_their_named_cuts(rel):
 PORT_SOURCES = sorted(
     str(p.relative_to(ROOT)) for p in
     (ROOT / "openwhisk_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "openwhisk_tpu", "tools", "loadgen"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "openwhisk_tpu", "tools", "loadgen",
+                   "bench", "__graft_entry__", "tests", "harness",
+                   "simulations", "owperf", "warmhit", "placement_sweep"}
 
 
 @pytest.mark.parametrize("rel", PORT_SOURCES)
 def test_no_module_of_the_port_imports_jax_or_the_jax_package(rel):
     """Every import statement of the file, at module level or inside a
-    function: none names jax, the JAX package or the repository's
-    `tools/` (its load generator)."""
+    function: none names jax, the JAX package, the repository's `tools/`
+    (its load generator), `bench.py`, `__graft_entry__.py` or the
+    scripts of `tests/performance/` (the port has its copies)."""
     tree = ast.parse((ROOT / rel).read_text())
     names = []
     for node in ast.walk(tree):

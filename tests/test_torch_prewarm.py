@@ -257,3 +257,48 @@ def test_the_warm_steps_run_each_family_on_dummy_books(monkeypatch,
         want = [("shadow", 8), ("step", 8), ("shadow", 32), ("step", 32)]
     assert seen == want
     assert same and counted_none
+
+
+def test_the_warm_steps_keep_one_shape_while_the_loop_grows_the_books(
+        monkeypatch):
+    """The early build runs `_warm_steps` on a worker thread while the
+    loop registers invokers and grows the books. Growth that lands between
+    the dummy books' allocation and the shadow step's penalty must not
+    mismatch them (on the card the kernel wrapper refuses a penalty of
+    another width, which failed the build and so every dispatch)."""
+    from openwhisk_tpu_torch.controller.loadbalancer import tpu_balancer as TB
+    monkeypatch.setenv("CONFIG_whisk_placementQuality_enabled", "true")
+    monkeypatch.setenv("CONFIG_whisk_placementQuality_shadowEveryN", "2")
+
+    async def go():
+        provider = MemoryMessagingProvider()
+        bal = front(provider)
+        await bal.start()
+        invokers, producer = await _fleet(provider, 3)
+        await _ping_all(invokers, producer, bal)
+        widths = []
+        shadow, init_state = bal._shadow_fn, TB.init_state
+
+        def grow_meanwhile(*a, **k):
+            # the loop's registration growth, landing mid warm step
+            st = init_state(*a, **k)
+            bal._grow_padding(bal._n_pad * 2)
+            return st
+
+        def spy(st, dbuf, penalty, *a, **k):
+            books = st if hasattr(st, "free_mb") else st[0]
+            widths.append((books.free_mb.shape[0], penalty.shape[0]))
+            return shadow(st, dbuf, penalty, *a, **k)
+
+        monkeypatch.setattr(TB, "init_state", grow_meanwhile)
+        bal._shadow_fn = spy
+        n0 = bal._n_pad
+        bal._warm_steps()
+        monkeypatch.setattr(TB, "init_state", init_state)
+        n1 = bal._n_pad
+        await _stop(bal, invokers)
+        return widths, n0, n1
+
+    widths, n0, n1 = asyncio.run(asyncio.wait_for(go(), 30))
+    assert n1 == 4 * n0
+    assert widths == [(n0, n0), (2 * n0, 2 * n0)]

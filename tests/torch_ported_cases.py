@@ -154,11 +154,13 @@ def _method_case(classes, name):
     return case
 
 
-def _class_case(classes, name):
+def _class_case(classes, name, methods=None):
     cls = classes[PACKAGES[1]]
     body = {"_ported_classes": classes, "__doc__": cls.__doc__}
     for attr, value in vars(cls).items():
         if attr.startswith("test") and callable(value):
+            if methods is not None and attr not in methods:
+                continue
             body[attr] = _method_case(classes, attr)
         elif hasattr(value, "_ported_fixture"):
             body[attr] = _fixture_of(
@@ -171,8 +173,16 @@ def _class_case(classes, name):
 
 def ported(ns, ref, only=None, ports=(), subs=None):
     """Put `tests/<ref>.py`'s cases (or those named in `only`) into `ns`
-    as cases on both packages."""
+    as cases on both packages. An `only` entry "Class.test_name" takes
+    that one method of the class (and the class's fixtures)."""
     runs = {root: load(ref, root, ports, subs) for root in PACKAGES}
+    methods = {}
+    if only is not None:
+        for entry in only:
+            cls_name, _, meth = entry.partition(".")
+            if meth:
+                methods.setdefault(cls_name, set()).add(meth)
+        only = {entry.partition(".")[0] for entry in only}
     port = runs[PACKAGES[1]]
     assert not hasattr(port, "pytestmark"), "module marks are not carried"
     leaked = [n for n, v in vars(port).items()
@@ -189,7 +199,7 @@ def ported(ns, ref, only=None, ports=(), subs=None):
             ns[name] = _fixture_of(objs, name)
         elif inspect.isclass(value) and name.startswith("Test"):
             assert name not in ns, name
-            ns[name] = _class_case(objs, name)
+            ns[name] = _class_case(objs, name, methods.get(name))
         elif inspect.isfunction(value) and name.startswith("test"):
             assert name not in ns, name
             ns[name] = _case(objs)
