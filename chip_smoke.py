@@ -16,7 +16,10 @@ Phases, each reported on its own line:
               penalty, over six traffic families. Bit-exact: chosen,
               forced, rounds, free and conc. Times from CUDA events at
               B = 16 / 256 on memory-dominant traffic, with and without the
-              penalty.
+              penalty. The release fold (csrc/release_fold.cu) at R in
+              {8, 16, 32, 256, 1,024} rows against both plain folds
+              (`release_batch`, `release_batch_vector`), bit-exact in free
+              and conc, each R timed beside its byte bound.
   4. main     `BalancerCore(device="cuda")` over 10,000 invokers of
               8,192 MB (managed 0.9 / blackbox 0.1, max_batch 256,
               action_slots 4096): warm-up, full 256-row batches of a
@@ -28,15 +31,15 @@ Phases, each reported on its own line:
               device time by kernel kind, the device's idle share and
               longest idle gaps, host time and device span of each phase of
               the fused step, the repair kernel's ms per launch and per
-              round); the inputs of step 200's repair launch and of the
-              first scan launch from step 360 on (a trickle step) are
-              kept, and every scan launch of the run is timed with CUDA
+              round); the inputs of step 200's repair launch and
+              release fold and of the first scan launch from step 360 on
+              (a trickle step) are kept, every kernel must launch, and every scan launch of the run is timed with CUDA
               events. The first 110
               steps are replayed through `BalancerCore(device="cpu")` and
               must agree in decisions, rounds and books.
   5. each kernel on its kept main-path batch: held against the plain
      version, timed with and without a penalty, with its bound from the
-     same inputs; its cost per round (repair) or per request (scan) on
+     same inputs (the release fold against both plain folds, timed); its cost per round (repair) or per request (scan) on
      serial batches (one commit a round, every request on one invoker);
      one grid barrier at the repair's launch shape, and at the scan's one
      cluster barrier and one exchange of its minima (the kernel's and its
@@ -383,24 +386,34 @@ Phases, each reported on its own line:
               while a rung is
               sustained (p99 from the scheduled arrival within 1,000 ms,
               98% completed, no errors, the generator within 50 ms of its
-              schedule), then the last sustained rate re-measured; rerun
-              at 1,024 invokers when the echo fleet itself failed the
-              attempt (it registers at most 4,096 invokers: its pinger
-              sends every ping in one burst a second into a health topic
-              that keeps 4,096) or the first rung failed on the generator
-              alone. One "loadgen_sweep" line an attempt: the
+              schedule), then the last sustained rate re-measured; the
+              fleet must register (the echo fleet's pinger spreads its
+              pings over the second, 256 at a time); rerun at 1,024
+              invokers when the sweep stopped at a rung failed on the
+              generator alone. One "loadgen_sweep" line an attempt: the
               sustained activations/s, p50/p99 from the schedule, every
               rung's accounting and verdict with its blame, the
-              waterfall's stage budget, `gc_tuned`, the launches. (b) `python
+              waterfall's stage budget, `gc_tuned`, the launches, the
+              balancer's steps and rows a step. (b) `python
               -m openwhisk_tpu_torch.tools.loadgen --rate 200 --duration 1
               --invokers 16` as a process: exactly one JSON line, from the
               card. (c) `multiproc_fixed_rate(shared=True, procs=2)` at
-              half (a)'s rate, and at an eighth of that when it is not
-              sustained: one `--serve-funnel` process owns the card, two
-              front-end workers funnel to it over the TCP bus; the
-              processes run under `--loadgen-process`, which records each
-              one's launches and CUDA state as it exits ("loadgen_shared"
-              line an attempt). (d) the
+              half the rate (a)'s last sweep sustained and at least
+              1,000/s (where the funnel completed nothing before the
+              release kernel and its named cuts),
+              which must complete every row with none
+              failed on the funnel's retries, and at an eighth of that only
+              when it does not (then the phase fails): one
+              `--serve-funnel` process owns the card, two front-end
+              workers funnel to it over the TCP bus; the processes run
+              under `--loadgen-process`, which records each one's
+              launches, CUDA state, the funnel process's hop (frames and
+              rows received, outcome frames, steps, rows a step, host
+              syncs on its loop under torch's sync debug mode) and each
+              front end's retries and rows timed out ("loadgen_shared"
+              line an attempt); then one balancer in this process at the
+              first attempt's rate and 16 invokers, its rows a step beside
+              the funnel process's ("loadgen_single_at_shared_rate"). (d) the
               performance harness against the port's standalone on the
               card: the latency (100 requests, one at a time), throughput
               (300 at 4), cold (20) and apiv1 (100) simulations, each
@@ -748,6 +761,134 @@ def main_path_kernel(kind, box, torch, P, K):
     return out
 
 
+#: the release fold's cases at the main path's geometry: rows a fold
+RELEASE_ROWS = (8, 16, 32, 256, 1024)
+
+
+def release_rows(r, seed, n, a, torch):
+    """R release rows on the card: concurrency rows crowd r // 3 cells (so
+    groups of one cell form, some heterogeneous: other need or max_conc on
+    one slot), a quarter memory rows, a fifth invalid."""
+    rng = np.random.RandomState(seed)
+    cells = max(1, r // 3)
+    pool = np.stack([rng.randint(0, n, cells), rng.randint(0, a, cells)])
+    pick = rng.randint(0, cells, r)
+    maxc = rng.choice([1, 2, 3, 4, 8], r)
+    maxc[rng.rand(r) < 0.25] = 1
+    cols = [pool[0, pick], pool[1, pick], rng.choice([128, 256, 512], r),
+            maxc]
+    return ([torch.from_numpy(c.astype(np.int32)).to(DEVICE) for c in cols]
+            + [torch.from_numpy(rng.rand(r) > 0.2).to(DEVICE)])
+
+
+def release_bytes(rows):
+    """Bytes the fold must move: each row read once (four int32 columns
+    and the valid byte), free read and written at each invoker a valid
+    row touches, each concurrency cell a valid concurrency row touches
+    read and written."""
+    inv, slot, _need, maxc, valid = (c.cpu().numpy() for c in rows)
+    conc_rows = valid & (maxc > 1)
+    cells = len(set(zip(inv[conc_rows].tolist(), slot[conc_rows].tolist())))
+    return 17 * len(valid) + 8 * len(set(inv[valid].tolist())) + 8 * cells
+
+
+def release_compare(books, rows, P, K, torch):
+    """The kernel against both plain folds on copies of `books`: the
+    largest absolute difference over free and conc."""
+    err = 0
+    outs = []
+    for fn in (K.release_batch_cuda, P.release_batch,
+               P.release_batch_vector):
+        st = P.PlacementState(books[0].clone(), books[1].clone(), books[2])
+        fn(st, *rows)
+        outs.append(st)
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        for x, y in ((outs[0].free_mb, o.free_mb),
+                     (outs[0].conc_free, o.conc_free)):
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def release_times(books, rows, P, K, torch, reps=10):
+    """CUDA-event times of the kernel and of both plain folds on the same
+    books and rows (books restored outside the timed window), and the
+    bound from the bytes the fold must move."""
+    work = P.PlacementState(books[0].clone(), books[1].clone(), books[2])
+
+    def restore():
+        work.free_mb.copy_(books[0])
+        work.conc_free.copy_(books[1])
+
+    ms = time_ms(lambda: K.release_batch_cuda(work, *rows), restore, torch,
+                 reps=reps)
+    plain_ms = time_ms(lambda: P.release_batch(work, *rows), restore, torch,
+                       reps=3)
+    vector_ms = time_ms(lambda: P.release_batch_vector(work, *rows), restore,
+                        torch, reps=3)
+    nbytes = release_bytes(rows)
+    bound_ms, bound_by = bound(nbytes, len(rows[0]))
+    return dict(R=len(rows[0]), valid_rows=int(rows[4].sum()), ms=ms,
+                plain_ms=plain_ms, vector_ms=vector_ms, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def release_phase(torch, P, K):
+    """Phase 3's release fold: the kernel against both plain folds at the
+    full geometry (N = 16,384, A = 4,096), R in RELEASE_ROWS, each timed
+    beside its bound."""
+    free = torch.from_numpy(np.random.RandomState(5).randint(
+        0, MEM_MB, N_PAD).astype(np.int32)).to(DEVICE)
+    conc = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 6, (N_PAD, A)).astype(np.int32)).to(DEVICE)
+    books = (free, conc, torch.ones(N_PAD, dtype=torch.bool, device=DEVICE))
+    out = {"err": 0, "cases": 0, "times": {}}
+    for r in RELEASE_ROWS:
+        for seed in range(3):
+            rows = release_rows(r, 100 * r + seed, N_PAD, A, torch)
+            err = release_compare(books, rows, P, K, torch)
+            out["err"] = max(out["err"], err)
+            out["cases"] += 1
+            say("kernel_case", kernel="release", R=r, seed=seed,
+                max_abs_err=err)
+            require(err == 0, f"release R={r} seed={seed} differs from "
+                              f"plain by {err}")
+        row = release_times(books, release_rows(r, r, N_PAD, A, torch),
+                            P, K, torch)
+        out["times"][f"R{r}"] = row
+        say("kernel_time", kernel="release", **row)
+    return out
+
+
+def capture_release(TB):
+    """Route the balancer's release folds through a wrapper that keeps a
+    copy of the first one's inputs (books and rows). Returns (box,
+    undo)."""
+    real = TB.release_batch_cuda
+    box = {}
+
+    def keep(state, *rows):
+        if not box:
+            box["state"] = tuple(t.clone() for t in state)
+            box["rows"] = tuple(c.clone() for c in rows)
+        return real(state, *rows)
+
+    TB.release_batch_cuda = keep
+    return box, lambda: setattr(TB, "release_batch_cuda", real)
+
+
+def main_path_release(box, torch, P, K):
+    """The release kernel on one fold of the main path, as the balancer
+    handed it over: held against both plain folds and timed beside its
+    bound."""
+    books, rows = box["state"], box["rows"]
+    err = release_compare(books, rows, P, K, torch)
+    require(err == 0, f"main-path release differs from plain by {err}")
+    out = dict(release_times(books, rows, P, K, torch), max_abs_err=err)
+    say("main_path_kernel", kernel="release", **out)
+    return out
+
+
 def serial_cost(kind, torch, P, K):
     """A kernel's cost per serial step apart from its probe: B
     container-opening rows on the same one-invoker window and slot. The
@@ -1090,6 +1231,7 @@ def main_path_phase(torch, K, TB):
     K.reset_launch_counts()
     gpu_log, times, rounds, prof_rounds = [], {}, [], []
     books_at = prof = box = undo = sbox = sundo = scan_kept_at = None
+    rbox = rundo = None
     profiled = range(PROFILE_FROM, PROFILE_FROM + PROFILE_STEPS)
     forced = placed = 0
     t_all = time.perf_counter()
@@ -1124,13 +1266,14 @@ def main_path_phase(torch, K, TB):
             prof.stop()
         elif k + 1 == CAPTURE_STEP:
             box, undo = capture_next(TB, "schedule_batch_repair_cuda")
+            rbox, rundo = capture_release(TB)
         elif k == CAPTURE_STEP:
             undo()
+            rundo()
         elif k + 1 == SCAN_CAPTURE_FROM:
             sbox, sundo = capture_next(TB, "schedule_batch_cuda")
     wall = time.perf_counter() - t_all
-    launches = {"scan": K.schedule_batch_cuda.launches,
-                "repair": K.schedule_batch_repair_cuda.launches}
+    launches = _launches(K)
     untime()
     torch.cuda.synchronize()
     scan_ms, scan_timed = launch_ms(scan_events)
@@ -1153,16 +1296,17 @@ def main_path_phase(torch, K, TB):
         scan_ms_per_launch=scan_ms, scan_kept_at_step=scan_kept_at,
         counters=gpu.counters)
     say("main_path", **summary)
-    require(launches["scan"] > 0 and launches["repair"] > 0,
-            f"both kernels launched on the main path: {launches}")
+    require(launches["scan"] > 0 and launches["repair"] > 0
+            and launches["release"] > 0,
+            f"every kernel launched on the main path: {launches}")
     require(scan_timed == launches["scan"], "every scan launch was timed")
     require(forced > 0, "the overload burst forced placements")
     profile = device_profile(prof, torch, prof_rounds)
     say("profile", **profile)
     require(profile["repair_launches"] == len(prof_rounds),
             "the profile saw every repair launch of its steps")
-    require(box and sbox, "a repair and a scan launch of the main path "
-                          "were kept")
+    require(box and sbox and rbox, "a repair and a scan launch and a "
+                                   "release fold of the main path were kept")
 
     # the same seed and sequence through the plain path on the CPU
     cpu = TB.BalancerCore(mem, device="cpu", **kw)
@@ -1182,7 +1326,7 @@ def main_path_phase(torch, K, TB):
         books_equal=books_equal, cpu_s=time.perf_counter() - t0)
     require(mismatches == 0 and books_equal,
             "card and CPU runs agree in decisions, rounds and books")
-    return summary, launches, profile, box, sbox
+    return summary, launches, profile, box, sbox, rbox
 
 
 def scan_pinned_phase(torch, K, TB):
@@ -5042,9 +5186,9 @@ def deploy_phase(TB, K):
             f"deploy: the waterfall finished every activation: "
             f"{wf.get('finished')}")
     # phase 2's libraries (same sources, same cache key): loaded, not built
-    require(DEVICE != "cuda" or builds == {("placement_scan", "load"),
-                                           ("placement_repair", "load")},
-            f"deploy: the controller loaded both kernels unbuilt: {builds}")
+    require(DEVICE != "cuda" or builds == {(src, "load")
+                                           for src in K.SOURCES},
+            f"deploy: the controller loaded every kernel unbuilt: {builds}")
     require(len(doc["registry"]) == DEPLOY_INVOKERS,
             "deploy: the final dump holds the fleet")
     require(card_equal and card_st["parity_mismatches"] == 0
@@ -5073,7 +5217,8 @@ AA_REFUSED = 4
 
 def _launches(K):
     return {"scan": K.schedule_batch_cuda.launches,
-            "repair": K.schedule_batch_repair_cuda.launches}
+            "repair": K.schedule_batch_repair_cuda.launches,
+            "release": K.release_batch_cuda.launches}
 
 
 def _host_state(P, st):
@@ -6582,9 +6727,8 @@ def cold_phase(TB):
         require(run["launches"].get("scan", 0) > 0
                 and run["launches"].get("repair", 0) > 0,
                 f"cold {label}: both kernels launched: {run['launches']}")
-        require(set(run["nvcc_s"]) == set(("placement_scan",
-                                           "placement_repair")),
-                f"cold {label}: both kernels built by nvcc in the "
+        require(set(run["nvcc_s"]) == set(TB.placement_cuda.SOURCES),
+                f"cold {label}: every kernel built by nvcc in the "
                 f"standalone: {run['kernel_builds']}")
     on, off = runs["prewarm_on"], runs["prewarm_off"]
     lag_on = on["loop_lag_through_first_invoke_ms"]
@@ -7127,25 +7271,108 @@ def _device_arg():
     return None if DEVICE == "cuda" else DEVICE
 
 
+def _instances(cls):
+    """Every instance of `cls` this process builds from now on."""
+    made = []
+    init = cls.__init__
+
+    def track(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    cls.__init__ = track
+    return made
+
+
+def _count_steps(TB, counts):
+    """Count every `TpuBalancer` step of this process into `counts`
+    ("steps", and "rows" they placed; "in_step" is True during one);
+    returns the undo."""
+    dispatch = TB.TpuBalancer._dispatch_batch
+
+    def step(self):
+        counts["steps"] += 1
+        counts["rows"] += min(len(self._pending), self.max_batch)
+        counts["in_step"] = True
+        try:
+            return dispatch(self)
+        finally:
+            counts["in_step"] = False
+
+    TB.TpuBalancer._dispatch_batch = step
+    return lambda: setattr(TB.TpuBalancer, "_dispatch_batch", dispatch)
+
+
+def _count_loop_syncs(counts):
+    """Count the host synchronisations this process's main thread (its
+    event loop) makes, torch's sync debug mode on "warn": inside a step
+    into counts["step_syncs"] (with `_count_steps`), elsewhere into
+    counts["loop_syncs"]. On the CPU there is nothing to count."""
+    import threading
+    import warnings
+    if not torch.cuda.is_available():
+        return
+    loop = threading.main_thread()
+    show = warnings.showwarning
+
+    def seen(message, *a, **k):
+        if "ynchroniz" not in str(message):
+            return show(message, *a, **k)
+        if threading.current_thread() is loop:
+            counts["step_syncs" if counts.get("in_step")
+                   else "loop_syncs"] += 1
+
+    warnings.showwarning = seen
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+
+
 def loadgen_process(counts_dir, argv):
     """`--loadgen-process DIR ARGS...`: the load generator CLI's `main()`
     with ARGS, exactly as `python -m openwhisk_tpu_torch.tools.loadgen
     ARGS` runs it, then this process's kernel launch counts, whether it
     started a CUDA context and whether it mapped libcuda, written to
-    DIR/<pid>.json as it exits (13c reads the funnel process's launches
-    and the workers' CUDA state there)."""
+    DIR/<pid>.json as it exits. The funnel process also writes its hop
+    (frames and rows received, outcome frames, steps, the rows they
+    placed, host syncs on its loop), each front end its retries and rows
+    timed out (13c reads them there)."""
     import os
+    from openwhisk_tpu_torch.controller.loadbalancer import funnel as F
+    from openwhisk_tpu_torch.controller.loadbalancer import tpu_balancer as TB
     from openwhisk_tpu_torch.tools import loadgen
     sys.argv = ["openwhisk_tpu_torch.tools.loadgen", *argv]
+    serve = "--serve-funnel" in argv
+    hop = {"steps": 0, "rows": 0, "step_syncs": 0, "loop_syncs": 0}
+    if serve:
+        receivers = _instances(F.FunnelReceiver)
+        _count_steps(TB, hop)
+        _count_loop_syncs(hop)
+    else:
+        front_ends = _instances(F.FunnelBalancer)
     try:
         return loadgen.main() or 0
     finally:
+        if serve and torch.cuda.is_available():
+            torch.cuda.set_sync_debug_mode(0)
         K = sys.modules.get("openwhisk_tpu_torch.ops.placement_cuda")
         doc = {"argv": argv,
                "scan": K.schedule_batch_cuda.launches if K else 0,
                "repair": K.schedule_batch_repair_cuda.launches if K else 0,
+               "release": K.release_batch_cuda.launches if K else 0,
                "cuda_initialized": torch.cuda.is_initialized(),
                "libcuda_mapped": _libcuda_mapped(os.getpid())}
+        if serve:
+            gauges = [r.export_gauges() for r in receivers]
+            doc["hop"] = {
+                "frames": sum(g["funnel_frames_received"] for g in gauges),
+                "rows": sum(g["funnel_rows_received"] for g in gauges),
+                "dup_rows": sum(g["funnel_dup_rows"] for g in gauges),
+                "outcome_frames": sum(g["funnel_acks_sent"] for g in gauges),
+                "steps": hop["steps"], "step_rows": hop["rows"],
+                "step_syncs": hop["step_syncs"],
+                "loop_syncs": hop["loop_syncs"]}
+        else:
+            doc["front_end"] = [f.export_gauges() for f in front_ends]
         with open(os.path.join(counts_dir, f"{os.getpid()}.json"), "w") as f:
             json.dump(doc, f)
 
@@ -7188,18 +7415,33 @@ def _rungs(out):
             for kind, r in rows]
 
 
+@contextlib.contextmanager
+def _steps_counted(TB):
+    """Inside the block every `TpuBalancer` step of this process counts in
+    the yielded dict: steps and the rows they placed."""
+    counts = {"steps": 0, "rows": 0}
+    undo = _count_steps(TB, counts)
+    try:
+        yield counts
+    finally:
+        undo()
+
+
 def _sweep_attempt(loadgen, K, n_invokers):
-    """One `sweep_balancer` on DEVICE at `n_invokers`, its launches counted
-    from 0. A fleet the echo fleet cannot register is reported as the
-    attempt's `error`: its pinger sends all its pings in one burst a
-    second, and the supervision's health topic keeps the last 4,096."""
+    """One `sweep_balancer` on DEVICE at `n_invokers`, its launches and
+    steps counted from 0. A fleet that does not register is reported as
+    the attempt's `error` (the echo fleet's pinger spreads its pings over
+    each second (a named cut); a burst of 10,000 overran the health topic's
+    4,096)."""
+    from openwhisk_tpu_torch.controller.loadbalancer import tpu_balancer as TB
     K.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        out = loadgen.sweep_balancer(
-            rate0=LOADGEN_RATE0, duration=LOADGEN_DURATION,
-            max_doublings=LOADGEN_DOUBLINGS, n_invokers=n_invokers,
-            device=_device_arg())
+        with _steps_counted(TB) as steps:
+            out = loadgen.sweep_balancer(
+                rate0=LOADGEN_RATE0, duration=LOADGEN_DURATION,
+                max_doublings=LOADGEN_DOUBLINGS, n_invokers=n_invokers,
+                device=_device_arg())
     except RuntimeError as e:
         if "fleet never became healthy" not in str(e):
             raise
@@ -7216,22 +7458,35 @@ def _sweep_attempt(loadgen, K, n_invokers):
         latency_base=out["latency_base"], gc_tuned=out["gc_tuned"],
         rungs=_rungs(out), stage_budget=out["stage_budget"],
         tail_attribution=out["tail_attribution"], launches=launches,
+        steps=steps["steps"],
+        rows_a_step=steps["rows"] / steps["steps"] if steps["steps"] else None,
         seconds=time.perf_counter() - t0)
 
 
+def _stopped_on_generator(attempt):
+    """The sweep's last rung failed, and on the generator alone."""
+    rungs = [r for r in attempt.get("rungs", ()) if r["kind"] == "rung"]
+    return bool(rungs and rungs[-1]["verdict"]["failed"]
+                and rungs[-1]["verdict"]["blames"] == "generator")
+
+
 def _open_loop_sweep(K):
-    """13a: the sweep at 10,000 invokers; rerun at 1,024 when the echo
-    fleet itself failed it: its registration never completed, or the first
-    rung failed on the generator alone (the fleet's own idle cost)."""
+    """13a: the sweep at 10,000 invokers (BASELINE's fleet), which must
+    register; rerun at 1,024 when it stopped on the generator alone (the
+    fleet's pings share the generator's loop), at whichever rung, so that
+    the balancer's upper rungs are driven and 13(c)'s rate is half of what
+    one balancer sustains."""
     from openwhisk_tpu_torch.tools import loadgen
     attempts = [_sweep_attempt(loadgen, K, LOADGEN_INVOKERS[0])]
-    first = attempts[0]
-    if "error" in first or (
-            not first["sustained"]
-            and first["rungs"][0]["verdict"]["blames"] == "generator"):
-        attempts.append(_sweep_attempt(loadgen, K, LOADGEN_INVOKERS[1]))
     for a in attempts:
         say("loadgen_sweep", **a)
+    first = attempts[0]
+    require("error" not in first,
+            f"loadgen: the echo fleet registered "
+            f"{LOADGEN_INVOKERS[0]} invokers: {first.get('error')}")
+    if _stopped_on_generator(first):
+        attempts.append(_sweep_attempt(loadgen, K, LOADGEN_INVOKERS[1]))
+        say("loadgen_sweep", **attempts[-1])
     used = attempts[-1]
     require("error" not in used,
             f"loadgen: the echo fleet registered at {used['n_invokers']} "
@@ -7282,10 +7537,21 @@ def _loadgen_cli():
                 verdict=head["verdict"])
 
 
+#: 13c's run length a worker, and its invokers (multiproc_fixed_rate's
+#: defaults)
+LOADGEN_SHARED_S, LOADGEN_SHARED_INVOKERS = 2.5, 16
+#: 13c's least rate: where the funnel completed no row before its repair
+#: (ROADMAP Queue 3 item 12), so the phase holds the repair there even
+#: when (a)'s sweep stopped lower on a host's GC pauses
+LOADGEN_SHARED_FAULT_RATE = 1000.0
+
+
 def _shared_attempt(loadgen, rate):
     """One `multiproc_fixed_rate(shared=True)` at `rate`: one funnel
     process owns DEVICE, the workers are front ends; each process's
-    launches and CUDA state as it exited."""
+    launches and CUDA state as it exited, the funnel process's hop (frames
+    and rows received, outcome frames, steps, rows a step, host syncs on
+    its loop) and the rows each front end failed on retry exhaustion."""
     import os
     import shutil
     import tempfile
@@ -7295,7 +7561,8 @@ def _shared_attempt(loadgen, rate):
         with _loadgen_processes_counted(counts):
             out = loadgen.multiproc_fixed_rate(
                 rate=rate, procs=LOADGEN_PROCS, shared=True,
-                device=_device_arg())
+                duration=LOADGEN_SHARED_S,
+                n_invokers=LOADGEN_SHARED_INVOKERS, device=_device_arg())
         seconds = time.perf_counter() - t0
         procs = []
         for name in sorted(os.listdir(counts)):
@@ -7305,17 +7572,31 @@ def _shared_attempt(loadgen, rate):
         shutil.rmtree(counts, ignore_errors=True)
     funnel = [p for p in procs if "--serve-funnel" in p["argv"]]
     workers = [p for p in procs if "--funnel" in p["argv"]]
+    hop = funnel[0]["hop"] if len(funnel) == 1 else {}
+    offered = LOADGEN_PROCS * max(1, int(rate / LOADGEN_PROCS
+                                         * LOADGEN_SHARED_S))
     line = dict(
         offered_rate=rate, procs=out["procs"], topology=out["topology"],
         seconds=seconds, sustained=out["sustained"],
         fleet_merged_sustained_per_sec=out["fleet_merged_sustained_per_sec"],
-        completed=out["completed"], p50_ms=out["p50_ms"],
+        offered=offered, completed=out["completed"], p50_ms=out["p50_ms"],
         p99_ms=out["p99_ms"], per_worker=out["per_worker"],
         funnel_launches={k: sum(p[k] for p in funnel)
-                         for k in ("scan", "repair")},
+                         for k in ("scan", "repair", "release")},
+        hop=dict(hop, rows_a_step=(hop["step_rows"] / hop["steps"]
+                                   if hop.get("steps") else None),
+                 syncs_a_step=(hop["step_syncs"] / hop["steps"]
+                               if hop.get("steps") else None)),
+        rows_timed_out=sum(g["funnel_rows_timed_out"] for p in workers
+                           for g in p["front_end"]),
+        frame_retries=sum(g["funnel_frame_retries"] for p in workers
+                          for g in p["front_end"]),
         workers_cuda=[{k: p[k] for k in ("cuda_initialized",
                                          "libcuda_mapped")}
                       for p in workers])
+    line["completes_every_row"] = (
+        line["completed"] == offered and line["rows_timed_out"] == 0
+        and all("error" not in w for w in out["per_worker"]))
     say("loadgen_shared", **line)
     require(out["topology"] == "shared" and len(funnel) == 1
             and len(workers) == LOADGEN_PROCS,
@@ -7327,26 +7608,55 @@ def _shared_attempt(loadgen, rate):
     for p in workers:
         require(not p["cuda_initialized"],
                 f"loadgen: a funnel worker holds no CUDA context: {p}")
-    require(DEVICE != "cuda" or sum(line["funnel_launches"].values()) > 0,
-            f"loadgen: the funnel process launched the kernels: "
+    require(DEVICE != "cuda" or all(line["funnel_launches"].values()),
+            f"loadgen: the funnel process launched every kernel: "
             f"{line['funnel_launches']}")
     return line
 
 
+def _single_at(loadgen, rate):
+    """One balancer in this process at 13c's rate, invokers and run
+    length (`sweep_balancer(fixed_rate=...)`): the rows a step that the
+    funnel process's are read beside."""
+    from openwhisk_tpu_torch.controller.loadbalancer import tpu_balancer as TB
+    t0 = time.perf_counter()
+    with _steps_counted(TB) as steps:
+        out = loadgen.sweep_balancer(
+            fixed_rate=rate, duration=LOADGEN_SHARED_S,
+            n_invokers=LOADGEN_SHARED_INVOKERS, device=_device_arg())
+    head = out["headline"]
+    return dict(
+        offered_rate=rate, sustained=out["sustained"],
+        completed=head["completed"], offered=head["offered"],
+        p50_ms=out["p50_ms"], p99_ms=out["p99_ms"], steps=steps["steps"],
+        rows_a_step=steps["rows"] / steps["steps"] if steps["steps"] else None,
+        seconds=time.perf_counter() - t0)
+
+
 def _shared_topology(rate):
-    """13c: the shared topology at half (a)'s rate and, when that is not
-    sustained (the funnel saturates first: rows past its retries fail
-    503), again at an eighth of it. Both workers must complete work in
-    the last attempt."""
+    """13c: the shared topology at `rate`, which must complete
+    every row (none failed on the funnel's retries); again at an eighth of
+    the rate only when it does not, for the record, before the phase
+    fails. Both workers must complete work in each attempt."""
     from openwhisk_tpu_torch.tools import loadgen
     attempts = [_shared_attempt(loadgen, rate)]
-    if not attempts[0]["sustained"]:
+    if not attempts[0]["completes_every_row"]:
         attempts.append(_shared_attempt(loadgen, rate / 8))
-    for w in attempts[-1]["per_worker"]:
-        require((w.get("throughput_per_sec") or 0) > 0,
-                f"loadgen: each shared worker completed work at "
-                f"{attempts[-1]['offered_rate']}/s: {w}")
-    return attempts
+    for a in attempts:
+        for w in a["per_worker"]:
+            require((w.get("throughput_per_sec") or 0) > 0,
+                    f"loadgen: each shared worker completed work at "
+                    f"{a['offered_rate']}/s: {w}")
+    first = attempts[0]
+    single = _single_at(loadgen, first["offered_rate"])
+    say("loadgen_single_at_shared_rate", **single,
+        funnel_rows_a_step=first["hop"]["rows_a_step"])
+    require(first["completes_every_row"],
+            f"loadgen: the shared funnel completed every row at "
+            f"{first['offered_rate']}/s, none failed on retry exhaustion: "
+            f"{first['completed']} of {first['offered']}, "
+            f"{first['rows_timed_out']} timed out")
+    return attempts, single
 
 
 @contextlib.contextmanager
@@ -7494,8 +7804,9 @@ def loadgen_phase(K):
     sweeps = _open_loop_sweep(K)
     cli = _loadgen_cli()
     say("loadgen_cli", **cli)
-    shared = _shared_topology(sweeps[-1]["sustained_activations_per_sec"]
-                              / 2)
+    shared, single = _shared_topology(max(
+        sweeps[-1]["sustained_activations_per_sec"] / 2,
+        LOADGEN_SHARED_FAULT_RATE))
     sims = _simulations(K)
     for row in sims:
         say("loadgen_simulation", **row)
@@ -7507,6 +7818,9 @@ def loadgen_phase(K):
     say("loadgen_warmhit", **wh)
     line = dict(
         sweep_invokers=[a["n_invokers"] for a in sweeps],
+        rows_a_step={"sweep": sweeps[-1]["rows_a_step"],
+                     "single_at_shared_rate": single["rows_a_step"],
+                     "funnel": [a["hop"]["rows_a_step"] for a in shared]},
         sustained_activations_per_sec=sweeps[-1][
             "sustained_activations_per_sec"],
         p50_ms=sweeps[-1]["p50_ms"], p99_ms=sweeps[-1]["p99_ms"],
@@ -7515,7 +7829,7 @@ def loadgen_phase(K):
         launches={"sweep": sweeps[-1]["launches"],
                   "funnel": {k: sum(a["funnel_launches"][k]
                                     for a in shared)
-                             for k in ("scan", "repair")},
+                             for k in ("scan", "repair", "release")},
                   "simulations": {r["simulation"]: r["launches"]
                                   for r in sims},
                   "placement_sweep": sweep["launches"],
@@ -7584,16 +7898,19 @@ def main():
 
     t0 = time.perf_counter()
     kres = kernel_phase(torch, P, K)
+    kres["release"] = release_phase(torch, P, K)
     say("kernel_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    summary, launches, profile, box, sbox = main_path_phase(torch, K, TB)
+    summary, launches, profile, box, sbox, rbox = main_path_phase(torch, K,
+                                                                  TB)
     say("main_phase", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     mk = main_path_kernel("repair", box, torch, P, K)
     sk = main_path_kernel("scan", sbox, torch, P, K)
-    del box, sbox
+    rk = main_path_release(rbox, torch, P, K)
+    del box, sbox, rbox
     serial_cost("repair", torch, P, K)
     sserial = serial_cost("scan", torch, P, K)
     barrier_cost(torch, K, _build)
@@ -7659,7 +7976,7 @@ def main():
         kind: {path: (sum(v[kind] for v in c.values())
                       if path == "simulations" else c[kind])
                for path, c in lg["launches"].items()}
-        for kind in ("scan", "repair")}
+        for kind in ("scan", "repair", "release")}
 
     scan = sk["plain"]
     rep = mk["plain"]
@@ -7753,6 +8070,20 @@ def main():
                            for lbl in ("prewarm_on", "prewarm_off")},
          "penalized_launches": quality["penalized_launches"]["repair"],
          "quality_penalized": quality["auto"]["kernel"]},
+        {"name": "release_fold", "route": "cuda",
+         "source": "openwhisk_tpu_torch/csrc/release_fold.cu",
+         "replaces": "openwhisk_tpu/ops/placement.py:589",
+         "replaces_note": "no Pallas kernel: the reference folds releases "
+                          "inside its XLA step (release_batch, and "
+                          "release_batch_vector at :600)",
+         "launches": launches["release"],
+         "max_abs_err": max(kres["release"]["err"], rk["max_abs_err"]),
+         "R": rk["R"], "valid_rows": rk["valid_rows"], "ms": rk["ms"],
+         "plain_ms": rk["plain_ms"], "vector_ms": rk["vector_ms"],
+         "bound_ms": rk["bound_ms"], "bound_by": rk["bound_by"],
+         "library_ms": None, "cases": kres["release"]["cases"],
+         "times": kres["release"]["times"],
+         "loadgen_launches": lg_launches["release"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

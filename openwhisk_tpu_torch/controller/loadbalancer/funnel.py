@@ -1,5 +1,13 @@
 """First-class front-end -> balancer admission funnel.
-A copy of `openwhisk_tpu/controller/loadbalancer/funnel.py`.
+A copy of `openwhisk_tpu/controller/loadbalancer/funnel.py`. Its named
+cuts keep one frame in flight on each side of the hop: the front end's
+rows admitted while a frame is on its way to the broker join one waiting
+frame, which is on the retry clock from its first row's admission and
+leaves when the frame in flight lands (or when its own timer fires
+first); the receiver ships each origin's outcome rows the same way. The
+reference ships a frame a wave and a frame a flush, each one broker round
+trip on one connection, so a busy broker queued them
+(`tests/test_torch_deploy.py` CUTS).
 
 The spillover plane proved the shape: a whole admission batch
 as ONE columnar frame on a peer's `ctrlspill<N>` topic. This module
@@ -201,6 +209,10 @@ class FunnelBalancer(LoadBalancer):
         self._active_ns: Dict[str, int] = {}
         self._feed: Optional[MessageFeed] = None
         self._closed = False
+        #: a wave's frame is on its way to the broker: the rows admitted
+        #: meanwhile join the frame that waits for it
+        self._shipping = False
+        self._next: Optional[_Frame] = None
         # counters (exported through the controller's MetricEmitter when
         # one is attached; always readable as attributes)
         self.rows_sent = 0
@@ -237,6 +249,7 @@ class FunnelBalancer(LoadBalancer):
             if frame.timer is not None:
                 frame.timer.cancel()
         self._frames.clear()
+        self._next = None
         for row in list(self._rows.values()):
             if not row.out.done():
                 row.out.set_exception(LoadBalancerException(
@@ -286,7 +299,13 @@ class FunnelBalancer(LoadBalancer):
                 self._rows[row.aid] = row
                 self._active_ns[row.ns] = self._active_ns.get(row.ns,
                                                               0) + 1
-            self._send_wave(accepted)
+            if self._next is not None:
+                self._next.rows.extend(accepted)
+                self.rows_sent += len(accepted)
+                if self.metrics is not None:
+                    self.metrics.counter("funnel_rows_sent", len(accepted))
+            else:
+                self._send_wave(accepted)
         return outs
 
     def _send_wave(self, rows: List[_Row]) -> None:
@@ -299,9 +318,30 @@ class FunnelBalancer(LoadBalancer):
         if self.metrics is not None:
             self.metrics.counter("funnel_rows_sent", len(rows))
             self.metrics.counter("funnel_frames_sent")
-        self._ship(frame)
+        if self._shipping:
+            # on the retry clock from now: a row waits no longer for its
+            # outcome than if its frame had left at once
+            self._next = frame
+            frame.timer = asyncio.get_event_loop().call_later(
+                self.config.retry_seconds, self._retry, frame.seq)
+        else:
+            self._shipping = True
+            self._ship(frame).add_done_callback(self._shipped)
 
-    def _ship(self, frame: _Frame) -> None:
+    def _shipped(self, _task: asyncio.Task) -> None:
+        """A wave's frame landed at the broker (or failed): the frame
+        that waited leaves, its timer left running. One frame in flight
+        keeps a busy broker's round trips from queueing behind each
+        other."""
+        self._shipping = False
+        if self._next is not None:
+            self._shipping = True
+            self._ship(self._next, arm=False).add_done_callback(
+                self._shipped)
+
+    def _ship(self, frame: _Frame, arm: bool = True) -> asyncio.Task:
+        if self._next is frame:
+            self._next = None  # sent: the next wave makes a new frame
         message = FunnelBatchMessage([r.msg for r in frame.rows],
                                      self.controller.instance, frame.seq,
                                      self.epoch)
@@ -321,10 +361,12 @@ class FunnelBalancer(LoadBalancer):
                                  f"funnel frame {frame.seq} send failed: "
                                  f"{e!r}", "Funnel")
 
-        self.sender.send_frame(funnel_topic(self.target), message,
-                               on_error=on_error)
-        frame.timer = asyncio.get_event_loop().call_later(
-            self.config.retry_seconds, self._retry, frame.seq)
+        task = self.sender.send_frame(funnel_topic(self.target), message,
+                                      on_error=on_error)
+        if arm:
+            frame.timer = asyncio.get_event_loop().call_later(
+                self.config.retry_seconds, self._retry, frame.seq)
+        return task
 
     def _retry(self, seq: int) -> None:
         frame = self._frames.get(seq)
@@ -482,6 +524,9 @@ class FunnelReceiver:
         self._origins: Dict[str, int] = {}
         self._ack_buf: Dict[int, List[FunnelOutcome]] = {}
         self._flush_armed = False
+        #: origins with an outcome frame on its way to the broker: their
+        #: next rows wait in the buffer and leave as one frame when it lands
+        self._sending: set = set()
         self.frames_received = 0
         self.rows_received = 0
         self.dup_rows = 0
@@ -674,9 +719,9 @@ class FunnelReceiver:
 
     def _flush(self) -> None:
         self._flush_armed = False
-        buf, self._ack_buf = self._ack_buf, {}
         epoch = self.current_epoch()
-        for origin, rows in buf.items():
+        for origin in [o for o in self._ack_buf if o not in self._sending]:
+            rows = self._ack_buf.pop(origin)
             topic = funnel_ack_topic(origin)
             self.sender.ensure_topic(topic, FUNNEL_RETENTION_BYTES)
             self.acks_sent += 1
@@ -690,9 +735,21 @@ class FunnelReceiver:
                         f"funnel ack frame to origin {_origin} failed: "
                         f"{e!r} (sender retry will replay)", "Funnel")
 
+            self._sending.add(origin)
             self.sender.send_frame(topic,
                                    FunnelAckMessage(origin, epoch, rows),
-                                   on_error=on_error)
+                                   on_error=on_error).add_done_callback(
+                partial(self._sent, origin))
+
+    def _sent(self, origin: int, _task: asyncio.Task) -> None:
+        """An origin's outcome frame landed (or failed): what its rows
+        earned meanwhile leaves as the next frame. One frame in flight an
+        origin keeps the round trips to the broker from queueing behind
+        each other when the loop is busy: the rows coalesce instead."""
+        self._sending.discard(origin)
+        if self._ack_buf.get(origin) and not self._flush_armed:
+            self._flush_armed = True
+            asyncio.get_event_loop().call_soon(self._flush)
 
     def export_gauges(self) -> dict:
         return {

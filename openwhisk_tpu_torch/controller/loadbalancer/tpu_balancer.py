@@ -95,7 +95,8 @@ from ...ops.anomaly import (S_EWMA_MS, S_STRAGGLER_FLAG, init_anomaly,
                             make_anomaly_step)
 from ...ops.decision_quality import (S_DIVERGENT, S_IMBALANCE_COV,
                                      S_REGRET_SUM_MS, pad_quality_state)
-from ...ops.placement import (PlacementState, empty_books_like, init_state,
+from ...ops.placement import (PlacementState, RequestBatch,
+                              empty_books_like, init_state,
                               make_fused_admit_step_packed,
                               make_fused_step_packed, make_release_packed,
                               make_shadow_admit_step_packed,
@@ -104,7 +105,7 @@ from ...ops.placement import (PlacementState, empty_books_like, init_state,
                               schedule_batch, schedule_batch_repair,
                               set_health, unpack_chosen, unpack_step_output)
 from ...ops import placement_cuda
-from ...ops.placement_cuda import (schedule_batch_cuda,
+from ...ops.placement_cuda import (release_batch_cuda, schedule_batch_cuda,
                                    schedule_batch_repair_cuda,
                                    to_transposed)
 from ...ops.profiler import pow2_statics
@@ -303,25 +304,54 @@ def _check_kernel(placement_kernel: str) -> None:
                          f"{placement_kernel!r}")
 
 
+def _scan_valid(state, batch, penalty=None):
+    """`schedule_batch` over the batch's valid rows alone, scattered back
+    into the bucket (an invalid row places nothing: -1, not forced, the
+    books untouched). The plain scan visits every row with a row's worth of
+    small ops, so on the CPU balancer a bucket's padding cost its loop as
+    much as a request. Bit-exact with `schedule_batch`."""
+    b = batch.valid.shape[0]
+    rows = torch.nonzero(batch.valid).flatten()
+    if rows.numel() == b:
+        return schedule_batch(state, batch, penalty)
+    state, c, f = schedule_batch(
+        state, RequestBatch(*(col[rows] for col in batch)), penalty)
+    chosen = torch.full((b,), -1, dtype=torch.int32)
+    forced = torch.zeros((b,), dtype=torch.bool)
+    chosen[rows], forced[rows] = c, f
+    return state, chosen, forced
+
+
+def _release_valid(state, inv, slot, need_mb, max_conc, valid):
+    """`release_batch` over the valid rows alone, in order (an invalid row
+    folds nothing): the CPU balancer's fold, as `_scan_valid`."""
+    rows = torch.nonzero(valid).flatten()
+    if rows.numel() == valid.shape[0]:
+        return release_batch(state, inv, slot, need_mb, max_conc, valid)
+    return release_batch(state, inv[rows], slot[rows], need_mb[rows],
+                         max_conc[rows], valid[rows])
+
+
 def _torch_pair(placement_kernel: str):
     """(schedule_fn, release_fn, resolved_kernel) of plain torch ops: the
     counterpart of the JAX package's `_xla_pair`. "scan" and "repair" pin
     one pair; "auto" picks per bucket: scan below REPAIR_MIN_BATCH, repair
-    at and above it, for the schedule and the release fold alike."""
+    at and above it, for the schedule and the release fold alike. The
+    sequential loops skip a bucket's padding (`_scan_valid`)."""
     _check_kernel(placement_kernel)
     if placement_kernel == "repair":
         return schedule_batch_repair, release_batch_vector, "repair"
     if placement_kernel == "scan":
-        return schedule_batch, release_batch, "scan"
+        return _scan_valid, _release_valid, "scan"
 
     def auto_schedule(state, batch):
         if batch.valid.shape[0] >= REPAIR_MIN_BATCH:
             return schedule_batch_repair(state, batch)
-        return schedule_batch(state, batch)
+        return _scan_valid(state, batch)
 
     def auto_release(state, inv, slot, need_mb, max_conc, valid):
         fn = (release_batch_vector if inv.shape[0] >= REPAIR_MIN_BATCH
-              else release_batch)
+              else _release_valid)
         return fn(state, inv, slot, need_mb, max_conc, valid)
 
     return auto_schedule, auto_release, "repair"
@@ -342,24 +372,30 @@ def _sched_repair(st, batch, penalty=None):
     return to_transposed(ts), chosen, forced, rounds
 
 
+def _release_fold(st, inv, slot, need_mb, max_conc, valid):
+    """The release kernel on the books' [N, A] view."""
+    return release_batch_cuda(st, inv, slot, need_mb, max_conc, valid)
+
+
 def _cuda_pair(placement_kernel: str):
     """(schedule_fn, release_fn, resolved_kernel) with the schedule on the
     CUDA kernels: the counterpart of `_pallas_pair`, same scan|repair|auto
-    meaning and the same per-bucket branch. The release folds are plain
-    torch ops on the card."""
+    meaning and the same per-bucket branch. The release fold is one launch
+    of the release kernel at every bucket (bit-exact with both plain folds):
+    in torch ops it held the event loop for milliseconds a step, and at 32
+    rows and more read the residue back on the host."""
     _check_kernel(placement_kernel)
     if placement_kernel == "scan":
-        return _sched_scan, release_batch, "scan"
+        return _sched_scan, _release_fold, "scan"
     if placement_kernel == "repair":
-        return _sched_repair, release_batch_vector, "repair"
+        return _sched_repair, _release_fold, "repair"
 
     def auto_schedule(state, batch):
         if batch.valid.shape[0] >= REPAIR_MIN_BATCH:
             return _sched_repair(state, batch)
         return _sched_scan(state, batch)
 
-    _, auto_release, _ = _torch_pair("auto")
-    return auto_schedule, auto_release, "repair"
+    return auto_schedule, _release_fold, "repair"
 
 
 def device_pair(device: torch.device, placement_kernel: str):

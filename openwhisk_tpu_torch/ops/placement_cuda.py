@@ -9,14 +9,21 @@ The counterpart of `openwhisk_tpu/ops/placement_pallas.py`:
   `schedule_batch_repair_cuda` — csrc/placement_repair.cu, speculate-and-
                                  repair on a persistent cooperative grid
                                  (replaces `schedule_batch_repair_pallas`)
+  `release_batch_cuda`         — csrc/release_fold.cu, the release fold in
+                                 one launch (replaces no Pallas kernel: the
+                                 JAX package folds releases inside its XLA
+                                 step; in torch ops the fold cost the loop
+                                 milliseconds a step)
 
-Both take the state in the kernel layout (`to_transposed`: conc as [A, N],
-read through its strides, so one slot's row is contiguous) and keep the
-Pallas functions' contracts: (state, chosen, forced) for the scan and
-(state, chosen, forced, rounds) for the repair, bit-exact with the plain
-`schedule_batch` / `schedule_batch_repair` in ops/placement.py. The books
-are updated IN PLACE (the Pallas kernels aliased them); `penalty` is an
-optional int32[N] passed to the kernel as a nullable pointer.
+The schedules take the state in the kernel layout (`to_transposed`: conc
+as [A, N], read through its strides, so one slot's row is contiguous) and
+keep the Pallas functions' contracts: (state, chosen, forced) for the scan
+and (state, chosen, forced, rounds) for the repair, bit-exact with the
+plain `schedule_batch` / `schedule_batch_repair` in ops/placement.py;
+`penalty` is an optional int32[N] passed to the kernel as a nullable
+pointer. The release fold takes the books' [N, A] view and R release rows,
+bit-exact with `release_batch`. The books are updated IN PLACE (the Pallas
+kernels aliased them).
 
 For a CUDA tensor a wrapper launches its kernel or raises; it takes the
 plain version only for tensors on the CPU. Each wrapper counts its
@@ -39,8 +46,8 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
-from .placement import (I32, PlacementState, RequestBatch, schedule_batch,
-                        schedule_batch_repair)
+from .placement import (I32, PlacementState, RequestBatch, release_batch,
+                        schedule_batch, schedule_batch_repair)
 
 #: per-row shared memory of the repair kernel (REPAIR_ROW_INTS +
 #: LIST_ROW_INTS int32s in csrc/placement_repair.cu), its per-row scratch in
@@ -70,6 +77,9 @@ _SIGNATURES = {
                [_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _LL, _LL, _INT, _INT,
                 _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                 ctypes.POINTER(_INT)]),
+    "release": ("release_fold", "release_fold_launch",
+                [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
+                 _VOIDP, _LL, _LL, _INT, _INT, _VOIDP]),
 }
 _launchers: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -293,6 +303,45 @@ schedule_batch_repair_cuda.penalized_launches = 0
 schedule_batch_repair_cuda.grid = None
 
 
+def release_batch_cuda(state: PlacementState, inv, slot, need_mb, max_conc,
+                       valid) -> PlacementState:
+    """The release fold on the card (one launch of release_fold.cu, no host
+    read), bit-exact with `release_batch`; books in the standard [N, A]
+    layout, updated in place. Rows: int32[R] columns and a bool[R] valid
+    mask on the books' device. Raises for what the kernel does not take
+    and for a launch the card refuses."""
+    if not state.free_mb.is_cuda:
+        return release_batch(state, inv, slot, need_mb, max_conc, valid)
+    free, conc = state.free_mb, state.conc_free
+    dev = free.device
+    n = free.shape[0]
+    if (free.dtype != I32 or not free.is_contiguous() or conc.dtype != I32
+            or conc.dim() != 2 or conc.shape[0] != n or conc.device != dev):
+        raise ValueError("books must be int32 free[N] (contiguous) and "
+                         f"conc[N={n}, A] on one device")
+    r = valid.shape[0]
+    cols = [c.contiguous() for c in (inv, slot, need_mb, max_conc)]
+    for c in cols:
+        if c.device != dev or c.dtype != I32 or c.shape != (r,):
+            raise ValueError(f"release columns must be int32[{r}] on {dev}")
+    if valid.device != dev or valid.dtype != torch.bool or valid.shape != (r,):
+        raise ValueError(f"valid must be bool[{r}] on {dev}")
+    valid = valid.contiguous()
+    rc = _launcher("release")(
+        *(c.data_ptr() for c in cols), valid.data_ptr(), r, free.data_ptr(),
+        conc.data_ptr(), conc.stride(0), conc.stride(1), n, conc.shape[1],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"release_fold launch failed: CUDA error {rc}")
+    if r and _counts():
+        release_batch_cuda.launches += 1
+    return state
+
+
+release_batch_cuda.launches = 0
+
+
 def reset_launch_counts() -> None:
     for fn in (schedule_batch_cuda, schedule_batch_repair_cuda):
         fn.launches = fn.penalized_launches = 0
+    release_batch_cuda.launches = 0

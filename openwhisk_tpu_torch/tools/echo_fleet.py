@@ -6,11 +6,24 @@ A copy of the three functions of the repository's `bench.py` that
 `bench.py` is copied. An echo invoker acks every activation at once over
 the coalesced ack batch (a straggler's acks wait `feed.delay` seconds
 first); an echo fleet is N of them plus a 1 Hz pinger.
+
+Its named cut: the pinger spreads each second's pings over the second,
+`PING_CHUNK` at a time. `bench.py`'s sends them all in one burst, and a
+health topic on the in-memory bus keeps the last 4,096 messages, so a
+fleet past 4,096 invokers never registered (the supervision saw only the
+burst's tail); a fleet of at most `PING_CHUNK` pings exactly as
+`bench.py`'s (`tests/test_torch_performance.py` ECHO_CUTS).
 """
 from __future__ import annotations
 
 import asyncio
 import time
+
+#: pings the pinger sends at once: far below what the in-memory bus's
+#: health topic keeps (messaging/memory.py DEFAULT_MAX_MESSAGES, 4,096),
+#: and few enough that the supervision drains a chunk between two of them
+#: within the load generator's 50 ms fire-lag bound
+PING_CHUNK = 256
 
 
 def _bench_action(name, memory=256):
@@ -121,15 +134,20 @@ async def _echo_fleet(provider, n_invokers, stragglers=None, on_frame=None):
                                          on_frame=on_frame))
         await producer.send("health", PingMessage(inst))
     stop_ping = asyncio.Event()
+    chunks = [instances[k:k + PING_CHUNK]
+              for k in range(0, len(instances), PING_CHUNK)]
 
     async def pinger():
         while not stop_ping.is_set():
-            for inst in instances:
-                await producer.send("health", PingMessage(inst))
-            try:
-                await asyncio.wait_for(stop_ping.wait(), 1.0)
-            except asyncio.TimeoutError:
-                pass
+            for chunk in chunks:
+                for inst in chunk:
+                    await producer.send("health", PingMessage(inst))
+                try:
+                    await asyncio.wait_for(stop_ping.wait(),
+                                           1.0 / len(chunks))
+                    return
+                except asyncio.TimeoutError:
+                    pass
 
     ping_task = asyncio.ensure_future(pinger())
 

@@ -422,7 +422,90 @@ CUTS = {
          '                     else "") + ")", flush=True)\n')],
     "utils/partitions.py": [],
     "controller/loadbalancer/partitions.py": [],
-    "controller/loadbalancer/funnel.py": [],
+    "controller/loadbalancer/funnel.py": [
+        ("the front end's frame in flight and the frame that waits",
+         "        self._closed = False\n", None,
+         "        self._closed = False\n"
+         "        self._shipping = False\n"
+         "        self._next: Optional[_Frame] = None\n"),
+        ("close drops the frame that waits (its rows fail with the rest)",
+         "        self._frames.clear()\n", None,
+         "        self._frames.clear()\n"
+         "        self._next = None\n"),
+        ("a wave joins the frame that waits",
+         "            self._send_wave(accepted)\n", None,
+         "            if self._next is not None:\n"
+         "                self._next.rows.extend(accepted)\n"
+         "                self.rows_sent += len(accepted)\n"
+         "                if self.metrics is not None:\n"
+         "                    self.metrics.counter(\"funnel_rows_sent\", "
+         "len(accepted))\n"
+         "            else:\n"
+         "                self._send_wave(accepted)\n"),
+        ("a frame waits while one is in flight, on the retry clock from "
+         "its admission, and leaves when that one lands",
+         "        self._ship(frame)\n\n"
+         "    def _ship(self, frame: _Frame) -> None:\n", None,
+         "        if self._shipping:\n"
+         "            self._next = frame\n"
+         "            frame.timer = asyncio.get_event_loop().call_later(\n"
+         "                self.config.retry_seconds, self._retry, frame.seq)\n"
+         "        else:\n"
+         "            self._shipping = True\n"
+         "            self._ship(frame).add_done_callback(self._shipped)\n"
+         "    def _shipped(self, _task: asyncio.Task) -> None:\n"
+         "        self._shipping = False\n"
+         "        if self._next is not None:\n"
+         "            self._shipping = True\n"
+         "            self._ship(self._next, arm=False).add_done_callback(\n"
+         "                self._shipped)\n"
+         "    def _ship(self, frame: _Frame, arm: bool = True) -> "
+         "asyncio.Task:\n"
+         "        if self._next is frame:\n"
+         "            self._next = None\n"),
+        ("_ship returns the send's task; the frame that waited keeps its "
+         "timer",
+         "        self.sender.send_frame(funnel_topic(self.target), message,\n"
+         "                               on_error=on_error)\n"
+         "        frame.timer = asyncio.get_event_loop().call_later(\n"
+         "            self.config.retry_seconds, self._retry, frame.seq)\n",
+         None,
+         "        task = self.sender.send_frame(funnel_topic(self.target), "
+         "message,\n"
+         "                                      on_error=on_error)\n"
+         "        if arm:\n"
+         "            frame.timer = asyncio.get_event_loop().call_later(\n"
+         "                self.config.retry_seconds, self._retry, frame.seq)\n"
+         "        return task\n"),
+        ("one outcome frame in flight an origin",
+         "        self._flush_armed = False\n", None,
+         "        self._flush_armed = False\n"
+         "        self._sending: set = set()\n"),
+        ("the flush skips an origin whose frame is in flight",
+         "        buf, self._ack_buf = self._ack_buf, {}\n"
+         "        epoch = self.current_epoch()\n"
+         "        for origin, rows in buf.items():\n", None,
+         "        epoch = self.current_epoch()\n"
+         "        for origin in [o for o in self._ack_buf if o not in "
+         "self._sending]:\n"
+         "            rows = self._ack_buf.pop(origin)\n"),
+        ("the rows that waited leave when the frame lands",
+         "            self.sender.send_frame(topic,\n"
+         "                                   FunnelAckMessage(origin, epoch, "
+         "rows),\n"
+         "                                   on_error=on_error)\n", None,
+         "            self._sending.add(origin)\n"
+         "            self.sender.send_frame(topic,\n"
+         "                                   FunnelAckMessage(origin, epoch, "
+         "rows),\n"
+         "                                   on_error=on_error)"
+         ".add_done_callback(\n"
+         "                partial(self._sent, origin))\n"
+         "    def _sent(self, origin: int, _task: asyncio.Task) -> None:\n"
+         "        self._sending.discard(origin)\n"
+         "        if self._ack_buf.get(origin) and not self._flush_armed:\n"
+         "            self._flush_armed = True\n"
+         "            asyncio.get_event_loop().call_soon(self._flush)\n")],
     "controller/loadbalancer/spillover.py": [],
     "edge/__init__.py": [],
     "edge/__main__.py": [],

@@ -364,7 +364,7 @@ def test_prewarm_builds_and_loads_every_kernel_off_the_caller(
     assert time.monotonic() - t0 < 0.5
     assert K.prewarm() is job
     job.result(timeout=300)
-    assert set(K._launchers) == {"scan", "repair"}
+    assert set(K._launchers) == {"scan", "repair", "release"}
     new = kernel_builds()[seen:]
     assert {(b["source"], b["how"]) for b in new} == {
         (s, h) for s in K.SOURCES for h in ("nvcc", "load")}
