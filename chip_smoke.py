@@ -17,9 +17,13 @@ Phases, each reported on its own line:
               forced, rounds, free and conc. Times from CUDA events at
               B = 16 / 256 on memory-dominant traffic, with and without the
               penalty. The release fold (csrc/release_fold.cu) at R in
-              {8, 16, 32, 256, 1,024} rows against both plain folds
+              {8, 16, 32, 256, 1,024, 1,500} rows against both plain folds
               (`release_batch`, `release_batch_vector`), bit-exact in free
-              and conc, each R timed beside its byte bound.
+              and conc (three seeds at each R), each R timed
+              beside its byte bound, its device time (profiler) and the
+              floor: one empty kernel launched through the same ctypes
+              path on the same stream just before (both behind the
+              books' restore); the plain folds timed up to 256 rows.
   4. main     `BalancerCore(device="cuda")` over 10,000 invokers of
               8,192 MB (managed 0.9 / blackbox 0.1, max_batch 256,
               action_slots 4096): warm-up, full 256-row batches of a
@@ -161,7 +165,10 @@ Phases, each reported on its own line:
               launched; then one fused step of 256 rows on the mesh and
               on one device: equal, with its device events (profiler),
               host syncs and CUDA-event time each, and the bytes of one
-              shard. (b) "front": phase 7's front at 20 waves and a
+              shard; the mesh's release fold is one release-kernel launch
+              a shard with no host sync (the fused step's and the
+              release-only fold's, counted apart from the placement
+              kernels). (b) "front": phase 7's front at 20 waves and a
               6-step trickle through `TpuBalancer(fleet_mesh=True,
               fleet_shards=8)` with a journal, and through the
               single-device card balancer: step p50/p99 of each; the mesh
@@ -761,8 +768,9 @@ def main_path_kernel(kind, box, torch, P, K):
     return out
 
 
-#: the release fold's cases at the main path's geometry: rows a fold
-RELEASE_ROWS = (8, 16, 32, 256, 1024)
+#: the release fold's cases at the main path's geometry: rows a fold (1,500
+#: crosses the kernel's 1,024-row chunk)
+RELEASE_ROWS = (8, 16, 32, 256, 1024, 1500)
 
 
 def release_rows(r, seed, n, a, torch):
@@ -820,17 +828,56 @@ def release_times(books, rows, P, K, torch, reps=10):
         work.free_mb.copy_(books[0])
         work.conc_free.copy_(books[1])
 
+    # the floor timed as the fold is: behind the books' restore, which
+    # keeps the card busy while the host issues the launch
+    floor_ms = time_ms(K.empty_launch_cuda, restore, torch, reps=reps)
     ms = time_ms(lambda: K.release_batch_cuda(work, *rows), restore, torch,
                  reps=reps)
-    plain_ms = time_ms(lambda: P.release_batch(work, *rows), restore, torch,
-                       reps=3)
-    vector_ms = time_ms(lambda: P.release_batch_vector(work, *rows), restore,
-                        torch, reps=3)
+    device_us = kernel_device_us(lambda: K.release_batch_cuda(work, *rows),
+                                 restore, "release_fold_kernel", torch)
+    # the plain folds repeat the kernel's arithmetic in torch ops (the
+    # per-row one about 0.7 ms a row): timed up to 256 rows, the main
+    # path's bucket; past it only held against the kernel
+    plain_ms = vector_ms = None
+    if len(rows[0]) <= 256:
+        plain_ms = time_ms(lambda: P.release_batch(work, *rows), restore,
+                           torch, reps=3)
+        vector_ms = time_ms(lambda: P.release_batch_vector(work, *rows),
+                            restore, torch, reps=3)
     nbytes = release_bytes(rows)
     bound_ms, bound_by = bound(nbytes, len(rows[0]))
     return dict(R=len(rows[0]), valid_rows=int(rows[4].sum()), ms=ms,
-                plain_ms=plain_ms, vector_ms=vector_ms, bytes=nbytes,
-                bound_ms=bound_ms, bound_by=bound_by)
+                floor_ms=floor_ms, device_us=device_us, plain_ms=plain_ms,
+                vector_ms=vector_ms, bytes=nbytes, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def kernel_device_us(fn, restore, match, torch, reps=10):
+    """Median device time in microseconds of the kernel whose name holds
+    `match`, one fn() a rep under torch.profiler (restore() between)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILE_ACTIVITIES) as prof:
+        for _ in range(reps):
+            restore()
+            fn()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == cuda_t and match in e.name]
+    return float(np.median(us)) if us else None
+
+
+def launch_floor(times, torch, K):
+    """The practical floor under a fold: one empty kernel launched through
+    the same ctypes path on the same stream, CUDA-event timed as the fold
+    is (behind the books' restore) right before each R's fold (`ms`: their
+    median; `ms_by_R`), and its device time (`device_us`)."""
+    by_r = {k: v["floor_ms"] for k, v in times.items()}
+    return dict(ms=float(np.median(list(by_r.values()))), ms_by_R=by_r,
+                device_us=kernel_device_us(K.empty_launch_cuda,
+                                           lambda: None, "empty_kernel",
+                                           torch))
 
 
 def release_phase(torch, P, K):
@@ -857,6 +904,8 @@ def release_phase(torch, P, K):
                             P, K, torch)
         out["times"][f"R{r}"] = row
         say("kernel_time", kernel="release", **row)
+    out["launch_floor"] = launch_floor(out["times"], torch, K)
+    say("kernel_time", kernel="empty_launch", **out["launch_floor"])
     return out
 
 
@@ -2846,6 +2895,7 @@ def _mesh_ops(torch, P, K, TB, FM, SS, mesh):
         lambda: fused(box["mesh"], buf, r, h, b))
     step_launches = (K.schedule_batch_cuda.launches
                      + K.schedule_batch_repair_cuda.launches)
+    release_launches = K.release_batch_cuda.launches
     g = SS.gather_state(box["mesh"])
     step_err = _max_err([(o1, o2), (box["one"].free_mb, g.free_mb),
                          (box["one"].conc_free, g.conc_free),
@@ -2853,6 +2903,15 @@ def _mesh_ops(torch, P, K, TB, FM, SS, mesh):
     reset()
     _, syncs_one = _count_syncs(lambda: one(box["one"], buf, r, h, b))
     _, syncs_mesh = _count_syncs(lambda: fused(box["mesh"], buf, r, h, b))
+    # the mesh's release fold alone (the packed release-only fold over the
+    # same rows): its launches, host syncs and device events
+    fold = FM.make_fleet_release_packed(mesh, release)
+    reset()
+    K.reset_launch_counts()
+    _, syncs_fold = _count_syncs(lambda: fold(box["mesh"], rel))
+    fold_launches = K.release_batch_cuda.launches
+    reset()
+    _, ev_fold = _launch_census(lambda: fold(box["mesh"], rel))
     one_ms = time_ms(lambda: one(box["one"], buf, r, h, b), reset, torch,
                      reps=9)
     mesh_ms = time_ms(lambda: fused(box["mesh"], buf, r, h, b), reset,
@@ -2861,6 +2920,11 @@ def _mesh_ops(torch, P, K, TB, FM, SS, mesh):
             f"7m(a): the mesh's fused step equals the single device's "
             f"(max_abs_err {step_err}) with no placement kernel launched "
             f"({step_launches})")
+    require(DEVICE != "cuda" or (release_launches == fold_launches == MESH_S
+                                 and syncs_fold == 0),
+            f"7m(a): the mesh's release fold is one release launch a shard "
+            f"(fused step {release_launches}, fold {fold_launches}, "
+            f"{MESH_S} shards) with no host sync ({syncs_fold})")
     shard = SS.shard_state(state, mesh).shards[0]
     return dict(cases_s=cases_s, fused_s=time.perf_counter() - t0,
                 cases=n_cases, max_abs_err=err, rounds_equal=rounds_equal,
@@ -2870,7 +2934,11 @@ def _mesh_ops(torch, P, K, TB, FM, SS, mesh):
                     device_events={"mesh": ev_mesh, "single": ev_one},
                     host_syncs={"mesh": syncs_mesh, "single": syncs_one},
                     ms={"mesh": mesh_ms, "single": one_ms},
-                    placement_kernel_launches={"mesh": step_launches}),
+                    placement_kernel_launches={"mesh": step_launches},
+                    release_launches={"mesh": release_launches},
+                    release_fold=dict(launches=fold_launches,
+                                      host_syncs=syncs_fold,
+                                      device_events=ev_fold)),
                 shard_bytes=sum(t.numel() * t.element_size() for t in shard),
                 shard_rows=shard.free_mb.shape[0])
 
@@ -7791,9 +7859,10 @@ def _warmhit(K):
             and out["kernel_warm_rate"] == out["oracle_warm_rate"],
             f"loadgen: warm-hit parity 1.0, the kernel's warm rate the "
             f"oracle's: {out}")
-    require(DEVICE != "cuda" or launches["repair"] > 0,
-            f"loadgen: warmhit's 128-row rounds launched the repair: "
-            f"{launches}")
+    require(DEVICE != "cuda" or (launches["repair"] > 0
+                                 and launches["release"] > 0),
+            f"loadgen: warmhit's 128-row rounds launched the repair and "
+            f"its churn the release kernel: {launches}")
     return dict(out, launches=launches, seconds=time.perf_counter() - t0)
 
 
@@ -8082,7 +8151,11 @@ def main():
          "plain_ms": rk["plain_ms"], "vector_ms": rk["vector_ms"],
          "bound_ms": rk["bound_ms"], "bound_by": rk["bound_by"],
          "library_ms": None, "cases": kres["release"]["cases"],
+         "device_us": rk["device_us"],
+         "launch_floor": kres["release"]["launch_floor"],
          "times": kres["release"]["times"],
+         "mesh_fused_step_launches":
+             mesh["ops"]["fused_step"]["release_launches"]["mesh"],
          "loadgen_launches": lg_launches["release"]},
     ]
     print(json.dumps({"kernels": kernels}))

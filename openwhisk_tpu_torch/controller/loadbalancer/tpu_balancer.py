@@ -2417,16 +2417,16 @@ class TpuBalancer(CommonLoadBalancer):
         """The early build on a daemon worker thread: the process's kernel
         build and load (`placement_cuda.prewarm`, shared by every balancer
         of the process), then this balancer's warm steps. A mesh launches
-        no CUDA placement kernel, so it builds nothing and only warms its
-        sharded step."""
-        build = placement_cuda.prewarm() if self.mesh is None else None
+        no CUDA placement kernel, but its release folds launch the release
+        kernel once a shard, so it waits for the same build and then warms
+        its sharded step."""
+        build = placement_cuda.prewarm()
         job: concurrent.futures.Future = concurrent.futures.Future()
         job.set_running_or_notify_cancel()
 
         def run():
             try:
-                if build is not None:
-                    build.result()
+                build.result()
                 self._warm_steps()
             except BaseException as e:  # noqa: BLE001 — to the waiters
                 job.set_exception(e)

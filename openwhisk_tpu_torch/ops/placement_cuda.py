@@ -30,6 +30,10 @@ plain version only for tensors on the CPU. Each wrapper counts its
 launches in `.launches`, and of them the launches that carry a penalty
 (the quality plane's shadow pass) in `.penalized_launches`.
 
+`empty_launch_cuda` is a measurement hook, not part of any path: it
+launches an empty kernel from the release kernel's library through the
+same ctypes path, the floor that a fold's launch is timed against.
+
 A kernel is built (nvcc) and loaded at its first launch, or ahead of it by
 `prewarm()`: one worker-thread job a process that builds both sources,
 loads them and resolves each launcher (the balancer's early build, which
@@ -80,11 +84,15 @@ _SIGNATURES = {
     "release": ("release_fold", "release_fold_launch",
                 [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
                  _VOIDP, _LL, _LL, _INT, _INT, _VOIDP]),
+    "empty": ("release_fold", "release_fold_empty_launch", [_VOIDP]),
 }
 _launchers: Dict[str, ctypes._CFuncPtr] = {}
 
 #: the csrc sources of the kernels, for a caller that builds them up front
-SOURCES = tuple(sig[0] for sig in _SIGNATURES.values())
+SOURCES = tuple(dict.fromkeys(sig[0] for sig in _SIGNATURES.values()))
+#: the release kernel keys a concurrency row by its cell, inv * A + slot,
+#: in 53 bits (NO_CELL in csrc/release_fold.cu)
+RELEASE_MAX_CELLS = 1 << 53
 
 
 def fits_scan(n: int) -> bool:
@@ -326,11 +334,18 @@ def release_batch_cuda(state: PlacementState, inv, slot, need_mb, max_conc,
             raise ValueError(f"release columns must be int32[{r}] on {dev}")
     if valid.device != dev or valid.dtype != torch.bool or valid.shape != (r,):
         raise ValueError(f"valid must be bool[{r}] on {dev}")
+    if n * conc.shape[1] >= RELEASE_MAX_CELLS:
+        raise ValueError(f"books of {n} x {conc.shape[1]} cells exceed the "
+                         f"release kernel's {RELEASE_MAX_CELLS} cell keys")
     valid = valid.contiguous()
-    rc = _launcher("release")(
-        *(c.data_ptr() for c in cols), valid.data_ptr(), r, free.data_ptr(),
-        conc.data_ptr(), conc.stride(0), conc.stride(1), n, conc.shape[1],
-        torch.cuda.current_stream(dev).cuda_stream)
+    # a mesh's shards may sit on other cards than the current one: the
+    # launch goes to the books' card
+    with _on_card(dev):
+        rc = _launcher("release")(
+            *(c.data_ptr() for c in cols), valid.data_ptr(), r,
+            free.data_ptr(), conc.data_ptr(), conc.stride(0),
+            conc.stride(1), n, conc.shape[1],
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"release_fold launch failed: CUDA error {rc}")
     if r and _counts():
@@ -339,6 +354,25 @@ def release_batch_cuda(state: PlacementState, inv, slot, need_mb, max_conc,
 
 
 release_batch_cuda.launches = 0
+
+
+def _on_card(dev: torch.device):
+    """The device guard for a launch on `dev`: none when it is current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def empty_launch_cuda(device=None) -> None:
+    """One launch of an empty kernel from the release kernel's library, on
+    the current stream of `device` (default: the current card), through
+    the same ctypes path as the fold: the floor under a fold's launch.
+    Counts nothing."""
+    dev = torch.device(device if device is not None else "cuda")
+    with _on_card(dev):
+        rc = _launcher("empty")(torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty launch failed: CUDA error {rc}")
 
 
 def reset_launch_counts() -> None:

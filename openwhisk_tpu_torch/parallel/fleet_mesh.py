@@ -20,13 +20,12 @@ single-controller mesh (`sharded_state.FleetMesh`):
                          it owns. Decisions, books AND round counts equal
                          the single-device repair's.
   * `make_fleet_release_vector`
-                       — `release_batch_vector` on every shard over the
-                         rows it owns. A (invoker, slot) group lives on one
-                         shard, so the single-device exactness argument
-                         carries over. No exchange. The port's
-                         `release_batch_vector` reads its heterogeneous
-                         residue on the host once a call, so a step pays S
-                         such reads.
+                       — the release fold on every shard over the rows it
+                         owns: on a card one launch of the release kernel
+                         a shard (no host read), on the CPU
+                         `release_batch_vector`. A (invoker, slot) group
+                         lives on one shard, so the single-device
+                         exactness argument carries over. No exchange.
   * `fleet_pair`       — the (schedule, release, resolved) selector, with
                          the placement-kernel knob's meaning: scan | repair
                          | auto (the scan below `repair_min_batch` rows,
@@ -37,8 +36,10 @@ single-controller mesh (`sharded_state.FleetMesh`):
     the health fold is owner-masked; admission's token buckets stay on the
     lead device; the one packed int32[B+1] output lands there.
 
-Every op here is a plain torch op: the mesh runs no hand-written kernel,
-as the JAX package's mesh runs no Pallas.
+Every op here is a plain torch op but the release folds, which on a card
+launch the release kernel once a shard (`sharded_state.owned_release`), as
+the single-device step does: the mesh runs no placement kernel, as the JAX
+package's mesh runs no Pallas.
 """
 from __future__ import annotations
 
@@ -52,8 +53,8 @@ from ..ops.placement import (I32, PlacementState, RequestBatch, _mulmod,
                              resolve_device, shadow_books)
 from .sharded_state import (FleetMesh, Replicas, ShardedState, elect,
                             local_argmin, make_mesh, make_sharded_release,
-                            make_sharded_schedule, owner_rows, shard_state,
-                            _owned_release_args)
+                            make_sharded_schedule, owned_release,
+                            owner_rows, shard_state)
 
 #: the production mesh axis name (sharded_state's prototype used "inv")
 FLEET_AXIS = "fleet"
@@ -243,19 +244,13 @@ def make_fleet_repair_schedule(mesh: FleetMesh, penalized: bool = False):
 
 
 def make_fleet_release_vector(mesh: FleetMesh):
-    """Owner-masked `release_batch_vector` over the mesh: every shard runs
-    the group-by math with the rows it does not own masked invalid. A
-    group's rows share one invoker, hence one shard, so the batch order
-    inside a group — the only order that matters — is kept. No
-    exchange."""
-
-    def release(state: ShardedState, inv, slot, need_mb, max_conc, valid):
-        for args in _owned_release_args(mesh, state, inv, slot, need_mb,
-                                        max_conc, valid):
-            release_batch_vector(*args)
-        return state
-
-    return release
+    """The owner-masked release fold of the repair family: on CPU books
+    `release_batch_vector` on every shard, with the rows it does not own
+    masked invalid; on a card one launch of the release kernel a shard
+    (`sharded_state.owned_release`). A group's rows share one invoker,
+    hence one shard, so the batch order inside a group — the only order
+    that matters — is kept. No exchange."""
+    return owned_release(mesh, release_batch_vector)
 
 
 def _on_lead(mesh: FleetMesh, x):

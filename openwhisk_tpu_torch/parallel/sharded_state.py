@@ -36,6 +36,7 @@ import torch
 
 from ..ops.placement import (I32, PlacementState, _mulmod,
                              _slot_read_write, release_batch, resolve_device)
+from ..ops.placement_cuda import release_batch_cuda
 
 
 class Replicas(dict):
@@ -326,20 +327,31 @@ def _owned_release_args(mesh: FleetMesh, state: ShardedState, inv, slot,
         yield st, linv.to(I32), slot_d, need_d, maxc_d, valid_d & mine
 
 
-def make_sharded_release(mesh: FleetMesh):
-    """The sharded row-by-row release fold (`release_batch` on every
-    shard over the rows it owns): owner-masked, no exchange."""
+def owned_release(mesh: FleetMesh, plain):
+    """An owner-masked release fold over the mesh, no exchange: on every
+    shard, over the rows it owns, one launch of the release kernel
+    (`placement_cuda.release_batch_cuda`) where the shard's books are on a
+    card, and `plain` where they are on the CPU. A cell's rows share one
+    invoker, hence one shard, so the batch order within a cell is kept."""
 
     def release(state: ShardedState, inv, slot, need_mb, max_conc, valid):
         for args in _owned_release_args(mesh, state, inv, slot, need_mb,
                                         max_conc, valid):
-            release_batch(*args)
+            fold = release_batch_cuda if args[0].free_mb.is_cuda else plain
+            fold(*args)
         return state
 
     return release
 
 
+def make_sharded_release(mesh: FleetMesh):
+    """The sharded release fold of the scan family: on CPU books the
+    row-by-row `release_batch` on every shard, on a card the kernel
+    (`owned_release`)."""
+    return owned_release(mesh, release_batch)
+
+
 __all__ = ["FleetMesh", "Replicas", "ShardedState", "make_mesh",
            "shard_state", "gather_state", "sharded_set_health",
            "sharded_set_free", "make_sharded_schedule",
-           "make_sharded_release"]
+           "owned_release", "make_sharded_release"]

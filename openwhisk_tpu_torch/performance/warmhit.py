@@ -5,8 +5,10 @@ port. Its named cuts: `simulate(..., device=)` holds the books and the
 request columns as torch tensors on `device` (None = the CUDA card) and
 schedules each round through the balancer's own choice of kernel
 (`_schedule`): the scan kernel below `REPAIR_MIN_BATCH` rows, the repair
-kernel at or above it, whose wrappers take the plain versions only for
-tensors on the CPU. The returned dict is the reference's, key for key.
+kernel at or above it; the churn's releases fold through the release
+kernel (`release_batch_cuda`). The wrappers take the plain versions only
+for tensors on the CPU. The returned dict is the reference's, key for
+key.
 
 BASELINE.json's quality bar is >= 95% warm-hit parity with
 ShardingContainerPoolBalancer. This tool measures it directly: a simulated
@@ -59,7 +61,8 @@ def simulate(n_invokers: int, rounds: int, batch: int, n_actions: int = 32,
                                                       generate_hash, release,
                                                       schedule)
     from openwhisk_tpu_torch.ops.placement import (RequestBatch, init_state,
-                                             release_batch, resolve_device)
+                                             resolve_device)
+    from openwhisk_tpu_torch.ops.placement_cuda import release_batch_cuda
 
     dev = resolve_device(device)
 
@@ -141,8 +144,8 @@ def simulate(n_invokers: int, rounds: int, batch: int, n_actions: int = 32,
             maxc = torch.ones((len(rel),), dtype=torch.int32, device=dev)
             valid = torch.tensor([kc >= 0 for _, _, kc in rel],
                                  dtype=torch.bool, device=dev)
-            kstate = release_batch(kstate, inv.clamp(min=0), slot, mem, maxc,
-                                   valid)
+            kstate = release_batch_cuda(kstate, inv.clamp(min=0), slot, mem,
+                                        maxc, valid)
 
     return {
         "metric": "warm_hit_parity",

@@ -989,6 +989,18 @@ async def _scenario(pkg, rate, grow, seed, ack_producer=None, setup=None,
                    initial_pad=INITIAL_PAD, placement_kernel="auto",
                    rate_limit_per_minute=rate)
     bal.supervision.ping_timeout = 3600.0  # no offline flips mid-run
+    if rate is not None:
+        # the admission clock pinned at every dispatch (`now` is read off
+        # `_t0_mono`, in both packages): the token buckets decide by the
+        # rows alone, not by how long a loaded core takes between waves
+        # (a run 15 s slower refills a bucket by one token at 4 a minute)
+        dispatch = bal._dispatch_batch
+
+        def pinned_dispatch():
+            bal._t0_mono = time.monotonic()
+            return dispatch()
+
+        bal._dispatch_batch = pinned_dispatch
     decisions = {}
     real_map = bal._map_placement
 

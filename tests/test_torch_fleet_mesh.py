@@ -187,6 +187,46 @@ def test_release_vector_parity_incl_conflation(meshes):
     _assert_same(*outs)
 
 
+@pytest.mark.parametrize("family,r", [("scan", 8), ("scan", 31),
+                                      ("repair", 32), ("repair", 96)])
+def test_cpu_mesh_release_runs_the_plain_folds(meshes, family, r,
+                                               monkeypatch):
+    """On CPU books each family's mesh fold runs its plain fold on every
+    shard (the row loop below 32 rows, the vector from 32 on; never the
+    card kernel's wrapper) and equals the JAX mesh's fold."""
+    jm, tm = meshes
+    if family == "scan":  # the scan pair's meshes: sharded_state's axis
+        jm, tm = JS.make_mesh(N_SHARDS), TS.make_mesh(N_SHARDS, device=CPU)
+    rng = np.random.RandomState(r)
+    n = 32
+    st = _dirty_state(rng, n)
+    cols = (rng.randint(0, n, r), rng.randint(0, 4, r),
+            rng.choice([128, 256], r), rng.choice([1, 2, 4, 6], r))
+    valid = rng.rand(r) > 0.15
+    jargs = [jnp.asarray(c, jnp.int32) for c in cols] + [jnp.asarray(valid)]
+    targs = [torch.from_numpy(np.asarray(c, np.int32)) for c in cols] + [
+        torch.from_numpy(valid)]
+    calls = []
+
+    def card(*_a):
+        raise AssertionError("the card's release kernel on CPU books")
+
+    monkeypatch.setattr(TS, "release_batch_cuda", card)
+    if family == "scan":
+        plain, mod = TS.release_batch, TS
+        ref = JS.make_sharded_release(jm)
+    else:
+        plain, mod = TF.release_batch_vector, TF
+        ref = JF.make_fleet_release_vector(jm)
+    monkeypatch.setattr(mod, plain.__name__,
+                        lambda *a: calls.append(1) or plain(*a))
+    port = (TS.make_sharded_release(tm) if family == "scan"
+            else TF.make_fleet_release_vector(tm))
+    _assert_same((ref(JS.shard_state(st, jm), *jargs),),
+                 (port(TS.shard_state(_port_state(st), tm), *targs),))
+    assert len(calls) == N_SHARDS
+
+
 def test_chained_steps_with_releases_parity(meshes):
     """Schedule, release what placed, schedule again on the dirtied books,
     four times: the production steady state."""

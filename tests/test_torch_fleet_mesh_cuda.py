@@ -10,7 +10,8 @@ Every shard of an 8-shard mesh sits on the card. The sharded scan, the
 sharded repair (plain and penalized) and the owner-masked release vector
 equal the single-device CUDA kernels (and the plain release vector) bit
 for bit — decisions, forced flags, rounds and books — and launch no
-placement kernel. A mesh balancer on the card places like the
+placement kernel. Both families' release folds launch the release kernel
+once a shard, with no host sync, and fold like the single-device kernel. A mesh balancer on the card places like the
 single-device card balancer, and its journal replays on the CPU mesh.
 """
 import asyncio
@@ -90,6 +91,41 @@ def test_sharded_ops_equal_the_kernels(kind, b):
            batch.need_mb, batch.max_conc, ok)
     T.release_batch_vector(single, *rel)
     FM.make_fleet_release_vector(mesh)(sharded, *rel)
+    assert _equal(single, sharded)
+
+
+@pytest.mark.parametrize("r", [8, 256, 1500])
+@pytest.mark.parametrize("family", ["scan", "repair"])
+def test_mesh_release_folds_launch_the_kernel_once_a_shard(family, r):
+    """Each family's mesh fold on card books: one release launch a shard,
+    no host sync, books equal to the single-device kernel's on the same
+    rows (cells crowded, some heterogeneous, a fifth invalid)."""
+    rng = np.random.RandomState(r)
+    n = 4096
+    books = T.placement_state_from_numpy(*random_books(n, rng),
+                                         device="cuda")
+    a = books.conc_free.shape[1]
+    cells = max(1, r // 3)
+    pool = np.stack([rng.randint(0, n, cells), rng.randint(0, a, cells)])
+    pick = rng.randint(0, cells, r)
+    maxc = rng.choice([1, 2, 3, 4, 8], r)
+    rows = [torch.from_numpy(c.astype(np.int32)).cuda() for c in (
+        pool[0, pick], pool[1, pick], rng.choice([128, 256, 512], r), maxc)]
+    rows.append(torch.from_numpy(rng.rand(r) > 0.2).cuda())
+    mesh = FM.make_fleet_mesh(S)
+    single, sharded = _clone(books), SS.shard_state(books, mesh)
+    K.release_batch_cuda(single, *rows)
+    fold = (SS.make_sharded_release(mesh) if family == "scan"
+            else FM.make_fleet_release_vector(mesh))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fold(sharded, *rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert K.release_batch_cuda.launches == S
     assert _equal(single, sharded)
 
 

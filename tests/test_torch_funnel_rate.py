@@ -16,8 +16,12 @@ receiver, one frame in flight at each front end.
 Each package's `FunnelReceiver` and `TpuBalancer` take the same fixed
 sequence of `fun1` frames in process (the same seed, activation ids,
 actions and 16 simulated invokers), one wave at a time: a frame, its
-placements, one batch of acks, its outcomes, then the next frame. No
-clock decides anything that is asserted. Asserted:
+placements and their outcomes sent, one batch of acks, its completion
+outcomes, then the next frame. No clock decides anything that is
+asserted: the acks wait for every placement outcome (an invoker can
+handle a row before the bus's flush resolves its placement, and on a
+loaded core an earlier ack interleaved the two kinds of outcome rows by
+the loop's timing). Asserted:
 
   * the same decisions (invoker a row) and the same outcome rows, in
     order, to each origin, in both packages; no more steps in the port
@@ -236,6 +240,16 @@ def _drive(S, monkeypatch):
                 assert await until(lambda: sum(
                     len(i.handled) for i in invokers) == handled), \
                     "placements did not reach the invokers"
+                want = {m.activation_id.asString for m in msgs}
+
+                def sent_with(code):
+                    done = {aid for _t, rows in sent for aid, c in rows
+                            if c == code}
+                    return want <= done and not recv._ack_buf
+
+                # the acks wait for every placement outcome (docstring)
+                assert await until(lambda: sent_with(S.Col.FUNNEL_PLACED)), \
+                    "placement outcomes were not sent"
                 acks, now = [], time.time()
                 for inv in invokers:
                     for m in inv.handled:
@@ -252,14 +266,9 @@ def _drive(S, monkeypatch):
                             m.transid, act, inv.instance))
                 acks.sort(key=lambda a: a.activation_id.asString)
                 bal.process_acknowledgements(acks)
-                want = {m.activation_id.asString for m in msgs}
-
-                def outcomes_sent():
-                    done = {aid for _t, rows in sent for aid, code in rows
-                            if code == S.Col.FUNNEL_COMPLETED}
-                    return want <= done and not recv._ack_buf
-
-                assert await until(outcomes_sent), "outcomes were not sent"
+                assert await until(
+                    lambda: sent_with(S.Col.FUNNEL_COMPLETED)), \
+                    "outcomes were not sent"
                 assert await until(lambda: not (
                     bal._pending or bal._inflight_steps or bal._readbacks
                     or bal._releases)), "the balancer did not drain"

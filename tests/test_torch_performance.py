@@ -308,11 +308,12 @@ COPIES = {
          "n_actions: int = 32,\n"
          "             seed: int = 11, device=None) -> dict:\n"
          "    import torch\n"),
-        _cut("the plain release and the device",
+        _cut("the release kernel and the device",
              "                                             release_batch, "
              "schedule_batch)\n",
-             "                                             release_batch, "
-             "resolve_device)\n\n    dev = resolve_device(device)\n"),
+             "                                             resolve_device)\n"
+             "    from openwhisk_tpu_torch.ops.placement_cuda import "
+             "release_batch_cuda\n\n    dev = resolve_device(device)\n"),
         _cut("the books on the device",
              "                        action_slots=max(64, n_actions))",
              "                        action_slots=max(64, n_actions), "
@@ -345,9 +346,9 @@ COPIES = {
          "device=dev)\n"
          "            valid = torch.tensor([kc >= 0 for _, _, kc in rel],\n"
          "                                 dtype=torch.bool, device=dev)\n"
-         "            kstate = release_batch(kstate, inv.clamp(min=0), slot, "
-         "mem, maxc,\n"
-         "                                   valid)\n"),
+         "            kstate = release_batch_cuda(kstate, inv.clamp(min=0), "
+         "slot, mem,\n"
+         "                                        maxc, valid)\n"),
         ("--device", "    args = ap.parse_args()\n",
          "                              args.actions)))",
          _DEVICE_ARG +

@@ -7,7 +7,10 @@
   (b) the early build's gate, with a fake build job of 1 s behind the
       balancer's future: flushes are deferred while it runs (no dispatch
       before the job completes), the rows are then placed in the order
-      they were published, and the event loop's lag stays under 0.1 s;
+      they were published, and the event loop's lag stays under 0.1 s
+      (the heap earlier tests left in the process frozen out of the
+      collector for the run: one full collection of it exceeds the bound
+      by itself);
   (c) a job that raises fails every dispatch, the ones queued behind it
       and every later one, and never reaches the schedule (on the card
       the plain version would be a fallback);
@@ -19,6 +22,8 @@ launcher resolved) is `tests/test_torch_placement_cuda.py`'s
 """
 import asyncio
 import concurrent.futures
+import contextlib
+import gc
 import threading
 import time
 
@@ -129,6 +134,21 @@ def _record_dispatches(bal, log):
     bal._dispatch_batch = wrapped
 
 
+@contextlib.contextmanager
+def _heap_frozen():
+    """The heap that earlier tests left in this process frozen out of the
+    collector (`utils/hostprof.tune_gc`'s freeze) for the block: a full
+    collection of it alone holds the loop 105-140 ms with both packages
+    imported, and over a second in a loaded test worker, whatever the
+    balancer does. Collections inside the block scan what the block makes."""
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
 def test_flushes_wait_for_the_build_off_the_loop_then_place_in_order():
     async def go():
         provider = MemoryMessagingProvider()
@@ -156,8 +176,9 @@ def test_flushes_wait_for_the_build_off_the_loop_then_place_in_order():
         await _stop(bal, invokers)
         return msgs, results, dispatches, done_at, lags
 
-    msgs, results, dispatches, done_at, lags = asyncio.run(
-        asyncio.wait_for(go(), 30))
+    with _heap_frozen():
+        msgs, results, dispatches, done_at, lags = asyncio.run(
+            asyncio.wait_for(go(), 30))
     assert all(r.response.is_success for r in results)
     assert dispatches and dispatches[0][0] >= done_at["t"], \
         "a dispatch ran before the build completed"
