@@ -108,7 +108,7 @@ from ...ops import placement_cuda
 from ...ops.placement_cuda import (release_batch_cuda, schedule_batch_cuda,
                                    schedule_batch_repair_cuda,
                                    to_transposed)
-from ...ops.profiler import pow2_statics
+from ...ops.profiler import pow2_statics, span
 from ...ops.telemetry import init_telemetry, record_packed
 from ...ops.throttle import init_buckets
 from ...parallel.fleet_mesh import (
@@ -523,8 +523,10 @@ class BalancerCore:
         self._rel_ring = ColumnRing(4, max_batch)
         self._releases: deque = deque()   # (slot_key, slot) per release
         self._health_updates: Dict[int, bool] = {}
+        #: releases_left: the releases still queued after each step's pack
+        #: (capacity that waits at least one more step), summed
         self.counters = {"steps": 0, "placed": 0, "forced": 0,
-                         "unplaced": 0}
+                         "releases_left": 0}
 
     # -- registry ----------------------------------------------------------
     @property
@@ -582,8 +584,10 @@ class BalancerCore:
     _bucket = staticmethod(bucket)
 
     def _release_packed(self, pad_to: Optional[int] = None) -> np.ndarray:
-        return pack_releases(self._rel_ring, self._releases, self._slots,
-                             self.max_batch, pad_to)
+        out = pack_releases(self._rel_ring, self._releases, self._slots,
+                            self.max_batch, pad_to)
+        self.counters["releases_left"] += len(self._releases)
+        return out
 
     def _health_packed(self) -> np.ndarray:
         return pack_health(self._health_updates, self.HEALTH_BATCH)
@@ -594,36 +598,45 @@ class BalancerCore:
         host->device copy, one fused step (release fold, health fold,
         schedule), one device->host copy of the B+1 decision vector. Rows
         that found no invoker give their slot back. With nothing queued
-        the step only folds releases and health."""
+        the step only folds releases and health.
+
+        While a profiler records, the step's phases are the ranges
+        `core.assembly` (packing), `core.dispatch` (the copy and the
+        fused step's launches), `core.readback` (the host waiting on the
+        card) and `core.unpack` (decisions, slots, counters)."""
         b = min(len(self._queued), self.max_batch)
         if b == 0:
             self._idle_fold()
             return StepResult(np.zeros(0, np.int32), np.zeros(0, bool), 0, 0,
                               np.zeros((9, 0), np.int32), [])
-        n_rel = min(len(self._releases), self.max_batch)
-        bp = max(self._bucket(b, self.max_batch),
-                 self._bucket(n_rel, self.max_batch) if n_rel else 8)
-        req_np = np.zeros((9, bp), np.int32)
-        req_np[1, b:] = 1  # padded columns: size 1, max_conc 1, invalid
-        req_np[6, b:] = 1
-        self._req_ring.pop_into(req_np, b)
-        rel_np = self._release_packed(pad_to=bp)
-        health_np = self._health_packed()
-        buf = np.concatenate([rel_np.ravel(), health_np.ravel(),
-                              req_np.ravel()])
-        self.state, out = self._packed_fn(
-            self.state, torch.from_numpy(buf).to(self.device),
-            rel_np.shape[1], health_np.shape[1], bp)
-        chosen, forced, _, rounds = unpack_step_output(out.cpu().numpy())
-        chosen, forced = chosen[:b], forced[:b]
-        keys = [self._queued.popleft() for _ in range(b)]
-        for (key, slot), inv in zip(keys, chosen):
-            if inv < 0:  # no invokers: the slot is released
-                self._slots.release(key, slot)
-        self.counters["steps"] += 1
-        self.counters["placed"] += int((chosen >= 0).sum())
-        self.counters["forced"] += int(forced.sum())
-        self.counters["unplaced"] += int((chosen < 0).sum())
+        with span("core.assembly"):
+            n_rel = min(len(self._releases), self.max_batch)
+            bp = max(self._bucket(b, self.max_batch),
+                     self._bucket(n_rel, self.max_batch) if n_rel else 8)
+            req_np = np.zeros((9, bp), np.int32)
+            req_np[1, b:] = 1  # padded columns: size 1, max_conc 1, invalid
+            req_np[6, b:] = 1
+            self._req_ring.pop_into(req_np, b)
+            rel_np = self._release_packed(pad_to=bp)
+            health_np = self._health_packed()
+            buf = np.concatenate([rel_np.ravel(), health_np.ravel(),
+                                  req_np.ravel()])
+        with span("core.dispatch"):
+            self.state, out = self._packed_fn(
+                self.state, torch.from_numpy(buf).to(self.device),
+                rel_np.shape[1], health_np.shape[1], bp)
+        with span("core.readback"):
+            host = out.cpu().numpy()
+        with span("core.unpack"):
+            chosen, forced, _, rounds = unpack_step_output(host)
+            chosen, forced = chosen[:b], forced[:b]
+            keys = [self._queued.popleft() for _ in range(b)]
+            for (key, slot), inv in zip(keys, chosen):
+                if inv < 0:  # no invokers: the slot is released
+                    self._slots.release(key, slot)
+            self.counters["steps"] += 1
+            self.counters["placed"] += int((chosen >= 0).sum())
+            self.counters["forced"] += int(forced.sum())
         return StepResult(chosen, forced, rounds, bp, req_np[:, :b],
                           [k for k, _ in keys])
 

@@ -40,6 +40,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .profiler import span
+
 I32 = torch.int32
 
 
@@ -648,10 +650,10 @@ def make_fused_step(release_fn=None, schedule_fn=None):
 
     Returns (state, chosen, forced, rounds): schedules without a repair
     loop report rounds == 0. Each phase is a named `torch.profiler` range
-    (release_fold, health_fold, schedule), so a profile splits the step."""
+    (release_fold, health_fold, schedule), opened through `profiler.span`
+    only while a profiler records, so a profile splits the step."""
     release_fn = release_fn or release_batch
     schedule_fn = schedule_fn or schedule_batch
-    span = torch.profiler.record_function
 
     def fused(state: PlacementState, rel_inv, rel_slot, rel_mem, rel_maxc,
               rel_valid, health_idx, health_val, health_valid,

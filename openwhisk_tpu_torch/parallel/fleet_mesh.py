@@ -51,6 +51,7 @@ from ..ops.placement import (I32, PlacementState, RequestBatch, _mulmod,
                              _slot_read_write, flat_prims, fold_health,
                              release_batch_vector, repair_commit_masks,
                              resolve_device, shadow_books)
+from ..ops.profiler import span
 from .sharded_state import (FleetMesh, Replicas, ShardedState, elect,
                             local_argmin, make_mesh, make_sharded_release,
                             make_sharded_schedule, owned_release,
@@ -346,7 +347,6 @@ def make_fleet_fold_health(mesh: FleetMesh):
 
 def _fused(mesh: FleetMesh, release_fn, schedule_fn):
     fold = make_fleet_fold_health(mesh)
-    span = torch.profiler.record_function
 
     def fused(state, rel, health, batch):
         with span("release_fold"):

@@ -20,6 +20,7 @@ from openwhisk_tpu_torch.controller.loadbalancer import \
     tpu_balancer as TB  # noqa: E402
 from openwhisk_tpu_torch.models import sharding_policy as TS  # noqa: E402
 from openwhisk_tpu_torch.ops import placement as T  # noqa: E402
+from openwhisk_tpu_torch.ops.profiler import span  # noqa: E402
 from openwhisk_tpu_torch.utils.ring_buffer import ColumnRing  # noqa: E402
 
 
@@ -264,3 +265,87 @@ def test_idle_step_folds_releases_and_health():
     free, _, health = core.books()
     assert free[inv] == 1024 and not health[3]
     assert core._slots.slots == {}
+
+
+CORE_SPANS = ("core.assembly", "core.dispatch", "core.readback",
+              "core.unpack")
+FOLD_SPANS = ("release_fold", "health_fold", "schedule")
+
+
+def _busy_core(max_batch=64):
+    """A core with rows placed, completions and a health flip queued."""
+    core = TB.BalancerCore([2048] * 40, device="cpu", max_batch=max_batch,
+                           action_slots=32)
+    rows = [core.build_row("ns", f"ns/a{k % 5}", 128, 1 + k % 3, k % 7 == 0)
+            for k in range(max_batch)]
+    core.submit(rows)
+    res = core.step()
+    for k, inv in enumerate(res.chosen.tolist()):
+        core.complete(inv, int(res.rows[5, k]), 128, int(res.rows[6, k]),
+                      res.slot_keys[k])
+    core.set_health(3, False)
+    return core, rows
+
+
+def test_step_records_its_four_phases_in_order_around_the_fold_ranges():
+    core, rows = _busy_core()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            core.submit(rows[:24])
+            core.step()
+    spans = {n: [] for n in CORE_SPANS + FOLD_SPANS}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in spans:
+            spans[e.name()].append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    assert {n: len(v) for n, v in spans.items()} == dict.fromkeys(spans, 3)
+    phases = sorted((s, e, n) for n in CORE_SPANS for s, e in spans[n])
+    assert [n for _, _, n in phases] == list(CORE_SPANS) * 3
+    assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
+    for n in FOLD_SPANS:
+        for s, e in spans[n]:
+            assert any(ds <= s and e <= de
+                       for ds, de in spans["core.dispatch"]), n
+
+
+def test_no_range_opens_while_no_profiler_records(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"range {name!r} opened with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert span("core.assembly") is span("schedule")
+    core, rows = _busy_core()
+    core.submit(rows[:16])
+    assert len(core.step().chosen) == 16
+    core.set_health(4, False)
+    assert len(core.step().chosen) == 0  # the idle fold
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(AssertionError, match="core.assembly"):
+            core.submit(rows[:8])
+            core.step()
+
+
+def test_release_counters_count_the_fold_intake():
+    """300 completions against a 256-row fold: the first step packs 256
+    and leaves 44, the next packs the 44 and leaves none."""
+    core = TB.BalancerCore([2048] * 64, device="cpu", max_batch=256)
+    rows = [core.build_row("ns", f"ns/a{k % 9}", 128, 1, False)
+            for k in range(316)]
+    core.submit(rows[:300])
+    placed = [core.step(), core.step()]
+    for res in placed:
+        for k, inv in enumerate(res.chosen.tolist()):
+            core.complete(inv, int(res.rows[5, k]), 128, 1,
+                          res.slot_keys[k])
+    core.submit(rows[300:308])
+    core.step()
+    assert core.counters["releases_left"] == 44
+    assert len(core._releases) == 44
+    core.submit(rows[308:])
+    core.step()
+    assert core.counters == {"steps": 4, "placed": 316, "forced": 0,
+                             "releases_left": 44}
+    assert not core._releases
+    assert core.books()[0].sum() == 64 * 2048 - 16 * 128

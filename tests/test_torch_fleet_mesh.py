@@ -433,6 +433,35 @@ def test_fused_and_release_steps_match_the_single_device(meshes, kernel, b):
     _assert_same((single,), (sharded,))
 
 
+def test_fused_step_ranges_open_only_while_a_profiler_records(meshes,
+                                                              monkeypatch):
+    """The mesh's fused step opens its release_fold / health_fold /
+    schedule ranges through the guarded `span`: none with no profiler
+    recording, each once a step under one."""
+    _jm, tm = meshes
+    rng = np.random.RandomState(7)
+    sharded = TS.shard_state(_port_state(_dirty_state(rng, 64, slots=4)), tm)
+    record_function = torch.profiler.record_function
+
+    def refuse(name):
+        raise AssertionError(f"range {name!r} opened with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    step = TF.make_fleet_fused_step_packed(tm, *TF.fleet_pair(tm, "auto")[
+        1::-1])
+    sharded, _ = step(sharded, torch.from_numpy(_packed(rng, 64, 8, 8, 8)),
+                      8, 8, 8)
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            sharded, _ = step(sharded, torch.from_numpy(
+                _packed(rng, 64, 8, 8, 8)), 8, 8, 8)
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert [names.count(n) for n in ("release_fold", "health_fold",
+                                     "schedule")] == [2, 2, 2]
+
+
 @pytest.mark.parametrize("rate", [False, True], ids=["plain", "admit"])
 def test_shadow_step_matches_jax_and_leaves_the_books(meshes, rate):
     """The mesh's shadow step (the penalized sharded repair on a copy of
