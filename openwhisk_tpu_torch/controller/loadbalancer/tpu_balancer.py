@@ -372,37 +372,52 @@ def _sched_repair(st, batch, penalty=None):
     return to_transposed(ts), chosen, forced, rounds
 
 
+def _sched_repair_counted(st, batch, penalty=None):
+    """`_sched_repair` with the launch's counts: the last element is
+    int32[4], the rounds then the rows probed, resumed and resume misses
+    (`schedule_batch_repair_cuda(counts=True)`)."""
+    ts, chosen, forced, stats = schedule_batch_repair_cuda(
+        to_transposed(st), batch, penalty, counts=True)
+    return to_transposed(ts), chosen, forced, stats
+
+
 def _release_fold(st, inv, slot, need_mb, max_conc, valid):
     """The release kernel on the books' [N, A] view."""
     return release_batch_cuda(st, inv, slot, need_mb, max_conc, valid)
 
 
-def _cuda_pair(placement_kernel: str):
+def _cuda_pair(placement_kernel: str, counted: bool = False):
     """(schedule_fn, release_fn, resolved_kernel) with the schedule on the
     CUDA kernels: the counterpart of `_pallas_pair`, same scan|repair|auto
     meaning and the same per-bucket branch. The release fold is one launch
     of the release kernel at every bucket (bit-exact with both plain folds):
     in torch ops it held the event loop for milliseconds a step, and at 32
-    rows and more read the residue back on the host."""
+    rows and more read the residue back on the host. With `counted` the
+    repair returns its launch's counts beside the rounds
+    (`_sched_repair_counted`)."""
     _check_kernel(placement_kernel)
+    repair = _sched_repair_counted if counted else _sched_repair
     if placement_kernel == "scan":
         return _sched_scan, _release_fold, "scan"
     if placement_kernel == "repair":
-        return _sched_repair, _release_fold, "repair"
+        return repair, _release_fold, "repair"
 
     def auto_schedule(state, batch):
         if batch.valid.shape[0] >= REPAIR_MIN_BATCH:
-            return _sched_repair(state, batch)
+            return repair(state, batch)
         return _sched_scan(state, batch)
 
     return auto_schedule, _release_fold, "repair"
 
 
-def device_pair(device: torch.device, placement_kernel: str):
+def device_pair(device: torch.device, placement_kernel: str,
+                counted: bool = False):
     """The (schedule, release, resolved) pair for the books' device: the
-    CUDA kernels on the card, the plain torch versions on the CPU."""
-    pair = _cuda_pair if device.type == "cuda" else _torch_pair
-    return pair(placement_kernel)
+    CUDA kernels on the card (`counted`: see `_cuda_pair`), the plain
+    torch versions on the CPU."""
+    if device.type == "cuda":
+        return _cuda_pair(placement_kernel, counted)
+    return _torch_pair(placement_kernel)
 
 
 def penalized_schedule(device: torch.device, resolved: str):
@@ -508,7 +523,8 @@ class BalancerCore:
         self.n_pad = max(MIN_PAD, _next_pow2(len(self.memory_mb)))
         self._recompute_partitions()
 
-        sched, release, _ = device_pair(self.device, placement_kernel)
+        sched, release, _ = device_pair(self.device, placement_kernel,
+                                        counted=True)
         self._packed_fn = make_fused_step_packed(release, sched)
         self._release_packed_fn = make_release_packed(release)
         self.state: PlacementState = init_state(
@@ -524,9 +540,15 @@ class BalancerCore:
         self._releases: deque = deque()   # (slot_key, slot) per release
         self._health_updates: Dict[int, bool] = {}
         #: releases_left: the releases still queued after each step's pack
-        #: (capacity that waits at least one more step), summed
+        #: (capacity that waits at least one more step), summed;
+        #: repair_rows_probed / _resumed, repair_resume_misses: the card's
+        #: repair kernel's counts, summed over its launches (rows probed,
+        #: of them resumed from their last round's rank, resumed rows that
+        #: probed their whole window after all; the CPU counts none)
         self.counters = {"steps": 0, "placed": 0, "forced": 0,
-                         "releases_left": 0}
+                         "releases_left": 0, "repair_rows_probed": 0,
+                         "repair_rows_resumed": 0,
+                         "repair_resume_misses": 0}
 
     # -- registry ----------------------------------------------------------
     @property
@@ -628,8 +650,14 @@ class BalancerCore:
         with span("core.readback"):
             host = out.cpu().numpy()
         with span("core.unpack"):
-            chosen, forced, _, rounds = unpack_step_output(host)
+            # B decisions, the rounds, then the repair kernel's counts
+            chosen, forced, _, rounds = unpack_step_output(host[:bp + 1])
             chosen, forced = chosen[:b], forced[:b]
+            if len(host) > bp + 1:
+                probed, resumed, misses = host[bp + 1:bp + 4].tolist()
+                self.counters["repair_rows_probed"] += probed
+                self.counters["repair_rows_resumed"] += resumed
+                self.counters["repair_resume_misses"] += misses
             keys = [self._queued.popleft() for _ in range(b)]
             for (key, slot), inv in zip(keys, chosen):
                 if inv < 0:  # no invokers: the slot is released

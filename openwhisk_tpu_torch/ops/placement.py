@@ -697,7 +697,10 @@ def make_fused_step_packed(release_fn=None, schedule_fn=None):
       out int32[B + 1]: B elements of ((chosen+1)<<2) | forced, then the
                         repair-round count (0 for the scan).
 
-    The books are updated in place (where the JAX package donated them)."""
+    A schedule whose last element is a vector (the card's repair kernel
+    with its counts, `schedule_batch_repair_cuda(counts=True)`) appends
+    all of it: out int32[B + 4] then. The books are updated in place
+    (where the JAX package donated them)."""
     fused = make_fused_step(release_fn, schedule_fn)
 
     def packed(state: PlacementState, buf, R: int, H: int, B: int):
@@ -710,7 +713,7 @@ def make_fused_step_packed(release_fn=None, schedule_fn=None):
             state, rel[0], rel[1], rel[2], rel[3], rel[4].bool(),
             health[0], health[1].bool(), health[2].bool(), batch)
         out = ((chosen + 1) << 2) | forced.to(I32)
-        return state, torch.cat([out, rounds.reshape(1).to(I32)])
+        return state, torch.cat([out, rounds.reshape(-1).to(I32)])
 
     return packed
 

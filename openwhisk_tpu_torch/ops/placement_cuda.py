@@ -55,11 +55,14 @@ from .placement import (I32, PlacementState, RequestBatch, release_batch,
 
 #: per-row shared memory of the repair kernel (REPAIR_ROW_INTS +
 #: LIST_ROW_INTS int32s in csrc/placement_repair.cu), its per-row scratch in
-#: device memory (REPAIR_SCRATCH_ROW_BYTES there, plus a 12-byte header),
+#: device memory (REPAIR_SCRATCH_ROW_BYTES there, plus a 16-byte header),
 #: and the rows its block 0 holds (one thread each)
-REPAIR_ROW_BYTES = (22 + 2) * 4
-REPAIR_SCRATCH_ROW_BYTES = 28
+REPAIR_ROW_BYTES = (29 + 4) * 4
+REPAIR_SCRATCH_ROW_BYTES = 40
 REPAIR_MAX_BATCH = REPAIR_THREADS = 1024
+#: ranks a resumed row's first pass probes at most (RESUME_CHUNKS *
+#: RESUME_CHUNK there)
+RESUME_RANKS = 4 * 256
 #: the scan's largest padded fleet (SCAN_MAX_N in csrc/placement_scan.cu):
 #: int32 indexing, with n + 2 (the no-key sentinel) still an int32. The
 #: `_mulmod` contract bounds the partition (2^17), not the fleet; above
@@ -265,16 +268,25 @@ schedule_batch_cuda.cluster = None
 
 
 def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
-                               penalty=None):
+                               penalty=None, counts: bool = False):
     """The speculate-and-repair schedule on the card (one cooperative
     launch of placement_repair.cu, the whole round loop on the device);
     state in the kernel layout, books updated in place. Returns (state,
-    chosen int32[B], forced bool[B], rounds int32 scalar). Raises for a
-    batch the kernel cannot hold (`fits_smem_repair`) and for a launch the
-    card refuses. `.grid` holds the last launch's blocks and threads."""
+    chosen int32[B], forced bool[B], rounds int32 scalar). With `counts`
+    the last element is int32[4] on the card instead: the rounds, then
+    the launch's rows probed (listed, summed over rounds), of them resumed
+    (probed from their last round's rank) and resumed rows that missed the
+    first pass (`RESUME_RANKS` ranks) and probed their whole window; the
+    plain version on the CPU counts none of the three (zeros). Raises for
+    a batch the kernel cannot hold (`fits_smem_repair`) and for a launch
+    the card refuses. `.grid` holds the last launch's blocks and
+    threads."""
     if not state.free_mb.is_cuda:
         ts, chosen, forced, rounds = schedule_batch_repair(
             to_transposed(state), batch, penalty)
+        if counts:
+            rounds = torch.cat([rounds.reshape(1),
+                                torch.zeros((3,), dtype=I32)])
         return to_transposed(ts), chosen, forced, rounds
     n, a, b, reqs = _check(state, batch, penalty)
     if not fits_smem_repair(b):
@@ -284,8 +296,8 @@ def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
     dev = reqs.device
     chosen = torch.empty((b,), dtype=I32, device=dev)
     forced = torch.empty((b,), dtype=I32, device=dev)
-    rounds = torch.empty((1,), dtype=I32, device=dev)
-    scratch = torch.empty(((REPAIR_SCRATCH_ROW_BYTES * b + 12 + 7) // 8,),
+    stats = torch.empty((4,), dtype=I32, device=dev)
+    scratch = torch.empty(((REPAIR_SCRATCH_ROW_BYTES * b + 16 + 7) // 8,),
                           dtype=torch.int64, device=dev)
     blocks = ctypes.c_int(0)
     rc = _launcher("repair")(
@@ -293,7 +305,7 @@ def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
         state.free_mb.data_ptr(), state.conc_free.data_ptr(),
         state.conc_free.stride(0), state.conc_free.stride(1), n, a,
         _ptr(penalty), chosen.data_ptr(), forced.data_ptr(),
-        rounds.data_ptr(), scratch.data_ptr(),
+        stats.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"placement_repair launch failed: CUDA error {rc}")
@@ -303,7 +315,7 @@ def schedule_batch_repair_cuda(state: PlacementState, batch: RequestBatch,
             penalty is not None)
     schedule_batch_repair_cuda.grid = {"blocks": blocks.value,
                                        "threads": REPAIR_THREADS}
-    return state, chosen, forced.bool(), rounds.reshape(())
+    return state, chosen, forced.bool(), stats if counts else stats[0]
 
 
 schedule_batch_repair_cuda.launches = 0

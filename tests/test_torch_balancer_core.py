@@ -346,6 +346,36 @@ def test_release_counters_count_the_fold_intake():
     core.submit(rows[308:])
     core.step()
     assert core.counters == {"steps": 4, "placed": 316, "forced": 0,
-                             "releases_left": 44}
+                             "releases_left": 44, "repair_rows_probed": 0,
+                             "repair_rows_resumed": 0,
+                             "repair_resume_misses": 0}
     assert not core._releases
     assert core.books()[0].sum() == 64 * 2048 - 16 * 128
+
+
+def test_step_adds_the_repair_kernels_counts():
+    """A schedule that returns counts beside its rounds (the card's repair
+    kernel, `counts=True`) widens the step's output to B + 4; the step
+    decodes the decisions and rounds as before and adds the counts to its
+    counters. The CPU's plain repair returns none: the counters stay 0."""
+    core = TB.BalancerCore([2048] * 64, device="cpu", max_batch=64)
+    rows = [core.build_row("ns", f"ns/a{k % 5}", 128, 1, False)
+            for k in range(64)]
+    core.submit(rows[:32])
+    plain = core.step()
+    assert core.counters["repair_rows_probed"] == 0
+
+    def counted(state, batch):
+        st, chosen, forced, rounds = T.schedule_batch_repair(state, batch)
+        return st, chosen, forced, torch.stack(
+            [rounds, rounds * 10, rounds * 7, rounds]).to(T.I32)
+
+    core._packed_fn = T.make_fused_step_packed(T.release_batch_vector,
+                                               counted)
+    core.submit(rows[32:])
+    res = core.step()
+    assert res.rounds > 0 and len(res.chosen) == 32
+    assert (res.chosen >= 0).all() and not plain.forced.any()
+    assert core.counters["repair_rows_probed"] == 10 * res.rounds
+    assert core.counters["repair_rows_resumed"] == 7 * res.rounds
+    assert core.counters["repair_resume_misses"] == res.rounds

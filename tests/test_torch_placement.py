@@ -24,7 +24,7 @@ from openwhisk_tpu_torch.controller.loadbalancer.tpu_balancer import \
 from openwhisk_tpu_torch.ops import placement as T  # noqa: E402
 from openwhisk_tpu_torch.ops import placement_cuda as K  # noqa: E402
 from torch_placement_cases import (  # noqa: E402
-    FAMILIES, SLOTS, random_batch, random_books)
+    FAMILIES, SLOTS, container_case, random_batch, random_books)
 
 
 def run_both(jax_fn, torch_fn, books, cols, penalty=None):
@@ -286,6 +286,21 @@ def test_cuda_wrappers_take_plain_version_on_cpu_tensors():
             assert torch.equal(x, y)
     assert K.schedule_batch_cuda.launches == 0
     assert K.schedule_batch_repair_cuda.launches == 0
+
+
+def test_repair_wrapper_counts_on_cpu_tensors():
+    """`counts=True` on CPU tensors: the plain repair's rounds, then three
+    zeros (the plain version resumes nothing and counts nothing)."""
+    rng = np.random.RandomState(8)
+    books, cols = container_case(300, 64, rng)
+    ts = T.placement_state_from_numpy(*books, device="cpu")
+    ps = T.placement_state_from_numpy(*books, device="cpu")
+    batch = T.request_batch_from_numpy(*cols, device="cpu")
+    _, chosen, forced, stats = K.schedule_batch_repair_cuda(
+        K.to_transposed(ts), batch, counts=True)
+    _, pc, pf, rounds = T.schedule_batch_repair(ps, batch)
+    assert stats.dtype == T.I32 and stats.tolist() == [int(rounds), 0, 0, 0]
+    assert torch.equal(chosen, pc) and torch.equal(forced, pf)
 
 
 def test_repair_fit_predicate():

@@ -20,7 +20,8 @@ from openwhisk_tpu_torch.controller.loadbalancer import \
 from openwhisk_tpu_torch.ops import placement as T  # noqa: E402
 from openwhisk_tpu_torch.ops import placement_cuda as K  # noqa: E402
 from torch_placement_cases import (  # noqa: E402
-    FAMILIES, container_case, random_batch, random_books, wide_case)
+    FAMILIES, RESUME_RULE_CASES, container_case, long_walk_case,
+    random_batch, random_books, rule_case, wide_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -155,6 +156,108 @@ def test_repair_partition_past_2_17_matches_plain():
     cols[0][:4], cols[1][:4] = 0, n
     kr, pr = _both("repair", books, cols, None)
     _assert_exact(kr, pr)
+
+
+def _counted(books, cols, penalty=None):
+    """The repair kernel with its counts against the plain repair on the
+    card: asserts chosen, forced, rounds and books equal, and returns
+    (rows probed, resumed, resume misses, pending rows summed over the
+    plain run's rounds)."""
+    dev = "cuda"
+    ks = T.placement_state_from_numpy(*books, device=dev)
+    ps = T.placement_state_from_numpy(*books, device=dev)
+    batch = T.request_batch_from_numpy(*cols, device=dev)
+    pen = None if penalty is None else torch.from_numpy(penalty).to(dev)
+    _, chosen, forced, stats = K.schedule_batch_repair_cuda(
+        K.to_transposed(ks), batch, pen, counts=True)
+    pending = []
+    p = T.schedule_batch_repair(ps, batch, pen,
+                                on_round=lambda m: pending.append(m.sum()))
+    torch.cuda.synchronize()
+    _assert_exact((ks, (None, chosen, forced, stats[0])), (ps, p))
+    rounds, probed, resumed, misses = stats.tolist()
+    assert resumed <= probed and misses <= resumed
+    return probed, resumed, misses, int(sum(int(x) for x in pending))
+
+
+@pytest.mark.parametrize("b", [8, 32, 256])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_repair_resumes_families_match_plain(family, b):
+    """Resumed probes across the fuzz families at three widths: bit-exact
+    in chosen, forced, rounds and books, and the kernel's rows probed are
+    the plain run's pending rows summed over its rounds."""
+    books, cols = FAMILIES[family](np.random.RandomState(300 + b), b)
+    probed, resumed, misses, pending = _counted(books, cols)
+    assert probed == pending
+
+
+@pytest.mark.parametrize("case", sorted(RESUME_RULE_CASES))
+def test_repair_resume_reset_cases_match_plain(case):
+    """The cases where a resume would be wrong without the reset rule (a
+    forced container open, a clamped slot, a permit use)."""
+    books, cols = rule_case(*RESUME_RULE_CASES[case])
+    probed, resumed, _, pending = _counted(books, cols)
+    assert probed == pending == 3 and resumed == 0
+
+
+def test_repair_long_walk_takes_the_second_pass():
+    """A hot action whose next fit lies 1,500 ranks on, past the first
+    pass: the resumed rows miss, probe their whole windows, and still
+    place exactly as the plain repair; once nothing fits they load
+    nothing and are forced."""
+    books, cols, at_rank = long_walk_case(gap=1500)
+    assert 1500 > K.RESUME_RANKS
+    probed, resumed, misses, pending = _counted(books, cols)
+    # rounds 1-4: every row left resumes and misses (the next fit, or in
+    # round 4 the window's end, lies past the first pass); round 4 forces
+    # the 60 rows that fit nowhere, and all of them settle
+    assert probed == pending == 64 + 63 + 62 + 61 + 60
+    assert resumed == misses == 63 + 62 + 61 + 60
+    kr, pr = _both("repair", books, cols, None)
+    chosen = kr[1][1].cpu().numpy()
+    assert chosen[:4].tolist() == at_rank[10::1500][:4].tolist()
+
+
+def test_repair_negative_need_matches_plain():
+    """A committed row with a negative need raises an invoker's free
+    memory: no row resumes past that round, and the kernel stays exact."""
+    rng = np.random.RandomState(23)
+    books, cols = container_case(2000, 64, rng)
+    cols[4][::5] = -256
+    probed, _, _, pending = _counted(books, cols)
+    assert probed == pending
+
+
+@pytest.mark.parametrize("use_penalty", [False, True])
+def test_repair_container_counts(use_penalty):
+    """Container traffic: the kernel counts its resumes; a penalized
+    launch (the quality plane's shadow pass) resumes nothing."""
+    rng = np.random.RandomState(41)
+    books, cols = container_case(4999, 256, rng)
+    pen = rng.randint(0, 4, 4999).astype(np.int32) if use_penalty else None
+    probed, resumed, misses, pending = _counted(books, cols, pen)
+    assert probed == pending
+    if use_penalty:
+        assert resumed == misses == 0
+    else:
+        assert resumed > 0
+
+
+def test_balancer_core_counts_repair_probes():
+    """`BalancerCore.step` adds the repair kernel's counts to its
+    counters: rows probed, of them resumed, and resume misses."""
+    rng = np.random.RandomState(12)
+    core = TB.BalancerCore([2048] * 4000, device="cuda", max_batch=256,
+                           action_slots=64)
+    for _ in range(6):
+        acts = rng.randint(0, 8, 256)
+        core.submit([core.build_row("ns", f"ns/a{a}", 256, 1, False)
+                     for a in acts])
+        core.step()
+    c = core.counters
+    assert c["repair_rows_probed"] >= 6 * 256
+    assert 0 < c["repair_rows_resumed"] <= c["repair_rows_probed"]
+    assert c["repair_resume_misses"] <= c["repair_rows_resumed"]
 
 
 def test_repair_launch_is_deterministic():
@@ -364,7 +467,7 @@ def test_prewarm_builds_and_loads_every_kernel_off_the_caller(
     assert time.monotonic() - t0 < 0.5
     assert K.prewarm() is job
     job.result(timeout=300)
-    assert set(K._launchers) == {"scan", "repair", "release"}
+    assert set(K._launchers) == set(K._SIGNATURES)
     new = kernel_builds()[seen:]
     assert {(b["source"], b["how"]) for b in new} == {
         (s, h) for s in K.SOURCES for h in ("nvcc", "load")}

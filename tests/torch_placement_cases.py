@@ -138,3 +138,59 @@ def wide_case(n, use_penalty, b=36):
     health[n // 3:n // 3 + 5] = False
     pen = rng.randint(0, 4, n).astype(np.int32) if use_penalty else None
     return (free, conc, health), cols, pen
+
+
+def rule_case(n, a, free, cells, rows):
+    """Books of n healthy invokers (`free` MB each, permit cells
+    {(inv, slot): count}) and nine batch columns of `rows` (need, slot,
+    max_conc, home, rand), each over the whole fleet with step 1."""
+    conc = np.zeros((n, a), np.int32)
+    for (inv, slot), v in cells.items():
+        conc[inv, slot] = v
+    books = (np.full(n, free, np.int32), conc, np.ones(n, bool))
+    b = len(rows)
+    need, slot, maxc, home, rand = (np.array(c, np.int32)
+                                    for c in zip(*rows))
+    z = np.zeros(b, np.int32)
+    return books, [z, z + n, home, z + 1, need, slot, maxc, rand,
+                   np.ones(b, bool)]
+
+
+#: (n, a, free, cells, rows) where row 0's round-0 commit changes the
+#: permit column row 1 reads, so the repair kernel must not resume row 1
+RESUME_RULE_CASES = {
+    # row 0 fits nowhere and is forced onto invoker 2, opening a container
+    # there: row 1 (same slot) then fits invoker 2 through its permits
+    "forced_container_open": (4, 4, 100, {}, [(256, 1, 4, 0, 2),
+                                              (256, 1, 4, 0, 3)]),
+    # row 0 opens a container on slot 3; row 1's slot 7 is past the slot
+    # axis and reads slot 3 (clamped)
+    "clamped_slot": (4, 4, 256, {}, [(256, 3, 4, 0, 0),
+                                     (1024, 7, 1, 1, 2)]),
+    # row 0 uses invoker 2's one permit: row 1 (same slot) then finds no
+    # permit in its window any more
+    "permit_use": (4, 2, 0, {(2, 0): 1}, [(256, 0, 4, 0, 0),
+                                          (256, 0, 4, 0, 1)]),
+}
+
+
+def long_walk_case(gap=1500, rows=64, n=8192, size=6000, seed=3):
+    """One hot action's `rows` rows (128 MB, max_conc 1) walking a window
+    of `size` where only every `gap`-th rank from rank 10 on has room, for
+    one row each: after round 0 each resumed probe's next fit lies `gap`
+    ranks on, beyond its first pass. Returns (books, cols, idx of rank)."""
+    rng = np.random.RandomState(seed)
+    home = int(rng.randint(0, size))
+    step = 7
+    while math.gcd(step, size) != 1:
+        step += 1
+    at_rank = (home + np.arange(size) * step) % size
+    free = np.zeros(n, np.int32)
+    free[size:] = 4096
+    free[at_rank[10::gap]] = 128
+    conc = np.zeros((n, 4), np.int32)
+    cols = [np.full(rows, x, np.int32) for x in
+            (0, size, home, pow(step, -1, size), 128, 1, 1)]
+    cols.append(rng.randint(0, size, rows).astype(np.int32))
+    cols.append(np.ones(rows, bool))
+    return (free, conc, np.ones(n, bool)), cols, at_rank
