@@ -4,12 +4,12 @@
                                --seeds <s1> <s2> ...
 
 For each seed it draws the cell's inputs for `steps` steps (a run's fill
-and window), replays them through the exact reference, and puts the
-control in the program's place: the same reference with its sequential
-guarantee broken (every row of a step sees the books of the step's
-start). It prints, a line a seed, the numbers `correct` compares as the
-control reads them; a check that cannot tell the control from the program
-would read 0 in each.
+and window), replays them through the configuration's exact reference,
+and puts the control in the program's place: the same reference with its
+sequential guarantee broken (every row of a step sees the books of the
+step's start). It prints, a line a seed, the numbers `correct` compares
+as the control reads them; a check that cannot tell the control from the
+program would read 0 in each.
 """
 import argparse
 import json
@@ -24,20 +24,17 @@ def readings(cell, seed: int, steps: int) -> dict:
     from owbench.lib.check import compare_books, compare_steps
     from owbench.lib.drive import Loop, StepInputs
     from owbench.lib.traffic import Traffic
-    from owbench.reference.sharding import Reference
 
-    cfg = cell.config
-    fleet = [cfg["invoker_memory_mb"]] * cfg["invokers"]
-    kw = dict(cluster_size=cfg["cluster_size"],
-              managed_fraction=cfg["managed_fraction"],
-              blackbox_fraction=cfg["blackbox_fraction"],
-              max_batch=cfg["max_batch"], action_slots=cfg["action_slots"])
-    inputs = StepInputs(Traffic(cfg, cell.mix, seed))
+    fleet, kw = cell.fleet, cell.side_kwargs()
+    Reference = cell.reference_class()
+    traffic = Traffic(cell.config, cell.mix, seed)
+    clock = traffic.steps_per_s if cell.clock == "traffic" else None
+    inputs = StepInputs(traffic)
     control = Loop(Reference(fleet, sequential=False, **kw), inputs,
-                   inputs.traffic.table)
+                   traffic.table, clock)
     control.run(steps)
-    exact = Loop(Reference(fleet, **kw), inputs.replay(),
-                 inputs.traffic.table)
+    exact = Loop(Reference(fleet, **kw), inputs.replay(), traffic.table,
+                 clock)
     exact.run(steps)
     out = compare_steps(control.results, exact.results)
     c_books = control.core.books()

@@ -1,20 +1,24 @@
 """One run of one cell: set-up, the measured window, the reference's replay,
 and the result line.
 
-Set-up builds `BalancerCore` on the card from the configuration, then
+Set-up builds `BalancerCore` on the card from the configuration (its
+fleet, its split, batch and slots, and the options under `core`), then
 drives the traffic's fill and warm steps through the same loop as the
 window: that loads (or builds) every kernel at the one shape the window
 uses (full 256-row steps), and brings the fleet to its steady occupancy.
 The run records which kernels nvcc built in it (`kernels_built`: a
 checkout's first run builds them, and its `setup_s` holds the build). The
-window
-then drives steps until `seconds` have passed. With `trace` the profiler
-records it, and the per-layer readers take their metrics from the trace.
+window then drives steps until `seconds` have passed. The readers get the
+window's deltas of the program's counters (`core.counters`); with `trace`
+the profiler records the window, and the per-layer readers take their
+metrics from the trace too.
 
 Once the window has closed and the peak memory is read, the program's
-books are copied to the host and its state freed; the reference then
-replays every step from the same inputs and the comparison decides
-`correct`.
+books are copied to the host and its state freed; the configuration's
+reference (`owbench/reference/<reference>.py`, built with the same
+options) then replays every step from the same inputs, on the same
+traffic clock where the configuration asks for one, and the comparison
+decides `correct`.
 """
 from __future__ import annotations
 
@@ -25,12 +29,13 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, List, Optional
 
+import numpy as np
+
 from .check import LIMITS, compare_books, compare_steps, verdict
 from .drive import Loop, StepInputs
 from .manifest import Manifest, read_metrics
 from .trace import WINDOW, Trace, profiler_events
 from .traffic import Traffic
-from ..reference.sharding import Reference
 
 
 @dataclass
@@ -42,9 +47,13 @@ class Run:
     steps: int = 0
     placed: int = 0
     decided: int = 0
+    #: rows a core held back (`throttled`): decided, neither placed nor failed
+    throttled: int = 0
     rows_built: int = 0
     rounds: List[int] = field(default_factory=list)
     gc_pause_s: float = 0.0
+    #: the window's deltas of the program's counters (`core.counters`)
+    counters: dict = field(default_factory=dict)
     trace: Optional[Trace] = None
     #: the reference's record of each window step's work (traced runs)
     work: List[dict] = field(default_factory=list)
@@ -84,28 +93,29 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     import torch
     from openwhisk_tpu_torch.controller.loadbalancer.tpu_balancer import (
         BalancerCore)
+    from openwhisk_tpu_torch.ops import _build
 
     manifest = Manifest(root, bench)
     cell = manifest.cell(workload)
     cfg = cell.config
     on_card = torch.device(device).type == "cuda"
-    fleet = [cfg["invoker_memory_mb"]] * cfg["invokers"]
-    kw = dict(cluster_size=cfg["cluster_size"],
-              managed_fraction=cfg["managed_fraction"],
-              blackbox_fraction=cfg["blackbox_fraction"],
-              max_batch=cfg["max_batch"], action_slots=cfg["action_slots"])
+    fleet, kw = cell.fleet, cell.side_kwargs()
+    Reference = cell.reference_class()
+    # the process's build log before this run: a build is a new entry
+    logs = dict(_build.build_logs)
     core = BalancerCore(fleet, device=device,
                         placement_kernel=cfg["placement_kernel"], **kw)
     if hook is not None:
         hook(core)
     traffic = Traffic(cfg, cell.mix, seed)
+    clock = traffic.steps_per_s if cell.clock == "traffic" else None
     inputs = StepInputs(traffic)
-    loop = Loop(core, inputs, traffic.table)
+    loop = Loop(core, inputs, traffic.table, clock)
     loop.run(traffic.setup_steps)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     sync()
-    from openwhisk_tpu_torch.ops import _build
-    built = sorted(_build.build_logs)
+    built = sorted(k for k, v in _build.build_logs.items()
+                   if logs.get(k) is not v)
 
     prof = None
     if trace:
@@ -119,7 +129,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         sync()
     span = loop.span
     first, built0 = loop.step_no, loop.rows_built
-    clock = GcClock()
+    gc_clock = GcClock()
     # what set-up left on the heap (the traffic's record, the fill's
     # results, the completions in flight) is kept out of the collector's
     # later passes: a full pass over it would be the harness's cost
@@ -127,7 +137,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     gc.freeze()
     run = Run(manifest)
     run.setup_s = time.monotonic() - t_start
-    gc.callbacks.append(clock)
+    c0 = dict(core.counters)
+    gc.callbacks.append(gc_clock)
     try:
         t0 = time.perf_counter()
         with span(WINDOW):
@@ -139,8 +150,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                 if time.perf_counter() - t0 >= seconds:
                     break
         t1 = time.perf_counter()
+        run.counters = {k: v - c0.get(k, 0)
+                        for k, v in core.counters.items()}
     finally:
-        gc.callbacks.remove(clock)
+        gc.callbacks.remove(gc_clock)
         gc.unfreeze()
     sync()
     if prof is not None:
@@ -157,9 +170,11 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     run.steps = len(window)
     run.decided = sum(len(r[0]) for r in window)
     run.placed = sum(int((r[0] >= 0).sum()) for r in window)
+    run.throttled = sum(int(np.count_nonzero(r[4])) for r in window
+                        if r[4] is not None)
     run.rows_built = loop.rows_built - built0
     run.rounds = [int(r[3]) for r in window]
-    run.gc_pause_s = clock.total
+    run.gc_pause_s = gc_clock.total
     if on_card:
         dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                "count": cell.chips,
@@ -181,7 +196,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         torch.cuda.empty_cache()
     r0 = time.perf_counter()
     ref = Reference(fleet, **kw)
-    rloop = Loop(ref, inputs.replay(), traffic.table)
+    rloop = Loop(ref, inputs.replay(), traffic.table, clock)
     gc.disable()  # the replay makes no cycles; its heap only grows
     try:
         rloop.run(first)
@@ -197,8 +212,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     metrics = read_metrics(manifest, cell.metrics(trace), run)
     free = ref.books()[0]
     out = {"correct": verdict(readings), "attempted": run.decided,
-           "failed": run.decided - run.placed, "metrics": metrics,
-           "device": dev}
+           "failed": run.decided - run.placed - run.throttled,
+           "metrics": metrics, "device": dev}
     if run.trace is not None:
         out["breakdown"] = run.trace.breakdown()
     out["run"] = dict(

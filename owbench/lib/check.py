@@ -8,8 +8,9 @@ difference is a wrong answer (see PERF.md for the readings behind each).
 - `rows_differ`: request rows whose nine packed columns (slice, home, the
   probe step's inverse, memory, concurrency slot, max_conc, the forced
   rotation, valid) differ from the rows the reference built;
-- `decisions_differ`: rows whose chosen invoker or forced flag differ, in
-  every step of the run, set-up and window alike;
+- `decisions_differ`: rows whose chosen invoker, forced flag or throttled
+  flag differ, in every step of the run, set-up and window alike (a side
+  whose results carry no `throttled` throttles no row);
 - `book_cells_differ`: cells of the books (free memory, concurrency
   permits, health) that differ once the window has closed, the padding
   beyond the fleet included, which has to stay empty.
@@ -25,7 +26,7 @@ LIMITS = {"rows_differ": 0, "decisions_differ": 0, "book_cells_differ": 0}
 
 def compare_steps(program: List[tuple], reference: List[tuple]) -> Dict:
     """Counts of rows and decisions that differ, step by step: (chosen,
-    forced, rows, ...) on each side."""
+    forced, rows, rounds, throttled) on each side."""
     rows_differ = decisions_differ = 0
     for k in range(max(len(program), len(reference))):
         if k >= len(program) or k >= len(reference):
@@ -40,8 +41,19 @@ def compare_steps(program: List[tuple], reference: List[tuple]) -> Dict:
             decisions_differ += n
             continue
         rows_differ += int((np.asarray(pr) != rr).any(axis=0).sum())
-        decisions_differ += int(((pc != rc) | (pf != rf)).sum())
+        differ = (pc != rc) | (pf != rf)
+        pt, rt = _throttled(program[k]), _throttled(reference[k])
+        if pt is not None or rt is not None:
+            pt = np.zeros(len(pc), bool) if pt is None else pt
+            rt = np.zeros(len(rc), bool) if rt is None else rt
+            differ |= pt != rt if pt.shape == rt.shape == pc.shape else True
+        decisions_differ += int(differ.sum())
     return {"rows_differ": rows_differ, "decisions_differ": decisions_differ}
+
+
+def _throttled(step: tuple):
+    flags = step[4] if len(step) > 4 else None
+    return None if flags is None else np.asarray(flags, bool)
 
 
 def compare_books(program, reference) -> int:

@@ -8,6 +8,15 @@ the same loop, so both see the same calls in the same order:
 
 A row's completion delay is drawn with the row, and its completion is
 booked from the core's own decision, so each side frees what it placed.
+
+Where the configuration's `clock` is `"traffic"`, both sides get
+`set_clock(step / steps_per_s)` before every step, set-up and window
+alike: the traffic's own seconds, the time base of the durations. Neither
+side reads the wall clock.
+
+A step result may carry `throttled` (bool[b]): a row its core held back.
+Such a row carries chosen -1 and books no completion; the loop records
+the flags beside the decisions, for the comparison.
 """
 from __future__ import annotations
 
@@ -51,23 +60,30 @@ class StepInputs:
 
 class Loop:
     """One core under the traffic; `run(steps)` drives steps. `span(name)`
-    wraps each group of calls (a profiler range in a traced run)."""
+    wraps each group of calls (a profiler range in a traced run). With
+    `steps_per_s`, the core's clock is set to the traffic's seconds before
+    every step."""
 
-    def __init__(self, core, inputs: StepInputs, table: ActionTable):
+    def __init__(self, core, inputs: StepInputs, table: ActionTable,
+                 steps_per_s: Optional[float] = None):
         self.core = core
         self.inputs = inputs
         self.row_args = table.row_args
+        self.steps_per_s = steps_per_s
         self.span: Callable = _no_span
         self.due: dict = {}
         self.delays: deque = deque()
         self.queued = 0
         self.step_no = 0
-        #: per step: (chosen, forced, rows, rounds) as the core returned them
+        #: per step: (chosen, forced, rows, rounds, throttled) as the core
+        #: returned them; throttled is None where the result has no flags
         self.results: List[tuple] = []
         self.rows_built = 0
 
     def before_step(self) -> None:
         core, span, s = self.core, self.span, self.step_no
+        if self.steps_per_s is not None:
+            core.set_clock(s / self.steps_per_s)
         due = self.due.pop(s, None)
         flips, acts, delays = self.inputs(s, self.queued)
         if due:
@@ -102,7 +118,8 @@ class Loop:
                     due.setdefault(s + d, []).append(
                         (inv, slot[k], mem[k], maxc[k], keys[k]))
         self.results.append((chosen, res.forced, rows,
-                             getattr(res, "rounds", 0)))
+                             getattr(res, "rounds", 0),
+                             getattr(res, "throttled", None)))
         self.step_no += 1
 
     def run(self, steps: int) -> None:

@@ -8,19 +8,33 @@ file of its own, found by its name:
 - a metric, end to end or per layer: a reader `owbench/metrics/<name>.py`
   whose `read(run)` returns the metric's value, or None where the run has
   nothing for it to read;
-- a kernel's work, for the roofline readers: `owbench/counts/<kernel>.py`.
+- a kernel's work, for the roofline readers: `owbench/counts/<kernel>.py`;
+- a configuration's own reference: `owbench/reference/<name>.py`, named by
+  the configuration's optional key `reference` (default `sharding`).
 
-So a later change adds a configuration, a mix or a metric as new files and
-new entries, and edits none.
+A configuration may also carry `core`, keyword arguments that both sides'
+constructors take beside the fleet's (the balancer core's options), and
+`clock`: `"traffic"` hands both sides the traffic's own seconds before
+every step (`lib/drive.py`).
+
+So a later change adds a configuration, a mix, a metric or a reference as
+new files and new entries, and edits none.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from pathlib import Path
 from typing import Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
+#: the configuration's keys that both sides' constructors take
+SIDE_KEYS = ("cluster_size", "managed_fraction", "blackbox_fraction",
+             "max_batch", "action_slots")
+#: the values of a configuration's `clock`: none, or the traffic's seconds
+CLOCKS = (None, "traffic")
+_MODULE = re.compile(r"[A-Za-z_][A-Za-z0-9_]{0,63}\Z")
 
 
 def load_module(path: Path, name: str):
@@ -38,8 +52,21 @@ class Cell:
     def __init__(self, manifest: "Manifest", entry: dict):
         self.name = entry["name"]
         self.chips = entry["chips"]
+        self.bench = manifest.bench
         conf = manifest.config_entry(entry["config"])
-        self.config = json.loads((manifest.root / conf["file"]).read_text())
+        self.config = cfg = json.loads(
+            (manifest.root / conf["file"]).read_text())
+        self.core = dict(cfg.get("core", {}))
+        if set(self.core) & (set(SIDE_KEYS) | {"placement_kernel"}):
+            raise ValueError(f"{conf['file']}: `core` repeats a key the "
+                             "configuration already gives")
+        self.reference = cfg.get("reference", "sharding")
+        if not _MODULE.match(self.reference):
+            raise ValueError(f"{conf['file']}: no reference module "
+                             f"{self.reference!r}")
+        self.clock = cfg.get("clock")
+        if self.clock not in CLOCKS:
+            raise ValueError(f"{conf['file']}: `clock` is one of {CLOCKS}")
         mix = manifest.bench / "traffic" / f"{entry['traffic']}.json"
         self.mix = json.loads(mix.read_text())
         self.end_to_end = manifest.metrics_of("end_to_end", self.name)
@@ -47,6 +74,22 @@ class Cell:
 
     def metrics(self, trace: bool) -> List[dict]:
         return self.per_layer if trace else self.end_to_end
+
+    @property
+    def fleet(self) -> List[int]:
+        return [self.config["invoker_memory_mb"]] * self.config["invokers"]
+
+    def side_kwargs(self) -> dict:
+        """The keyword arguments both sides' constructors take: the
+        fleet's split, batch and slots, then the configuration's `core`."""
+        kw = {k: self.config[k] for k in SIDE_KEYS}
+        kw.update(self.core)
+        return kw
+
+    def reference_class(self):
+        """`Reference` of the configuration's reference module."""
+        return load_module(self.bench / "reference" / f"{self.reference}.py",
+                           f"owbench_reference_{self.reference}").Reference
 
 
 class Manifest:

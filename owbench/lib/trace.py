@@ -1,7 +1,9 @@
 """The reduction of a `torch.profiler` trace of the measured window.
 
 The harness wraps its calls into the port in named host ranges (`row_build`,
-`flap`, `complete`, `step`) and the whole window in `window`. The device
+`flap`, `complete`, `step`) and the whole window in `window`. The port's
+own ranges inside a step (those named `core.*`, and the fused step's
+`release_fold` / `health_fold` / `schedule`) are `Trace.program`. The device
 intervals are the profiler's CUDA events (kernels, copies, sets) inside the
 window, without the annotations that mirror host ranges on the device.
 """
@@ -12,6 +14,10 @@ from typing import Dict, List, Tuple
 
 HOST_RANGES = ("row_build", "flap", "complete", "step")
 WINDOW = "window"
+#: the prefix of the program's own ranges (`Trace.program`), and the fused
+#: step's ranges that it opens without the prefix
+PROGRAM = "core."
+PROGRAM_FOLDS = ("release_fold", "health_fold", "schedule")
 
 
 def merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -41,7 +47,7 @@ class Trace:
     """Host ranges and device intervals of the window, in microseconds."""
 
     def __init__(self, events):
-        host, cpu_names, dev = [], set(), []
+        host, cpu_names, dev, program = [], set(), [], []
         for name, on_device, start, end in events:
             if on_device:
                 dev.append((start, end, name))
@@ -49,6 +55,8 @@ class Trace:
                 cpu_names.add(name)
                 if name in HOST_RANGES or name == WINDOW:
                     host.append((start, end, name))
+                elif name.startswith(PROGRAM) or name in PROGRAM_FOLDS:
+                    program.append((start, end, name))
         windows = [(s, e) for s, e, n in host if n == WINDOW]
         if len(windows) != 1:
             raise RuntimeError(f"the trace holds {len(windows)} windows")
@@ -59,6 +67,11 @@ class Trace:
             for n in HOST_RANGES}
         self.device = sorted((s, e, n) for s, e, n in dev
                              if n not in cpu_names and self.t0 <= s < self.t1)
+        #: the program's ranges in the window, by name
+        self.program: Dict[str, List[Tuple[float, float]]] = {}
+        for s, e, n in sorted(program):
+            if self.t0 <= s < self.t1:
+                self.program.setdefault(n, []).append((s, e))
         self.merged = merge([(s, min(e, self.t1)) for s, e, _ in self.device])
         self._starts = [s for s, _ in self.merged]
 
@@ -107,3 +120,13 @@ class Trace:
         ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:top]
         return {"device_ops": [[n, v / 1e6] for n, v in ops],
                 "idle_gaps": [[n, g / 1e6] for g, n in gaps[:top]]}
+
+
+def program_idle_us(run, name: str):
+    """Device-idle microseconds a window step inside the program's ranges
+    named `name`; None without a trace, a device or such ranges."""
+    t = run.trace
+    spans = t.program.get(name) if t is not None else None
+    if not spans or not t.device or not run.steps:
+        return None
+    return sum((e - s) - t.busy_us(s, e) for s, e in spans) / run.steps

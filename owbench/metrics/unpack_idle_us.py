@@ -1,0 +1,7 @@
+"""Device-idle microseconds a step inside the program's `core.unpack`
+ranges (unpacking), over the window's steps."""
+from owbench.lib.trace import program_idle_us
+
+
+def read(run):
+    return program_idle_us(run, "core.unpack")

@@ -34,6 +34,12 @@ seeing the books as every earlier row left them.
 `sequential=False` breaks that last guarantee: every row of a step sees
 the books as they stood when the step began (the control that a check of
 the placements has to fail).
+
+`set_clock(now_s)` keeps the traffic's clock (`now_s`), which a
+configuration with `clock: "traffic"` sets before every step; this
+placement policy reads no time. A configuration's own reference
+(`owbench/reference/<name>.py`, a subclass of this `Reference` as a rule)
+takes the configuration's `core` options as keywords.
 """
 from __future__ import annotations
 
@@ -134,6 +140,8 @@ class Reference:
         #: its walk up to the first that could take it, and of the forced
         #: rotation up to the first healthy invoker
         self._cost = (0, 0)
+        #: the traffic's seconds, as the last `set_clock` gave them
+        self.now_s = 0.0
 
     # -- the concurrency slots ------------------------------------------
     def _acquire(self, key: str) -> int:
@@ -185,6 +193,9 @@ class Reference:
     def set_health(self, idx: int, usable: bool) -> None:
         self._flips[idx] = bool(usable)
 
+    def set_clock(self, now_s: float) -> None:
+        self.now_s = float(now_s)
+
     def step(self) -> Result:
         b = min(len(self._queued), self.max_batch)
         k = min(len(self._releases), self.max_batch)
@@ -232,12 +243,15 @@ class Reference:
         """(invoker, forced) for one row against the books as they stand;
         (-1, False) when the slice has no healthy invoker.
 
-        A deep walk starts where the pool's last walk stopped, unless an
-        invoker has gained room or health since: every position before it
-        was full then, and a placement only takes room. Such an invoker's
-        position in this walk is its rank, (local - home) * step_inv mod
-        size, and the walk starts at the lowest of them."""
+        A deep walk resumes where the pool's last walk stopped: every
+        position before it was full then, and a placement only takes room.
+        So before it only an invoker that has gained room or health since
+        can take the row. Such an invoker's position in this walk is its
+        rank, (local - home) * step_inv mod size, and the walk starts at
+        the lowest of them; after a walk that found nothing, at the lowest
+        of those that can take the row now (the others are full)."""
         start, walk = 0, self._walks.get(key)
+        conc = self.conc[slot]
         if walk is not None and walk[2] == slot and walk[0] >= DEEP_WALK:
             start, seen = walk[0], walk[1]
             if self._n_rose - seen > HINT_LOG_LIMIT:
@@ -245,23 +259,35 @@ class Reference:
             elif self._n_rose > seen:
                 loc = self._rose[seen:self._n_rose] - offset
                 loc = loc[(loc >= 0) & (loc < size)]
-                if len(loc):
-                    start = min(start, int(((loc - home) * step_inv
-                                            % size).min()))
-        sel, k = self._walk(start, offset, size, home, step, need,
-                            self.conc[slot])
+                ranks = (loc - home) * step_inv % size
+                if start == size and len(ranks):
+                    js = offset + loc
+                    ranks = ranks[self.health[js] & (
+                        (conc[js] > 0) | (self.free[js] >= need))]
+                if len(ranks):
+                    start = min(start, int(ranks.min()))
+        sel, k = self._walk(start, offset, size, home, step, need, conc)
         self._walks[key] = [k, self._n_rose, slot]
         if sel >= 0:
             self._cost = (k + 1, 0)
             return sel, False
+        sel, hit = self._rotate(offset, size, rand)
+        self._cost = (size, hit + 1 if sel >= 0 else size)
+        return sel, sel >= 0
+
+    def _rotate(self, offset, size, rand):
+        """(invoker, position) of the first healthy invoker of the forced
+        rotation rand, rand + 1, ... over the slice; (-1, size) when none
+        is healthy."""
+        health, j = self._health, rand
+        for t in range(min(size, SCALAR_PROBES)):
+            if health[offset + j]:
+                return offset + j, t
+            j = j + 1 if j + 1 < size else 0
         js = offset + (rand + np.arange(size, dtype=np.int64)) % size
         ok = self.health[js]
         hit = int(ok.argmax())
-        if not ok[hit]:
-            self._cost = (size, size)
-            return -1, False
-        self._cost = (size, hit + 1)
-        return int(js[hit]), True
+        return (int(js[hit]), hit) if ok[hit] else (-1, size)
 
     def _walk(self, k, offset, size, home, step, need, conc):
         """(invoker, position) of the first invoker from position k of the

@@ -42,7 +42,10 @@ def test_the_reference_imports_nothing_of_the_port():
     for path in (BENCH / "reference").rglob("*.py"):
         names = set(_top_level_imports(path))
         assert "openwhisk_tpu_torch" not in names and not names & JAX_SIDE
-    loaded = _loaded_after("import owbench.reference.sharding")
+    loaded = _loaded_after("\n".join(
+        f"import owbench.reference.{p.stem}"
+        for p in sorted((BENCH / "reference").glob("*.py"))
+        if p.stem != "__init__"))
     assert not loaded & (JAX_SIDE | {"openwhisk_tpu_torch", "torch"})
 
 

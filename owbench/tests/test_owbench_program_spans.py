@@ -1,9 +1,11 @@
 """The port opens ranges of its own inside `BalancerCore.step`
 (`core.assembly`, `core.dispatch`, `core.readback`, `core.unpack`, with the
 fused step's `release_fold` / `health_fold` / `schedule` inside the
-dispatch). They change no reading of the harness: every per-layer reader
-and the breakdown read the same numbers from a trace that holds them, and
-their mirrors on the device, as from one that does not."""
+dispatch). They change no other reading of the harness: every per-layer
+reader but those of the program's own ranges and counters, and the
+breakdown, read the same numbers from a trace that holds them, and their
+mirrors on the device, as from one that does not. The readers of the
+program's ranges and counters read nothing without them."""
 import pytest
 from conftest import ROOT
 
@@ -12,6 +14,10 @@ from owbench.lib.manifest import Manifest, read_metrics
 from owbench.lib.trace import Trace
 
 STEPS = (100.0, 500.0)
+#: the readers of the program's own ranges and counters
+PROGRAM_READERS = {"assembly_idle_us", "dispatch_idle_us", "readback_idle_us",
+                   "unpack_idle_us", "release_backlog_rows",
+                   "repair_resumed_share", "forced_share"}
 WORK = {"schedule": {"probes": 400, "rotation_keys": 0, "rows": 16,
                      "probe_columns": 90, "rotation_columns": 0,
                      "permit_cells": 0, "cells_changed": 16},
@@ -54,6 +60,9 @@ def _run(manifest, program: bool) -> Run:
               decided=32, rows_built=32, rounds=[3, 5], gc_pause_s=1e-5,
               work=[WORK] * len(STEPS))
     run.trace = Trace(_events(program))
+    if program:
+        run.counters = {"releases_left": 10, "repair_rows_probed": 200,
+                        "repair_rows_resumed": 150, "forced": 4}
     return run
 
 
@@ -62,11 +71,22 @@ def test_every_reader_and_the_breakdown_ignore_the_programs_ranges():
     per_layer = manifest.doc["per_layer"]
     without, with_ = _run(manifest, False), _run(manifest, True)
     want = read_metrics(manifest, per_layer, without)
-    assert sorted(want) == sorted(m["name"] for m in per_layer)
-    assert read_metrics(manifest, per_layer, with_) == want
+    assert sorted(want) == sorted(m["name"] for m in per_layer
+                                  if m["name"] not in PROGRAM_READERS)
+    got = read_metrics(manifest, per_layer, with_)
+    assert {k: v for k, v in got.items() if k not in PROGRAM_READERS} == want
+    assert set(got) - set(want) == PROGRAM_READERS
     assert with_.trace.breakdown() == without.trace.breakdown()
     assert (with_.trace.spans, with_.trace.device, with_.trace.merged) == (
         without.trace.spans, without.trace.device, without.trace.merged)
     # the fixture's own numbers: 182 device-busy us of each 300 us step
     assert want["fused_step_device_ms"]["value"] == pytest.approx(0.182)
     assert want["step_host_ms"]["value"] == pytest.approx(0.118)
+    # each range less the copies and kernels inside it, a step; the
+    # counters over the window's 2 steps and 32 rows
+    values = {k: v["value"] for k, v in got.items() if k in PROGRAM_READERS}
+    assert values == pytest.approx({
+        "assembly_idle_us": 28.0, "dispatch_idle_us": 20.0,
+        "readback_idle_us": 9.0, "unpack_idle_us": 57.0,
+        "release_backlog_rows": 5.0, "repair_resumed_share": 75.0,
+        "forced_share": 12.5})

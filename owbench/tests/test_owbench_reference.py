@@ -107,3 +107,17 @@ def test_control_breaks_the_sequential_guarantee():
                  for a, b in zip(exact.results, control.results))
     assert differ > 0
     assert (control.core.free < 0).any() and not (exact.core.free < 0).any()
+
+
+@pytest.mark.parametrize("down", [0, 3, 6, 7, 40, 18])
+def test_forced_rotation_takes_the_first_healthy_invoker(down):
+    """The rotation from a row's random start over an 18-invoker managed
+    slice, with the first `down` invokers of it unhealthy: the scalar
+    probes and the vectorised rest agree with the rotation's definition."""
+    ref = Reference([1024] * 20, managed_fraction=0.9, blackbox_fraction=0.1,
+                    max_batch=8, action_slots=4)
+    rand = 11
+    for t in range(down):
+        ref.health[(rand + t) % 18] = ref._health[(rand + t) % 18] = False
+    got = ref._rotate(0, 18, rand)
+    assert got == (((rand + down) % 18, down) if down < 18 else (-1, 18))
