@@ -143,6 +143,10 @@ MIN_PAD = 64
 
 #: request-row index of the concurrency slot
 R_CONC_SLOT = 5
+#: namespace-bucket axis for device rate admission, and its tail sub-range
+#: shared by namespaces past the dedicated ones
+RATE_NS_BUCKETS = 1024
+RATE_NS_SHARED_BUCKETS = 64
 
 
 @dataclass(frozen=True)
@@ -444,6 +448,23 @@ def _empty_books_like(state):
             if isinstance(state, ShardedState) else empty_books_like(state))
 
 
+def namespace_bucket(slots: Dict[str, int], ns_id: str,
+                     buckets: int = RATE_NS_BUCKETS,
+                     shared: int = RATE_NS_SHARED_BUCKETS) -> int:
+    """The rate bucket of namespace `ns_id`: a dedicated bucket to each
+    namespace in order of first sight (kept in `slots`), up to `buckets -
+    shared` of them; past that, crc32 into the shared tail, never onto a
+    dedicated tenant's bucket."""
+    slot = slots.get(ns_id)
+    if slot is None:
+        dedicated = buckets - shared
+        if len(slots) < dedicated:
+            slot = slots[ns_id] = len(slots)
+        else:
+            slot = dedicated + zlib.crc32(ns_id.encode()) % shared
+    return slot
+
+
 def bucket(n: int, cap: int) -> int:
     """Power-of-two batch buckets, at least 8, at most `cap`."""
     b = 8
@@ -488,13 +509,28 @@ def pack_health(updates: Dict[int, bool], h: int) -> np.ndarray:
     return out
 
 
-class StepResult(NamedTuple):
-    chosen: np.ndarray      # int32[b]: invoker index, -1 = no invokers
+class _StepFields(NamedTuple):
+    chosen: np.ndarray      # int32[b]: invoker index, -1 = none or throttled
     forced: np.ndarray      # bool[b]
     rounds: int             # repair rounds (0 for the scan)
     bucket: int             # padded batch width the step ran at
-    rows: np.ndarray        # int32[9, b]: the request rows placed
+    rows: np.ndarray        # int32[9, b] (10 with rate admission): the rows
     slot_keys: List[str]    # the rows' concurrency-slot keys
+
+
+class StepResult(_StepFields):
+    """One step's decisions: the six fields, and beside them `throttled`,
+    bool[b] with rate admission (the rows over their namespace's rate),
+    None without. `throttled` is an attribute, not a field: the tuple and
+    `_asdict()` are the six fields with and without admission, so code
+    that rebuilds a result from them with flags of its own still can."""
+
+    throttled: Optional[np.ndarray] = None
+
+    def __new__(cls, *fields, throttled: Optional[np.ndarray] = None):
+        self = super().__new__(cls, *fields)
+        self.throttled = throttled
+        return self
 
 
 class BalancerCore:
@@ -503,14 +539,22 @@ class BalancerCore:
     `invoker_memory_mb[i]` is invoker i's user memory; every invoker starts
     healthy. Rows come from `build_row`, queue with `submit`, and each
     `step()` places up to `max_batch` of them together with the queued
-    releases (`complete`) and health flips (`set_health`)."""
+    releases (`complete`) and health flips (`set_health`).
+
+    With `rate_limit_per_minute` each step first admits its rows against
+    per-namespace token buckets (`ops/throttle.py`, `TpuBalancer`'s rate
+    admission): a row carries its namespace's bucket as a tenth field, the
+    buckets refill to the clock `set_clock` last gave (small-magnitude
+    seconds), and a row over its namespace's rate comes back throttled,
+    unplaced."""
 
     HEALTH_BATCH = 64
 
     def __init__(self, invoker_memory_mb: Sequence[int], *, device=None,
                  cluster_size: int = 1, managed_fraction: float = 0.9,
                  blackbox_fraction: float = 0.1, max_batch: int = 256,
-                 action_slots: int = 4096, placement_kernel: str = "auto"):
+                 action_slots: int = 4096, placement_kernel: str = "auto",
+                 rate_limit_per_minute: Optional[int] = None):
         self.device = resolve_device(device)
         self.memory_mb = [int(m) for m in invoker_memory_mb]
         if not self.memory_mb:
@@ -525,7 +569,16 @@ class BalancerCore:
 
         sched, release, _ = device_pair(self.device, placement_kernel,
                                         counted=True)
-        self._packed_fn = make_fused_step_packed(release, sched)
+        self._buckets = None
+        if rate_limit_per_minute is None:
+            self._packed_fn = make_fused_step_packed(release, sched)
+        else:
+            self._packed_fn = make_fused_admit_step_packed(release, sched)
+            self._buckets = init_buckets(RATE_NS_BUCKETS,
+                                         rate_limit_per_minute,
+                                         device=self.device)
+        self._ns_buckets: Dict[str, int] = {}
+        self._now = np.float32(0.0)
         self._release_packed_fn = make_release_packed(release)
         self.state: PlacementState = init_state(
             len(self.memory_mb), [self._slot_mb(m) for m in self.memory_mb],
@@ -534,7 +587,8 @@ class BalancerCore:
         self._healthy = [True] * len(self.memory_mb)
         self._slots = _SlotAllocator(action_slots)
         self._rand_counter = 0
-        self._req_ring = ColumnRing(9, max_batch)
+        self._req_rows = 9 if self._buckets is None else 10
+        self._req_ring = ColumnRing(self._req_rows, max_batch)
         self._queued: deque = deque()     # (slot_key, slot) per queued row
         self._rel_ring = ColumnRing(4, max_batch)
         self._releases: deque = deque()   # (slot_key, slot) per release
@@ -544,11 +598,12 @@ class BalancerCore:
         #: repair_rows_probed / _resumed, repair_resume_misses: the card's
         #: repair kernel's counts, summed over its launches (rows probed,
         #: of them resumed from their last round's rank, resumed rows that
-        #: probed their whole window after all; the CPU counts none)
+        #: probed their whole window after all; the CPU counts none);
+        #: throttled: rows over their namespace's rate (0 without admission)
         self.counters = {"steps": 0, "placed": 0, "forced": 0,
                          "releases_left": 0, "repair_rows_probed": 0,
                          "repair_rows_resumed": 0,
-                         "repair_resume_misses": 0}
+                         "repair_resume_misses": 0, "throttled": 0}
 
     # -- registry ----------------------------------------------------------
     @property
@@ -571,7 +626,8 @@ class BalancerCore:
         """One request row in packed-matrix order plus its slot key — the
         JAX balancer's `_build_row` arithmetic: the home hash, the probe
         step's inverse, the forced-rotation mix of `_rand_counter`, and a
-        concurrency slot acquired for `f"{fqn}:{mem}"`."""
+        concurrency slot acquired for `f"{fqn}:{mem}"`; with rate admission
+        then the namespace's bucket (`namespace_bucket`)."""
         n = self.n
         size = self.blackbox_count if blackbox else self.managed_count
         offset = (n - self.blackbox_count) if blackbox else 0
@@ -583,6 +639,8 @@ class BalancerCore:
         req = (offset, size, h % size, step_inv, memory_mb,
                self._slots.acquire(slot_key), max_conc,
                (h ^ (self._rand_counter * 2654435761)) % max(size, 1), 1)
+        if self._buckets is not None:
+            req += (namespace_bucket(self._ns_buckets, namespace),)
         return req, slot_key
 
     def submit(self, rows) -> None:
@@ -602,6 +660,12 @@ class BalancerCore:
         self._healthy[idx] = bool(usable)
         self._health_updates[idx] = bool(usable)
 
+    def set_clock(self, now_s: float) -> None:
+        """The clock the next steps' rate admission refills to: seconds of
+        small magnitude (see `ops/throttle.py`), read as float32. Without
+        admission nothing reads it."""
+        self._now = np.float32(now_s)
+
     # -- packing -----------------------------------------------------------
     _bucket = staticmethod(bucket)
 
@@ -619,23 +683,26 @@ class BalancerCore:
         """Place up to max_batch queued rows: one packed host buffer, one
         host->device copy, one fused step (release fold, health fold,
         schedule), one device->host copy of the B+1 decision vector. Rows
-        that found no invoker give their slot back. With nothing queued
-        the step only folds releases and health.
+        that found no invoker, or were throttled, give their slot back.
+        With nothing queued the step only folds releases and health.
 
         While a profiler records, the step's phases are the ranges
         `core.assembly` (packing), `core.dispatch` (the copy and the
-        fused step's launches), `core.readback` (the host waiting on the
-        card) and `core.unpack` (decisions, slots, counters)."""
+        fused step's launches; the rate admission's are `core.admit`
+        inside it), `core.readback` (the host waiting on the card) and
+        `core.unpack` (decisions, slots, counters)."""
         b = min(len(self._queued), self.max_batch)
+        admit = self._buckets is not None
         if b == 0:
             self._idle_fold()
             return StepResult(np.zeros(0, np.int32), np.zeros(0, bool), 0, 0,
-                              np.zeros((9, 0), np.int32), [])
+                              np.zeros((self._req_rows, 0), np.int32), [],
+                              throttled=np.zeros(0, bool) if admit else None)
         with span("core.assembly"):
             n_rel = min(len(self._releases), self.max_batch)
             bp = max(self._bucket(b, self.max_batch),
                      self._bucket(n_rel, self.max_batch) if n_rel else 8)
-            req_np = np.zeros((9, bp), np.int32)
+            req_np = np.zeros((self._req_rows, bp), np.int32)
             req_np[1, b:] = 1  # padded columns: size 1, max_conc 1, invalid
             req_np[6, b:] = 1
             self._req_ring.pop_into(req_np, b)
@@ -644,15 +711,21 @@ class BalancerCore:
             buf = np.concatenate([rel_np.ravel(), health_np.ravel(),
                                   req_np.ravel()])
         with span("core.dispatch"):
-            self.state, out = self._packed_fn(
-                self.state, torch.from_numpy(buf).to(self.device),
-                rel_np.shape[1], health_np.shape[1], bp)
+            dbuf = torch.from_numpy(buf).to(self.device)
+            sizes = (rel_np.shape[1], health_np.shape[1], bp)
+            if admit:
+                (self.state, self._buckets), out = self._packed_fn(
+                    (self.state, self._buckets), dbuf, self._now, *sizes)
+            else:
+                self.state, out = self._packed_fn(self.state, dbuf, *sizes)
         with span("core.readback"):
             host = out.cpu().numpy()
         with span("core.unpack"):
             # B decisions, the rounds, then the repair kernel's counts
-            chosen, forced, _, rounds = unpack_step_output(host[:bp + 1])
+            chosen, forced, throttled, rounds = unpack_step_output(
+                host[:bp + 1])
             chosen, forced = chosen[:b], forced[:b]
+            throttled = throttled[:b] if admit else None
             if len(host) > bp + 1:
                 probed, resumed, misses = host[bp + 1:bp + 4].tolist()
                 self.counters["repair_rows_probed"] += probed
@@ -660,13 +733,15 @@ class BalancerCore:
                 self.counters["repair_resume_misses"] += misses
             keys = [self._queued.popleft() for _ in range(b)]
             for (key, slot), inv in zip(keys, chosen):
-                if inv < 0:  # no invokers: the slot is released
+                if inv < 0:  # no invokers or throttled: the slot is released
                     self._slots.release(key, slot)
             self.counters["steps"] += 1
             self.counters["placed"] += int((chosen >= 0).sum())
             self.counters["forced"] += int(forced.sum())
+            if admit:
+                self.counters["throttled"] += int(throttled.sum())
         return StepResult(chosen, forced, rounds, bp, req_np[:, :b],
-                          [k for k, _ in keys])
+                          [k for k, _ in keys], throttled=throttled)
 
     def _idle_fold(self) -> None:
         if self._releases:
@@ -724,8 +799,8 @@ class TpuBalancer(CommonLoadBalancer):
     R_NEED_MB, R_CONC_SLOT, R_MAX_CONC = 4, 5, 6
     #: namespace-bucket axis for device rate admission, and its tail
     #: sub-range shared by namespaces past the dedicated ones
-    RATE_NS_BUCKETS = 1024
-    RATE_NS_SHARED_BUCKETS = 64
+    RATE_NS_BUCKETS = RATE_NS_BUCKETS
+    RATE_NS_SHARED_BUCKETS = RATE_NS_SHARED_BUCKETS
     #: health flips drained per device step (leftovers roll over)
     HEALTH_BATCH = 64
     #: below this readback round trip the device counts as fast: eager
@@ -1856,18 +1931,8 @@ class TpuBalancer(CommonLoadBalancer):
         return None
 
     def _ns_slot(self, ns_id: str) -> int:
-        slot = self._ns_slots.get(ns_id)
-        if slot is None:
-            dedicated = self.RATE_NS_BUCKETS - self.RATE_NS_SHARED_BUCKETS
-            if len(self._ns_slots) < dedicated:
-                slot = len(self._ns_slots)
-                self._ns_slots[ns_id] = slot
-            else:
-                # dedicated range full: hash into the SHARED tail
-                # sub-range, never onto a dedicated tenant's bucket
-                slot = dedicated + (zlib.crc32(ns_id.encode())
-                                    % self.RATE_NS_SHARED_BUCKETS)
-        return slot
+        return namespace_bucket(self._ns_slots, ns_id, self.RATE_NS_BUCKETS,
+                                self.RATE_NS_SHARED_BUCKETS)
 
     def _build_row(self, action: ExecutableWhiskAction,
                    msg: ActivationMessage) -> tuple:

@@ -729,9 +729,11 @@ def make_fused_admit_step_packed(release_fn=None, schedule_fn=None):
       row, ns_slot (the balancer's namespace -> bucket index); `now` is
       the balancer's small-magnitude clock in seconds.
       out int32[B + 1]: ((chosen+1)<<2) | throttled<<1 | forced, then the
-      repair-round count.
+      repair-round count (int32[B + 4] with the card's counted repair, as
+      `make_fused_step_packed` appends it).
 
-    The books are updated in place; the bucket state comes back new."""
+    The admission is the range `core.admit` while a profiler records. The
+    books are updated in place; the bucket state comes back new."""
     from .throttle import admit_batch
 
     fused = make_fused_step(release_fn, schedule_fn)
@@ -742,7 +744,8 @@ def make_fused_admit_step_packed(release_fn=None, schedule_fn=None):
         health = buf[5 * R:5 * R + 3 * H].view(3, H)
         req = buf[5 * R + 3 * H:].view(10, B)
         valid = req[8].bool()
-        buckets, admitted = admit_batch(buckets, now, req[9], valid)
+        with span("core.admit"):
+            buckets, admitted = admit_batch(buckets, now, req[9], valid)
         throttled = valid & ~admitted
         batch = RequestBatch(req[0], req[1], req[2], req[3], req[4], req[5],
                              req[6], req[7], admitted)
@@ -751,7 +754,7 @@ def make_fused_admit_step_packed(release_fn=None, schedule_fn=None):
             health[0], health[1].bool(), health[2].bool(), batch)
         out = (((chosen + 1) << 2) | (throttled.to(I32) << 1)
                | forced.to(I32))
-        return (state, buckets), torch.cat([out, rounds.reshape(1).to(I32)])
+        return (state, buckets), torch.cat([out, rounds.reshape(-1).to(I32)])
 
     return packed
 
