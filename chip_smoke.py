@@ -30,17 +30,26 @@ Phases, each reported on its own line:
               Zipf(1.1) mix over 2,000 actions with completions 1-8 steps
               later and 1% of the invokers flapping every 20 steps, a
               trickle of 1-16-row steps (the scan kernel) and an overload
-              burst under a blackbox outage (forced placements). Steps
-              150-179 run under `torch.profiler` (the "profile" line:
-              device time by kernel kind, the device's idle share and
-              longest idle gaps, host time and device span of each phase of
-              the fused step, the repair kernel's ms per launch and per
-              round); the inputs of step 200's repair launch and
-              release fold and of the first scan launch from step 360 on
-              (a trickle step) are kept, every kernel must launch, and every scan launch of the run is timed with CUDA
-              events. The first 110
-              steps are replayed through `BalancerCore(device="cpu")` and
-              must agree in decisions, rounds and books.
+              burst under a blackbox outage (forced placements). Each
+              step replays its shape's CUDA graph as the system does; a
+              shape's first step on the live books runs eagerly and is
+              captured. The books move to new storage (a copy) before
+              steps 40, 200 and 360, so every shape is captured anew
+              there: the "main_path" line's `graph` counts must read one
+              capture a shape and books, a replay every other step, no
+              fallback. Steps 150-179 (replays) run under
+              `torch.profiler` (the "profile" line: device time by
+              kernel kind, the device's idle share and longest idle
+              gaps, the repair kernel's ms per launch and per round);
+              step latencies leave out the capturing steps. The inputs
+              of step 200's repair launch and release fold and of the
+              first scan launch from step 360 on (a trickle step) are
+              kept at those eager steps; every kernel must launch at an
+              eager step, and every eager scan launch is timed with
+              CUDA events. The first 110 steps (a recapture at step 40
+              among them) are replayed through
+              `BalancerCore(device="cpu")` and must agree in decisions,
+              rounds and books.
   5. each kernel on its kept main-path batch: held against the plain
      version, timed with and without a penalty, with its bound from the
      same inputs (the release fold against both plain folds, timed); its cost per round (repair) or per request (scan) on
@@ -61,9 +70,10 @@ Phases, each reported on its own line:
               scan launch's batch is held against the plain version and
               timed the same way.
   6. scan-pinned main path: `BalancerCore(placement_kernel="scan")`, 40 full
-     256-row steps of the same traffic (step p50, scan launches, each
-     launch timed with CUDA events); its first 10 steps are replayed on
-     the CPU and must agree in decisions and books.
+     256-row steps of the same traffic, one capture and 39 replays (step
+     p50 over replays 1-29, the scan kernel's device time a launch from
+     the profiler over replays 30-39); its first 10 steps are replayed
+     on the CPU and must agree in decisions and books.
   6b. planes  the device planes at the full fleet (N = 16,384, 24 latency
               buckets, 256 namespace rows): the telemetry fold
               (`record_packed`) on the card against the NumPy twin at
@@ -1126,11 +1136,11 @@ def capture_next(TB, attr):
     real = getattr(TB, attr)
     box = {}
 
-    def keep(state, batch, penalty=None):
+    def keep(state, batch, penalty=None, **kw):
         if not box:
             box["state"] = tuple(t.clone() for t in state)
             box["batch"] = type(batch)(*(c.clone() for c in batch))
-        return real(state, batch, penalty)
+        return real(state, batch, penalty, **kw)
 
     setattr(TB, attr, keep)
     return box, lambda: setattr(TB, attr, real)
@@ -1139,11 +1149,15 @@ def capture_next(TB, attr):
 def time_launches(TB, attr):
     """Route the balancer's launches of kernel wrapper `attr` through a
     wrapper that brackets each with CUDA events (no synchronisation).
-    Returns (event pairs, undo)."""
+    A launch recorded into a CUDA graph is not timed: it runs only in the
+    graph's replays, which pass by the wrapper. Returns (event pairs,
+    undo)."""
     real = getattr(TB, attr)
     pairs = []
 
     def timed(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return real(*args, **kw)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1187,8 +1201,8 @@ def device_profile(prof, torch, rounds):
     """Device time by kernel kind, the device's idle share over the
     profiled window and inside the steps (host range "balancer_step"), its
     longest idle gaps, the host time and device span of each named phase
-    of the fused step, and the repair kernel's time per launch and per
-    round."""
+    of the fused step (a replayed step opens none of them), and the repair
+    kernel's time per launch and per round."""
     cpu_t, cuda_t = torch.autograd.DeviceType.CPU, \
         torch.autograd.DeviceType.CUDA
     spans = ("balancer_step", "release_fold", "health_fold", "schedule")
@@ -1201,8 +1215,11 @@ def device_profile(prof, torch, rounds):
                 (e.time_range.start, e.time_range.end))
     steps = host["balancer_step"]
     t0, t1 = min(s for s, _ in steps), max(e for _, e in steps)
+    # the device's mirrors of host ranges (the core's `core.*` cover a
+    # replayed graph's kernels) are spans, not work
     dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in evs
                  if e.device_type == cuda_t and e.name not in spans
+                 and not e.name.startswith("core.")
                  and t0 <= e.time_range.start < t1)
     by_kind, by_name, repair_us = {}, {}, []
     for s, e, name in dev:
@@ -1264,8 +1281,38 @@ def device_profile(prof, torch, rounds):
 PROFILE_FROM, PROFILE_STEPS = 150, 30
 CAPTURE_STEP = 200
 SCAN_CAPTURE_FROM = 360
-#: full steps of the scan-pinned main path, and how many the CPU replays
-PINNED_STEPS, PINNED_CPU_STEPS = 40, 10
+#: the steps before which the main path's books move to new storage, so
+#: each step shape is captured anew (and the kept launches run eagerly)
+MOVE_BOOKS_AT = (40, CAPTURE_STEP, SCAN_CAPTURE_FROM)
+#: full steps of the scan-pinned main path, how many the CPU replays, and
+#: the first of its steps under the profiler
+PINNED_STEPS, PINNED_CPU_STEPS, PINNED_PROFILE_FROM = 40, 10, 30
+
+
+def move_books(core, TB):
+    """Hand `core` a copy of its books in new storage, as a resize would:
+    its step graphs no longer hold, and each shape is captured anew."""
+    books = TB.empty_books_like(core.state)
+    for new, old in zip(books, core.state):
+        new.copy_(old)
+    core.state = books
+
+
+def graph_counts(core, log):
+    """The core's graph counters beside what `log` (the step's bucket and
+    books' epoch, per step) asks for: a capture at each shape's first step
+    on each storage of the books, a replay at every other step."""
+    shapes = len(set(log))
+    c = core.counters
+    return dict(captures=c["graph_captures"], replays=c["graph_replays"],
+                fallbacks=c["graph_fallbacks"], shapes=shapes,
+                steps=len(log), capture_errors=len(core._capture_errors))
+
+
+def graph_counts_ok(g):
+    return (g["captures"] == g["shapes"] and g["fallbacks"] == 0
+            and g["replays"] == g["steps"] - g["shapes"]
+            and g["capture_errors"] == 0)
 
 
 def main_path_phase(torch, K, TB):
@@ -1282,17 +1329,23 @@ def main_path_phase(torch, K, TB):
     books_at = prof = box = undo = sbox = sundo = scan_kept_at = None
     rbox = rundo = None
     profiled = range(PROFILE_FROM, PROFILE_FROM + PROFILE_STEPS)
-    forced = placed = 0
+    forced = placed = epoch = 0
+    shape_log, untimed, capture_ms = [], set(profiled), []
     t_all = time.perf_counter()
     for k, (name, res, dt) in enumerate(drive(gpu, traffic, plan)):
         gpu_log.append((res.chosen, res.forced, res.rounds))
+        shape_log.append((res.bucket, epoch))
+        if gpu.counters["graph_captures"] + gpu.counters[
+                "graph_fallbacks"] > len(capture_ms):
+            capture_ms.append(dt * 1e3)
+            untimed.add(k)
         if sundo is not None and sbox:  # this step's scan launch was kept
             sundo()
             sundo, scan_kept_at = None, k
         if k in profiled:
             if res.bucket >= 32:
                 prof_rounds.append(res.rounds)
-        elif k not in (CAPTURE_STEP, scan_kept_at):
+        elif k not in untimed:
             times.setdefault(name, []).append(dt)
         if res.bucket >= 32:
             rounds.append(res.rounds)
@@ -1304,6 +1357,9 @@ def main_path_phase(torch, K, TB):
             torch.cuda.synchronize()
             books_at = gpu.books()
         # the loop body runs between steps k and k + 1
+        if k + 1 in MOVE_BOOKS_AT:
+            move_books(gpu, TB)
+            epoch += 1
         if k + 1 == PROFILE_FROM:
             torch.cuda.synchronize()
             prof = torch.profiler.profile(activities=[
@@ -1329,8 +1385,8 @@ def main_path_phase(torch, K, TB):
     full = np.array(times["full"]) * 1e3
     full_placed = sum(int((r[0] >= 0).sum()) for k, ((nm, *_), r) in
                       enumerate(zip(plan, gpu_log))
-                      if nm == "full" and k not in profiled
-                      and k != CAPTURE_STEP)
+                      if nm == "full" and k not in untimed)
+    graph = graph_counts(gpu, shape_log)
     free, _, _ = gpu.books()
     require(np.isfinite(free).all() and free.shape == (N_PAD,), "books")
     summary = dict(
@@ -1341,14 +1397,18 @@ def main_path_phase(torch, K, TB):
         step_p99_ms=float(np.percentile(full, 99)),
         trickle_p50_ms=float(np.percentile(np.array(times["trickle"]) * 1e3,
                                            50)),
-        mean_repair_rounds=float(np.mean(rounds)), launches=launches,
-        scan_ms_per_launch=scan_ms, scan_kept_at_step=scan_kept_at,
+        mean_repair_rounds=float(np.mean(rounds)), graph=graph,
+        capture_step_ms=capture_ms, eager_launches=launches,
+        scan_ms_per_eager_launch=scan_ms, scan_kept_at_step=scan_kept_at,
         counters=gpu.counters)
     say("main_path", **summary)
+    require(graph_counts_ok(graph),
+            f"one capture a shape and books, replays else: {graph}")
     require(launches["scan"] > 0 and launches["repair"] > 0
             and launches["release"] > 0,
             f"every kernel launched on the main path: {launches}")
-    require(scan_timed == launches["scan"], "every scan launch was timed")
+    require(scan_timed == launches["scan"],
+            "every eager scan launch was timed")
     require(forced > 0, "the overload burst forced placements")
     profile = device_profile(prof, torch, prof_rounds)
     say("profile", **profile)
@@ -1381,32 +1441,48 @@ def main_path_phase(torch, K, TB):
 def scan_pinned_phase(torch, K, TB):
     """The main path with the scan on every bucket: PINNED_STEPS full
     256-row steps of the same traffic through
-    `BalancerCore(placement_kernel="scan")`, each scan launch timed with
-    CUDA events; the first PINNED_CPU_STEPS replayed on the CPU."""
+    `BalancerCore(placement_kernel="scan")`, the first eager and captured,
+    the rest replays; the scan kernel's device time a launch from the
+    profiler over the steps from PINNED_PROFILE_FROM on, the step p50 over
+    the replays before them; the first PINNED_CPU_STEPS replayed on the
+    CPU."""
     mem = [MEM_MB] * N_INV
     kw = dict(managed_fraction=0.9, blackbox_fraction=0.1,
               max_batch=MAX_BATCH, action_slots=A, placement_kernel="scan")
     plan = [("full", MAX_BATCH, False, None)] * PINNED_STEPS
     gpu = TB.BalancerCore(mem, device=DEVICE, **kw)
-    events, untime = time_launches(TB, "schedule_batch_cuda")
     K.reset_launch_counts()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
     log, step_ms, books_at = [], [], None
     for k, (_, res, dt) in enumerate(drive(gpu, Traffic(seed=7), plan)):
         log.append((res.chosen, res.forced))
-        step_ms.append(dt * 1e3)
+        if 0 < k < PINNED_PROFILE_FROM:
+            step_ms.append(dt * 1e3)
         require(res.bucket == MAX_BATCH and res.rounds == 0,
                 "full steps on the scan")
         if k + 1 == PINNED_CPU_STEPS:
             torch.cuda.synchronize()
             books_at = gpu.books()
+        if k + 1 == PINNED_PROFILE_FROM:
+            torch.cuda.synchronize()
+            prof.start()
+    torch.cuda.synchronize()
+    prof.stop()
     launches = {"scan": K.schedule_batch_cuda.launches,
                 "repair": K.schedule_batch_repair_cuda.launches}
-    untime()
-    torch.cuda.synchronize()
-    kernel_ms, timed = launch_ms(events)
-    require(launches["scan"] == PINNED_STEPS and launches["repair"] == 0
-            and timed == PINNED_STEPS,
-            f"the scan alone ran the pinned path: {launches}")
+    cuda_t = torch.autograd.DeviceType.CUDA
+    scan_us = [e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == cuda_t and "placement_scan" in e.name]
+    kernel_ms = float(np.mean(scan_us)) / 1e3 if scan_us else None
+    graph = graph_counts(gpu, [MAX_BATCH] * PINNED_STEPS)
+    require(graph_counts_ok(graph),
+            f"one capture, replays else, on the pinned path: {graph}")
+    require(launches["scan"] == 1 and launches["repair"] == 0
+            and len(scan_us) == PINNED_STEPS - PINNED_PROFILE_FROM,
+            f"the scan alone ran the pinned path: {launches}, "
+            f"{len(scan_us)} profiled scan launches")
     cpu = TB.BalancerCore(mem, device="cpu", **kw)
     t0 = time.perf_counter()
     mismatches = 0
@@ -1418,7 +1494,9 @@ def scan_pinned_phase(torch, K, TB):
     books_equal = all(np.array_equal(x, y)
                       for x, y in zip(cpu.books(), books_at))
     out = dict(steps=PINNED_STEPS, step_p50_ms=float(np.median(step_ms)),
-               launches=launches, kernel_ms_per_launch=kernel_ms,
+               graph=graph, eager_launches=launches,
+               profiled_launches=len(scan_us),
+               kernel_ms_per_launch=kernel_ms,
                kernel_share_of_step=kernel_ms / float(np.median(step_ms)),
                placed=int(sum((c >= 0).sum() for c, _ in log)),
                cpu_replay=dict(steps=PINNED_CPU_STEPS,
@@ -8053,7 +8131,7 @@ def main():
         {"name": "placement_scan", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_scan.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:244",
-         "launches": launches["scan"],
+         "main_path_eager_launches": launches["scan"],
          "front_launches": front_launches["scan"],
          "standalone_launches": standalone["launches"]["scan"],
          "http_launches": http["launches"]["scan"],
@@ -8065,11 +8143,11 @@ def main():
          "bound_by": scan["bound_by"], "key_evals": scan["key_evals"],
          "library_ms": None,
          "us_per_request": sserial["B256"]["us_per_request"],
-         "main_path_ms": summary["scan_ms_per_launch"],
+         "main_path_eager_ms": summary["scan_ms_per_eager_launch"],
          **cluster,
          "serial": sserial, "memory_traffic": kres["scan"]["times"],
          "scan_pinned": {k: pinned[k] for k in
-                         ("step_p50_ms", "kernel_ms_per_launch", "launches")},
+                         ("step_p50_ms", "kernel_ms_per_launch", "graph")},
          "penalized": sk["penalized"],
          "replay_launches": journal["replay_launches"]["scan"],
          "replay_ms": journal["replay_ms"]["scan"],
@@ -8102,7 +8180,7 @@ def main():
         {"name": "placement_repair", "route": "cuda",
          "source": "openwhisk_tpu_torch/csrc/placement_repair.cu",
          "replaces": "openwhisk_tpu/ops/placement_pallas.py:464",
-         "launches": launches["repair"],
+         "main_path_eager_launches": launches["repair"],
          "front_launches": front_launches["repair"],
          "standalone_launches": standalone["launches"]["repair"],
          "http_launches": http["launches"]["repair"],
@@ -8145,7 +8223,7 @@ def main():
          "replaces_note": "no Pallas kernel: the reference folds releases "
                           "inside its XLA step (release_batch, and "
                           "release_batch_vector at :600)",
-         "launches": launches["release"],
+         "main_path_eager_launches": launches["release"],
          "max_abs_err": max(kres["release"]["err"], rk["max_abs_err"]),
          "R": rk["R"], "valid_rows": rk["valid_rows"], "ms": rk["ms"],
          "plain_ms": rk["plain_ms"], "vector_ms": rk["vector_ms"],

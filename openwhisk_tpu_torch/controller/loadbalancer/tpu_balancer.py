@@ -55,8 +55,10 @@ and copies the B+1 decision vector back once. On the card (`device=None`
 or "cuda") the schedule always runs the CUDA kernels (`_cuda_pair`); the
 release and health folds are plain torch ops on the card. On the CPU
 (`device="cpu"`) everything is the plain torch version (`_torch_pair`).
-With a fleet mesh (`fleet_mesh`, `parallel/fleet_mesh.py`) the books are
-S per-shard books, one process drives every shard, and the step is the
+`BalancerCore` replays its step on the card as one CUDA graph per step
+shape (`BalancerCore._graphed_step`); `TpuBalancer` launches the step's
+ops. With a fleet mesh (`fleet_mesh`, `parallel/fleet_mesh.py`) the books
+are S per-shard books, one process drives every shard, and the step is the
 mesh's sharded torch ops (`fleet_pair`): placement, books, journal and
 snapshot stay bit-exact with the single device. The books are updated
 in place.
@@ -533,6 +535,32 @@ class StepResult(_StepFields):
         return self
 
 
+def _static_args(static: torch.Tensor, admit: bool):
+    """(buf, now) of a packed step read from its static input: with rate
+    admission the last int32 holds the clock's float32 bits, read as a
+    0-d float32 view, so each run of the step reads the clock the slot
+    holds then; without admission the whole input is the buffer and `now`
+    is None."""
+    if not admit:
+        return static, None
+    return static[:-1], static[-1:].view(torch.float32).reshape(())
+
+
+class _StepGraph:
+    """One step shape's static input, its pinned staging buffer, and the
+    shape's graph and static output (`BalancerCore._graphed_step`)."""
+
+    __slots__ = ("staging", "host", "static", "graph", "out")
+
+    def __init__(self, n: int, device: torch.device):
+        self.staging = torch.empty(n, dtype=torch.int32,
+                                   pin_memory=device.type == "cuda")
+        self.host = self.staging.numpy()
+        self.static = torch.empty(n, dtype=torch.int32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+
+
 class BalancerCore:
     """The balancer's device-facing core over a fixed invoker registry.
 
@@ -546,7 +574,10 @@ class BalancerCore:
     admission): a row carries its namespace's bucket as a tenth field, the
     buckets refill to the clock `set_clock` last gave (small-magnitude
     seconds), and a row over its namespace's rate comes back throttled,
-    unplaced."""
+    unplaced.
+
+    On the card a step replays its shape's CUDA graph (`_graphed_step`);
+    on the CPU it runs the packed step's ops one by one."""
 
     HEALTH_BATCH = 64
 
@@ -599,11 +630,23 @@ class BalancerCore:
         #: repair kernel's counts, summed over its launches (rows probed,
         #: of them resumed from their last round's rank, resumed rows that
         #: probed their whole window after all; the CPU counts none);
-        #: throttled: rows over their namespace's rate (0 without admission)
+        #: throttled: rows over their namespace's rate (0 without admission);
+        #: graph_captures / _replays / _fallbacks: the card's step graphs
+        #: (`_graphed_step`; 0 on the CPU)
         self.counters = {"steps": 0, "placed": 0, "forced": 0,
                          "releases_left": 0, "repair_rows_probed": 0,
                          "repair_rows_resumed": 0,
-                         "repair_resume_misses": 0, "throttled": 0}
+                         "repair_resume_misses": 0, "throttled": 0,
+                         "graph_captures": 0, "graph_replays": 0,
+                         "graph_fallbacks": 0}
+        #: the card's step graphs by (R, H, B), captured on the books and
+        #: buckets `_graph_live` describes (None on the CPU), the side
+        #: stream of their eager steps, and what a refused capture raised
+        self._graph_shapes: Optional[Dict[tuple, _StepGraph]] = (
+            {} if self.device.type == "cuda" else None)
+        self._graph_live: tuple = ()
+        self._graph_side: Optional[torch.cuda.Stream] = None
+        self._capture_errors: Dict[tuple, BaseException] = {}
 
     # -- registry ----------------------------------------------------------
     @property
@@ -682,15 +725,18 @@ class BalancerCore:
     def step(self) -> StepResult:
         """Place up to max_batch queued rows: one packed host buffer, one
         host->device copy, one fused step (release fold, health fold,
-        schedule), one device->host copy of the B+1 decision vector. Rows
-        that found no invoker, or were throttled, give their slot back.
-        With nothing queued the step only folds releases and health.
+        schedule; on the card one graph replay), one device->host copy of
+        the B+1 decision vector. Rows that found no invoker, or were
+        throttled, give their slot back. With nothing queued the step
+        only folds releases and health.
 
         While a profiler records, the step's phases are the ranges
         `core.assembly` (packing), `core.dispatch` (the copy and the
-        fused step's launches; the rate admission's are `core.admit`
-        inside it), `core.readback` (the host waiting on the card) and
-        `core.unpack` (decisions, slots, counters)."""
+        fused step's launches, or on the card its replay; the rate
+        admission's are `core.admit` inside it, opened where the step's
+        ops run one by one: on the CPU, and on the card at a shape's
+        eager step and capture), `core.readback` (the host waiting on the
+        card) and `core.unpack` (decisions, slots, counters)."""
         b = min(len(self._queued), self.max_batch)
         admit = self._buckets is not None
         if b == 0:
@@ -711,14 +757,20 @@ class BalancerCore:
             buf = np.concatenate([rel_np.ravel(), health_np.ravel(),
                                   req_np.ravel()])
         with span("core.dispatch"):
-            dbuf = torch.from_numpy(buf).to(self.device)
             sizes = (rel_np.shape[1], health_np.shape[1], bp)
-            if admit:
-                (self.state, self._buckets), out = self._packed_fn(
-                    (self.state, self._buckets), dbuf, self._now, *sizes)
+            if self._graph_shapes is not None:
+                out = self._graphed_step(buf, *sizes)
             else:
-                self.state, out = self._packed_fn(self.state, dbuf, *sizes)
+                dbuf = torch.from_numpy(buf).to(self.device)
+                if admit:
+                    (self.state, self._buckets), out = self._packed_fn(
+                        (self.state, self._buckets), dbuf, self._now, *sizes)
+                else:
+                    self.state, out = self._packed_fn(self.state, dbuf,
+                                                      *sizes)
         with span("core.readback"):
+            # synchronous: the step's staging copy is done once it returns
+            # (`_graphed_step` writes the staging again at the next step)
             host = out.cpu().numpy()
         with span("core.unpack"):
             # B decisions, the rounds, then the repair kernel's counts
@@ -742,6 +794,106 @@ class BalancerCore:
                 self.counters["throttled"] += int(throttled.sum())
         return StepResult(chosen, forced, rounds, bp, req_np[:, :b],
                           [k for k, _ in keys], throttled=throttled)
+
+    # -- the card's step graphs ----------------------------------------------
+    def _graphed_step(self, buf: np.ndarray, R: int, H: int,
+                      B: int) -> torch.Tensor:
+        """The packed step of `buf` on the card as its shape's CUDA graph:
+        the static output int32[B + 4], to be read before the shape's next
+        step.
+
+        A shape is (R, H, B); its graph holds for the books and buckets it
+        was captured on (their pointers, shapes and strides). When either
+        moves to other storage (`_idle_fold`, a resize, a caller's swap)
+        every graph is dropped and each shape is captured anew, so a
+        replay never writes into books that are no longer the live ones.
+
+        The step writes its buffer, and with rate admission the clock's
+        float32 bits as one more int32 (`_static_args`), into the shape's
+        pinned staging buffer and copies it to the static input without
+        blocking, on the current stream. The host may write the staging
+        again only once that copy is done: `step` reads the output back
+        synchronously before it returns, which completes the copy too. A
+        caller that reads back asynchronously must first wait for the
+        copy (an event after it) or the next step's copy may read a
+        half-written buffer. The shape's first step is
+        `_eager_and_capture`; later ones replay its graph, or run eagerly
+        if its capture was refused."""
+        admit = self._buckets is not None
+        live = tuple((t.data_ptr(), t.shape, t.stride())
+                     for t in self.state + (self._buckets or ()))
+        if live != self._graph_live:
+            self._graph_shapes.clear()
+            self._graph_live = live
+        key = (R, H, B)
+        shape = self._graph_shapes.get(key)
+        first = shape is None
+        if first:
+            shape = _StepGraph(len(buf) + admit, self.device)
+        shape.host[:len(buf)] = buf
+        if admit:
+            shape.host[-1] = np.float32(self._now).view(np.int32)
+        shape.static.copy_(shape.staging, non_blocking=True)
+        if first:
+            out = self._eager_and_capture(shape, key)
+            self._graph_shapes[key] = shape
+            return out
+        if shape.graph is None:
+            self.counters["graph_fallbacks"] += 1
+            return self._packed_step(shape.static, *key)
+        shape.graph.replay()
+        self.counters["graph_replays"] += 1
+        return shape.out
+
+    def _eager_and_capture(self, shape: _StepGraph,
+                           key: tuple) -> torch.Tensor:
+        """A shape's first step on the live books: the packed step run
+        eagerly on a side stream (it builds or loads the kernels and fills
+        their launch caches; it is the step's real run, so it runs once),
+        then captured into the shape's graph. A capture records and runs
+        nothing, so the shape's next step is its first replay. A capture
+        that raises leaves the shape eager (`_capture_errors` keeps what it
+        raised; `graph_fallbacks` counts it and the shape's later steps).
+        Kernel wrappers count the eager run's launches alone."""
+        if self._graph_side is None:
+            self._graph_side = torch.cuda.Stream(self.device)
+        side, current = self._graph_side, torch.cuda.current_stream(
+            self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._packed_step(shape.static, *key)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with placement_cuda.uncounted():
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        shape.out = self._packed_step(shape.static, *key)
+                    finally:
+                        graph.capture_end()
+            except RuntimeError as e:
+                self._capture_errors[key] = e
+                self.counters["graph_fallbacks"] += 1
+            else:
+                shape.graph = graph
+                self.counters["graph_captures"] += 1
+        current.wait_stream(side)
+        return out
+
+    def _packed_step(self, static: torch.Tensor, R: int, H: int,
+                     B: int) -> torch.Tensor:
+        """The packed step on static input `static`, into the live books
+        and, with rate admission, the live buckets (the admission returns
+        new bucket tensors: they are copied in, so the books and buckets
+        stay the tensors they were). Returns the step's output."""
+        buf, now = _static_args(static, self._buckets is not None)
+        if now is None:
+            return self._packed_fn(self.state, buf, R, H, B)[1]
+        (_, buckets), out = self._packed_fn((self.state, self._buckets),
+                                            buf, now, R, H, B)
+        for live, new in zip(self._buckets, buckets):
+            if new is not live:
+                live.copy_(new)
+        return out
 
     def _idle_fold(self) -> None:
         if self._releases:

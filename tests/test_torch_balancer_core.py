@@ -348,7 +348,9 @@ def test_release_counters_count_the_fold_intake():
     assert core.counters == {"steps": 4, "placed": 316, "forced": 0,
                              "releases_left": 44, "repair_rows_probed": 0,
                              "repair_rows_resumed": 0,
-                             "repair_resume_misses": 0, "throttled": 0}
+                             "repair_resume_misses": 0, "throttled": 0,
+                             "graph_captures": 0, "graph_replays": 0,
+                             "graph_fallbacks": 0}
     assert not core._releases
     assert core.books()[0].sum() == 64 * 2048 - 16 * 128
 

@@ -28,7 +28,10 @@ def _card():
 def _run(device, widths):
     """30 steps on the 64k cell's clock: 256-row steps over six namespaces
     of skewed traffic behind 600 invocations a minute, completions at
-    random. (decisions, books, counters, widths of the step's output)."""
+    random. (decisions, books, counters); `widths` gets the width of the
+    step's output at each call of the packed step: every step on the CPU,
+    the eager step and the capture of the one shape on the card, whose
+    later steps replay the capture."""
     core = TB.BalancerCore([2048] * 3000, device=device, max_batch=256,
                            action_slots=64, rate_limit_per_minute=600)
     fn = core._packed_fn
@@ -66,7 +69,9 @@ def test_admit_step_on_the_card_carries_the_counted_tail():
     for x, y in zip(card_books, cpu_books):
         np.testing.assert_array_equal(x, y)
     # B decisions, then the rounds and the repair kernel's three counts
-    assert card_widths == [4] * 30 and cpu_widths == [1] * 30
+    assert card_widths == [4] * 2 and cpu_widths == [1] * 30
+    assert card_counts["graph_captures"] == 1
+    assert card_counts["graph_replays"] == 29
     assert card_counts["repair_rows_probed"] > 0
     assert card_counts["throttled"] == cpu_counts["throttled"] > 0
     assert card_counts["placed"] == cpu_counts["placed"] > 0
